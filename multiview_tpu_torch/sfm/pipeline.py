@@ -30,7 +30,7 @@ from multiview_tpu_torch.sfm import features as feat_mod
 from multiview_tpu_torch.sfm import matching as match_mod
 from multiview_tpu_torch.sfm import ransac as ransac_mod
 from multiview_tpu_torch.sfm import tracks as tracks_mod
-from multiview_tpu_torch.utils.device import default_device
+from multiview_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -57,15 +57,16 @@ class FrontendConfig:
 
 def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8,
                device=None):
-    """Detect + describe every image on ``device``. Returns (keypoints list,
-    descriptor list) of device tensors.
+    """Detect + describe every image on ``device`` (the first CUDA card when
+    None; pass ``"cpu"`` for the CPU). Returns (keypoints list, descriptor
+    list) of device tensors.
 
     Same-shape images are detected as one batch per ``chunk``; an image of
     a batch that comes back under the adaptive floor (``max_features//10``
     survivors) is re-run alone with a 256x lower starting threshold, as the
     reference's batched path does. A lone image of its shape is detected
     alone with no such retry (the reference's per-image path)."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     n = len(images)
     kps: list = [None] * n
     descs: list = [None] * n
@@ -181,9 +182,10 @@ def detect_match_features(images: Sequence[np.ndarray],
                           world_to_cam: Optional[np.ndarray] = None,
                           cams_of_image: Optional[Sequence[int]] = None,
                           device=None) -> tracks_mod.TrackSet:
-    """Full front end: images -> TrackSet. With cam_params/world_to_cam
+    """Full front end: images -> TrackSet, on ``device`` (the first CUDA card
+    when None; pass ``"cpu"`` for the CPU). With cam_params/world_to_cam
     given, applies the camera-guided reprojection filter per pair."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     kps, descs = detect_all(images, cfg, device=device)
     n = len(images)
     pair_ids = [(i, j) for i in range(n)

@@ -4,8 +4,9 @@ camera poses (+ images for feature matching), multi-pass robust BA with
 float specs, reference-format outputs (rig_config.txt / cameras.txt /
 cameras.nvm).
 
-Runs on the first CUDA card when one is present (float32), otherwise on the
-CPU (float64). Flags of parts not ported yet raise NotImplementedError:
+Runs on the first CUDA card (float32) and raises when there is none;
+``--device cpu`` asks for the CPU (float64). Flags of parts not ported yet
+raise NotImplementedError:
 depth and mesh constraints, registration, sharding, retrieval and
 out-of-core matching, texture output and the voxblox / depth-cloud /
 match-file exports.
@@ -29,6 +30,9 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--images", help="image dir (<sensor>/<timestamp>.ext) for "
                                     "feature detection+matching")
     p.add_argument("--out_dir", required=True)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to compute: the first CUDA card (float32; an error "
+                        "when there is none) or the CPU (float64)")
     p.add_argument("--no_rig", action="store_true")
     p.add_argument("--num_iterations", type=int, default=20)
     p.add_argument("--calibrator_num_passes", type=int, default=2)
@@ -148,13 +152,13 @@ def run(args):
     from multiview_tpu_torch.sfm import pipeline as fe
     from multiview_tpu_torch.tools import common
     from multiview_tpu_torch.utils import images as img_utils
-    from multiview_tpu_torch.utils.device import default_device, working_dtype
+    from multiview_tpu_torch.utils.device import resolve_device, working_dtype
 
     for name, bad, what in _NOT_PORTED:
         if bad(getattr(args, name)):
             raise NotImplementedError(f"calibrate: {what} is not ported yet")
 
-    device = default_device()
+    device = resolve_device(args.device)
     dtype = working_dtype(device)
     last = [time.perf_counter()]
 

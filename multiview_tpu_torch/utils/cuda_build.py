@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -49,24 +49,41 @@ def library_path(source_name: str) -> Path:
     return BUILD_DIR / f"{src.stem}_{key[:16]}.so"
 
 
+def _start_build(source_name: str, out: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source_name)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish_build(source_name: str, out: Path, proc, tmp: Path, t0: float) -> str:
+    """Waits for one nvcc; returns its error text, empty when it succeeded."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        return f"nvcc failed to build {source_name}:\n{stdout}\n{stderr}"
+    os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
+    build_reports[source_name] = (time.perf_counter() - t0, (stdout + stderr).strip())
+    return ""
+
+
+def build_libraries(source_names: Sequence[str]) -> None:
+    """Build every source of ``source_names`` that is not built yet, one
+    ``nvcc`` process each, all started together; every process is waited
+    for before a failure is raised."""
+    todo = [(name, library_path(name)) for name in source_names if name not in _libs]
+    running = [(name, out, _start_build(name, out)) for name, out in todo if not out.exists()]
+    errors = [_finish_build(name, out, *started) for name, out, started in running]
+    if any(errors):
+        raise RuntimeError("\n".join(e for e in errors if e))
+
+
 def load_library(source_name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source_name>``."""
     lib = _libs.get(source_name)
     if lib is not None:
         return lib
-    out = library_path(source_name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source_name)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {source_name}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
-        build_reports[source_name] = (time.perf_counter() - t0,
-                                      (proc.stdout + proc.stderr).strip())
-    lib = ctypes.CDLL(str(out))
+    build_libraries([source_name])
+    lib = ctypes.CDLL(str(library_path(source_name)))
     _libs[source_name] = lib
     return lib

@@ -10,8 +10,25 @@ import torch
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when one is present, otherwise the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The first CUDA card. The port never chooses the CPU by itself: with
+    no CUDA device this raises, and the caller names the CPU explicitly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "multiview_tpu_torch runs on an NVIDIA GPU and found no CUDA device. To run "
+            "on the CPU, ask for it: --device cpu on the command line, device=\"cpu\" in "
+            "the Python entry points.")
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; ``None`` and ``"cuda"`` mean the first
+    CUDA card (``default_device``), which raises when there is none."""
+    if device is None:
+        return default_device()
+    device = torch.device(device)
+    if device.type == "cuda" and (device.index is None or not torch.cuda.is_available()):
+        return default_device()   # cuda:0, or raises naming the remedy
+    return device
 
 
 def working_dtype(device) -> torch.dtype:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's main path on one GPU.
 
-    python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out]
+    python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba]
 
 Renders the two-sensor rig workspace of chip_smoke.py, then traces with
 torch.profiler (a) one ``calibrate`` run through the CLI entry point and
@@ -46,12 +46,21 @@ def traced(name, fn, out_dir: Path):
     print(f"[profile] {name}: wall {wall:.3f} s, device busy {device_us / 1e6:.3f} s, "
           f"idle share {1 - device_us / 1e6 / wall:.3f}", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    # the port's own kernels, whatever their rank in the table
+    own = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(k in e.key for k in ("knn2", "split_rows", "merge_splits", "row_sq_norms"))]
+    for e in own:
+        print(f"[profile] {name}: own kernel {e.key[:60]}: {e.count} launches, "
+              f"{e.self_device_time_total / 1e3:.3f} ms", flush=True)
+    print(f"[profile] {name}: own kernels {sum(e.self_device_time_total for e in own) / 1e3:.3f}"
+          f" ms of {device_us / 1e3:.1f} ms device time", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n_ref", type=int, default=12)
     ap.add_argument("--out", default=str(ROOT / "profile_out"))
+    ap.add_argument("--skip_ba", action="store_true", help="trace calibrate only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -85,6 +94,9 @@ def main() -> int:
                         if line.startswith(("[profile]", "BA pass"))), flush=True)
         traced("calibrate", lambda: calibrate(2), out_dir)
 
+    if args.skip_ba:
+        print(torch.cuda.get_device_name(0))
+        return 0
     dev = torch.device("cuda", 0)
     scene = syn.make_cube_scene(n_images=160, n_per_face=20,
                                 dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), pix_noise=0.5,

@@ -5,12 +5,14 @@ tests/test_cli_tools.py (200x150 PGM frames, 300 features) through both
 Bars: track counts within 2% (features agree to float32 summation order,
 see test_torch_frontend.py); the port's recovered rig transform within
 0.05 deg and 2 mm of the JAX package's; both within the truth bar of
-test_cli_tools.py (1 deg, 0.05 m)."""
+test_cli_tools.py (1 deg, 0.05 m). The port runs with ``--device cpu``:
+without it the tool asks for a CUDA card and raises where there is none."""
 
 import re
 
 import numpy as np
 import pytest
+import torch
 
 from multiview_tpu.__main__ import main as jax_main
 from multiview_tpu_torch.__main__ import main as torch_main
@@ -21,6 +23,7 @@ from torch_port_scenes import jax_sampler, rig_error, write_rig_workspace
 ARGS = ["--rig_transforms_to_float", "--camera_poses_to_float", "--bracket_len", "1.5",
         "--num_iterations", "15", "--calibrator_num_passes", "1",
         "--max_features", "300", "--num_overlaps", "2"]
+CPU = ["--device", "cpu"]
 
 
 @pytest.fixture(scope="module")
@@ -30,10 +33,10 @@ def workspace(tmp_path_factory):
     return ws
 
 
-def _run(main, ws, out, capsys):
+def _run(main, ws, out, capsys, extra=()):
     ret = main(["calibrate", "--rig_config", str(ws / "rig_config.txt"),
                 "--camera_poses", str(ws / "cameras.txt"), "--images", str(ws / "images"),
-                "--out_dir", str(out)] + ARGS)
+                "--out_dir", str(out)] + ARGS + list(extra))
     assert ret == 0
     text = capsys.readouterr().out
     n_tracks = int(re.search(r"Built (\d+) tracks", text).group(1))
@@ -43,7 +46,7 @@ def _run(main, ws, out, capsys):
 def test_calibrate_cli_matches_jax(workspace, tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(TR, "sample_hypotheses", jax_sampler)
     rig_j, tracks_j = _run(jax_main, workspace, tmp_path / "jax", capsys)
-    rig_t, tracks_t = _run(torch_main, workspace, tmp_path / "torch", capsys)
+    rig_t, tracks_t = _run(torch_main, workspace, tmp_path / "torch", capsys, CPU)
     assert tracks_j > 100
     assert abs(tracks_t - tracks_j) <= 0.02 * tracks_j, (tracks_t, tracks_j)
 
@@ -70,4 +73,36 @@ def test_unported_flags_raise(workspace, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         torch_main(["calibrate", "--rig_config", str(workspace / "rig_config.txt"),
                     "--camera_poses", str(workspace / "cameras.txt"),
-                    "--out_dir", str(tmp_path)] + ARGS + flag)
+                    "--out_dir", str(tmp_path)] + ARGS + CPU + flag)
+
+
+def test_calibrate_without_device_cpu_raises_and_never_reaches_the_front_end(
+        workspace, tmp_path, monkeypatch):
+    """The port never picks the CPU by itself: where there is no CUDA card,
+    ``calibrate`` without ``--device cpu`` raises an error that names the
+    flag, before any image is read or feature detected."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device exists")
+    from multiview_tpu_torch.sfm import pipeline as TPl
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import device as dev_mod
+
+    def unreachable(*a, **k):
+        raise AssertionError("reached the front end without a device")
+
+    detect_all = TPl.detect_all
+    monkeypatch.setattr(TPl, "detect_match_features", unreachable)
+    monkeypatch.setattr(TPl, "detect_all", unreachable)
+    monkeypatch.setattr(common, "scan_image_dir", unreachable)
+    argv = ["calibrate", "--rig_config", str(workspace / "rig_config.txt"),
+            "--camera_poses", str(workspace / "cameras.txt"),
+            "--images", str(workspace / "images"), "--out_dir", str(tmp_path / "out")] + ARGS
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            torch_main(argv + extra)
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dev_mod.default_device()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        detect_all([np.zeros((8, 8), np.float32)], TPl.FrontendConfig())
+    assert dev_mod.resolve_device("cpu") == torch.device("cpu")
