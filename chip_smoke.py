@@ -21,21 +21,42 @@ printing a result):
    at D = 96 (ragged, and the shape of phase 2b); median times over distinct
    inputs of the kernel, the FMA kernel, the plain version and the product
    ``torch.matmul`` alone, beside the operation bound;
-2. the main path: render a two-sensor rig workspace (1280x960, focal 1120 px,
-   12 reference + 11 radtan frames with a 0.13 s clock offset) and run
-   ``python -m multiview_tpu_torch calibrate`` in process, through the
-   tensor-core kernel; checks the launch count, the track count, the cost
-   decrease, the recovered rig transform (1 deg / 0.05 m) and the output
-   files;
+2. the main path without the depth camera: a two-sensor rig workspace
+   (1280x960, focal 1120 px, 12 reference + 11 radtan frames with a 0.13 s
+   clock offset; the frames are rendered once, in worker processes, for this
+   phase and phase 4) and ``python -m multiview_tpu_torch calibrate`` in
+   process, through the tensor-core kernel; checks the launch count, the
+   track count, the cost decrease, the recovered rig transform (1 deg /
+   0.05 m) and the output files;
 2b. the odd-width path: ``match_pairs_batched`` over five images of 1000
    planted features with 96-wide descriptors, through the FMA kernel; checks
    the launch count and the planted correspondences;
 3. Schur-LM bundle adjustment at the bench's size (cube scene 160 images x
    20x20 points per face, about 384k observations, float32): finite,
-   decreasing cost and LM iterations per second.
+   decreasing cost and LM iterations per second;
+4. the main path with the depth camera: the same workspace plus haz_cam (11
+   pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
+   rig_config.txt is off the truth by a scale of 1.03 and a rotation of one
+   degree; ``calibrate`` with ``--depth_tri_weight 25 --float_scale
+   --depth_to_image_transforms_to_float haz_cam``; checks the launch count,
+   the attached depth rows, the cost decrease in both passes, both rig
+   transforms (1 deg / 0.05 m), the recovered depth_to_image (0.5% / 0.1 deg),
+   the depth clouds' alignment with the terrain (median under 5 mm) and the
+   output files;
+4b. the mesh families: ``ray_mesh_intersect`` on the card (float32) at 20000
+   rays x the tessellated terrain (at least 100k triangles) against the same
+   function in float64 on the card, itself held to the CPU in float64 on
+   every fifth ray; then ``calibrate`` on the phase 4 workspace with
+   ``--mesh --mesh_tri_weight --depth_mesh_weight``: hits for most inlier
+   rows, cost decrease, rig transforms, time of the per-pass ray cast;
+5. the dense LM and the RPC fit on the card: ``fit_rpc_dist_undist`` of one
+   radtan camera (degree 5, round trip under 0.01 px) and ``optimize_rig`` with the
+   dense back end on a small cube scene.
 
 The last three lines of standard output are the kernel record (JSON: each
-kernel with its launches on its path, its time, its plain version's, the
+kernel with its launches on its paths (the tensor-core kernel's is the sum
+over phases 2, 4 and 4b, each counted from 0 and each required to be
+positive; ``launches_by_path`` has the three), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
 that path's shape), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +94,13 @@ MEM_PEAK = 3.35e12
 WGMMA_SOURCE = "multiview_tpu_torch/csrc/knn2_wgmma.cu"
 FMA_SOURCE = "multiview_tpu_torch/csrc/knn2.cu"
 TRACKS_EXPECTED = 5145     # phase 2 with the FMA kernel on this workspace
+N_REF = 12                 # reference frames of the rendered workspace
+SIZE, FOCAL = (1280, 960), 1120.0
+# what rig_config.txt says of haz_cam's depth_to_image in phase 4 (the truth is
+# the identity): a scale and a rotation vector of 0.01755 rad = 1.006 deg
+D2I_GUESS_SCALE, D2I_GUESS_ROTVEC = 1.03, (0.01, -0.012, 0.008)
+RAY_CHECK = 20000          # rays of the phase 4b ray-cast check
+MESH_STEP = 0.03           # terrain grid step: 334 x 267 cells x 2 = 178k triangles
 ODD_PATH = (5, 1000, 96)   # phase 2b: images, features per image, descriptor width
 
 
@@ -218,27 +246,46 @@ def phase1(torch, mm, device, card):
     return out
 
 
-def phase2(torch, mm, card, workdir: Path, n_ref: int):
-    """Render the rig workspace and calibrate it through the CLI entry."""
+def d2i_guess():
+    """The 4x4 depth_to_image that phase 4's rig_config.txt gives haz_cam."""
     import numpy as np
-    from multiview_tpu_torch.__main__ import main as cli_main
+    import torch
     from multiview_tpu_torch.geometry import pose as P
-    from multiview_tpu_torch.io import rig_config as rc
+    guess = np.eye(4)
+    rot = P.quat_to_matrix(P.quat_exp(torch.tensor(D2I_GUESS_ROTVEC, dtype=torch.float64)))
+    guess[:3, :3] = D2I_GUESS_SCALE * rot.numpy()
+    return guess
+
+
+def render_workspaces(workdir: Path):
+    """The three-sensor workspace, rendered in worker processes, and the
+    two-sensor workspace of phase 2 made of the same nav and sci frames."""
     from multiview_tpu_torch.utils import synthetic as syn
 
     t0 = time.perf_counter()
-    ws = workdir / "ws"
-    rig_true = syn.build_rig_workspace(ws, n_ref, (1280, 960), 1120.0)
-    render_s = time.perf_counter() - t0
-    print(f"[phase2] rendered {2 * n_ref - 1} frames of 1280x960 in {render_s:.1f} s",
-          flush=True)
+    rig_true = syn.build_rig_workspace(workdir / "ws3", N_REF, SIZE, FOCAL, depth=True,
+                                       depth_to_image_guess=d2i_guess(), workers=7)
+    syn.build_rig_workspace(workdir / "ws", N_REF, SIZE, FOCAL, frames_from=workdir / "ws3")
+    print(f"[render] {3 * N_REF - 2} frames of {SIZE[0]}x{SIZE[1]} ({N_REF - 1} with a .pc "
+          f"cloud) in 7 processes, and the two-sensor workspace from the same frames: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rig_true
 
-    out = workdir / "calib"
+
+def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool = True):
+    """``calibrate`` in process on a rendered workspace, with the launch
+    counts set to 0 just before and read just after. Returns what the checks
+    read: launches, wall time, the parsed log, the written rig config. The BA
+    cost must decrease over the run and rise in no pass; with ``every_pass``
+    it must decrease in each of the two passes."""
+    from multiview_tpu_torch.__main__ import main as cli_main
+    from multiview_tpu_torch.io import rig_config as rc
+
     argv = ["calibrate", "--rig_config", str(ws / "rig_config.txt"),
             "--camera_poses", str(ws / "cameras.txt"), "--images", str(ws / "images"),
             "--out_dir", str(out), "--rig_transforms_to_float", "--camera_poses_to_float",
             "--bracket_len", "1.5", "--max_features", "4096", "--num_overlaps", "3",
-            "--num_iterations", "20", "--calibrator_num_passes", "2", "--profile"]
+            "--num_iterations", "20", "--calibrator_num_passes", "2", "--profile"] + extra
     tee = Tee(sys.stdout)
     mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
     torch.cuda.synchronize()
@@ -247,41 +294,235 @@ def phase2(torch, mm, card, workdir: Path, n_ref: int):
         ret = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = mm.WGMMA_LAUNCHES
-    fma_launches = mm.FMA_LAUNCHES
+    launches, fma_launches = mm.WGMMA_LAUNCHES, mm.FMA_LAUNCHES
     text = tee.buf.getvalue()
     if ret != 0:
-        raise AssertionError(f"calibrate returned {ret}")
-
-    costs = [(float(a), float(b)) for a, b in re.findall(
-        r"BA pass \d+: cost (\S+) -> (\S+)", text)]
-    stages = re.findall(r"\[profile\] cli (\S+): (\S+)s", text)
-    tracks = int(re.search(r"Built (\d+) tracks", text).group(1))
+        raise AssertionError(f"{tag}: calibrate returned {ret}")
     nobs = re.search(r"Assembled (\d+) pixel observations of (\d+) points", text)
-    rig2 = rc.read_rig_config(out / "rig_config.txt")
-    est = P.matrix_to_pose(torch.as_tensor(rig2.sensors[1].ref_to_sensor))
-    rel = P.pose_compose(P.pose_inverse(est), torch.as_tensor(rig_true["sci_cam"]))
-    rot_err = float(np.degrees(np.linalg.norm(P.quat_log(P.pose_q(rel)).numpy())))
-    trans_err = float(np.linalg.norm(P.pose_t(rel).numpy()))
-    print(f"[phase2] calibrate wall {wall:.2f} s; stages "
-          + " ".join(f"{k}={v}s" for k, v in stages)
-          + f"; tracks {tracks}; pixel observations {nobs.group(1)} of {nobs.group(2)} "
-          f"points; costs {costs}; tensor-core matcher launches {launches} (FMA kernel "
-          f"{fma_launches}); rig error "
-          f"{rot_err:.4f} deg {trans_err * 1000:.2f} mm [{card}]", flush=True)
+    depth = re.search(r"Attached (\d+) depth measurements", text)
+    run = {
+        "launches": launches, "wall": wall, "text": text,
+        "costs": [(float(a), float(b)) for a, b in re.findall(
+            r"BA pass \d+: cost (\S+) -> (\S+)", text)],
+        "stages": {k: float(v) for k, v in re.findall(r"\[profile\] cli (\S+): (\S+)s", text)},
+        "passes": re.findall(r"\[profile\] (pass \d+: .*)", text),
+        "tracks": int(re.search(r"Built (\d+) tracks", text).group(1)),
+        "pixel_rows": int(nobs.group(1)), "points": int(nobs.group(2)),
+        "depth_rows": int(depth.group(1)) if depth else 0,
+        "rig": rc.read_rig_config(out / "rig_config.txt")}
     if launches <= 0 or fma_launches != 0:
-        raise AssertionError("the main path (D = 128) must launch the tensor-core matcher "
+        raise AssertionError(f"{tag}: the path (D = 128) must launch the tensor-core matcher "
                              f"and only it: counted {launches} and {fma_launches} (FMA)")
-    if abs(tracks - TRACKS_EXPECTED) > 0.01 * TRACKS_EXPECTED:
-        raise AssertionError(f"{tracks} tracks, expected {TRACKS_EXPECTED} within 1%")
-    if not costs or not costs[-1][1] < costs[0][0] or any(b > a for a, b in costs):
-        raise AssertionError(f"BA cost did not decrease: {costs}")
-    if not (rot_err < 1.0 and trans_err < 0.05):
-        raise AssertionError(f"rig transform off: {rot_err} deg, {trans_err} m")
+    costs = run["costs"]
+    if len(costs) != 2 or not costs[-1][1] < costs[0][0] or any(b > a for a, b in costs) \
+            or (every_pass and any(not b < a for a, b in costs)):
+        raise AssertionError(f"{tag}: BA cost did not decrease: {costs}")
+    return run
+
+
+def rig_errors(torch, run, rig_true, names):
+    """{sensor: (rotation deg, translation m)} of the written ref_to_sensor
+    against the truth; raises beyond 1 deg / 0.05 m."""
+    import numpy as np
+    from multiview_tpu_torch.geometry import pose as P
+
+    out = {}
+    for s in run["rig"].sensors:
+        if s.name not in names:
+            continue
+        est = P.matrix_to_pose(torch.as_tensor(s.ref_to_sensor))
+        rel = P.pose_compose(P.pose_inverse(est), torch.as_tensor(rig_true[s.name]))
+        rot = float(np.degrees(np.linalg.norm(P.quat_log(P.pose_q(rel)).numpy())))
+        trans = float(np.linalg.norm(P.pose_t(rel).numpy()))
+        out[s.name] = (round(rot, 4), round(trans, 5))
+        if not (rot < 1.0 and trans < 0.05):
+            raise AssertionError(f"rig transform of {s.name} off: {rot} deg, {trans} m")
+    return out
+
+
+def phase2(torch, mm, card, workdir: Path, rig_true):
+    """Calibrate the two-sensor workspace through the CLI entry."""
+    out = workdir / "calib"
+    run = run_calibrate(torch, mm, "phase 2", workdir / "ws", out, [], every_pass=False)
+    errs = rig_errors(torch, run, rig_true, ("sci_cam",))
+    print(f"[phase2] calibrate wall {run['wall']:.2f} s; stages "
+          + " ".join(f"{k}={v}s" for k, v in run["stages"].items())
+          + f"; tracks {run['tracks']}; pixel observations {run['pixel_rows']} of "
+          f"{run['points']} points; costs {run['costs']}; tensor-core matcher launches "
+          f"{run['launches']} (FMA kernel 0); rig error (deg, m) {errs} [{card}]", flush=True)
+    if abs(run["tracks"] - TRACKS_EXPECTED) > 0.01 * TRACKS_EXPECTED:
+        raise AssertionError(f"{run['tracks']} tracks, expected {TRACKS_EXPECTED} within 1%")
     for f in ("rig_config.txt", "cameras.txt"):
         if not (out / f).is_file():
             raise AssertionError(f"missing output {f}")
-    return launches, wall
+    return run["launches"]
+
+
+def depth_alignment(torch, calib: Path, ws: Path, sample: int = 37):
+    """How far the haz_cam clouds, lifted to the world through the
+    *calibrated* chain (depth_to_image with its scale, refined pose), lie
+    from the true terrain: |z - terrain_height(x, y)| over every ``sample``-th
+    cloud point, after a similarity alignment of the calibrated camera
+    centres to the true ones (a calibration has a free global gauge).
+    Returns (points, median m, 95th percentile m)."""
+    import numpy as np
+    from multiview_tpu_torch.geometry import registration as reg
+    from multiview_tpu_torch.io import depth_io, nvm as nvm_io, rig_config as rc
+    from multiview_tpu_torch.utils.synthetic import terrain_height
+
+    haz = next(s for s in rc.read_rig_config(calib / "rig_config.txt").sensors
+               if s.name == "haz_cam")
+    d2i = np.asarray(haz.depth_to_image)
+    names, mats = nvm_io.read_camera_poses(calib / "cameras.txt")
+    truth = {Path(n).name: M for n, M in zip(*nvm_io.read_camera_poses(ws / "cameras.txt"))}
+    centre = lambda M: -M[:3, :3].T @ M[:3, 3]  # noqa: E731
+    est_c = torch.as_tensor(np.stack([centre(M) for M in mats]))
+    true_c = torch.as_tensor(np.stack([centre(truth[Path(n).name]) for n in names]))
+    scale, spose = reg.find_similarity_transform(est_c, true_c)
+    res = []
+    for n, M in zip(names, mats):
+        if Path(n).parent.name != "haz_cam":
+            continue
+        xyz = depth_io.read_xyz_image(Path(n).with_suffix(".pc")).reshape(-1, 3)[::sample]
+        xyz = xyz[np.linalg.norm(xyz, axis=-1) > 1e-6].astype(np.float64)
+        cam_pts = xyz @ d2i[:3, :3].T + d2i[:3, 3]
+        c2w = np.linalg.inv(M)
+        world = reg.apply_similarity(scale, spose, torch.as_tensor(
+            cam_pts @ c2w[:3, :3].T + c2w[:3, 3])).numpy()
+        res.append(np.abs(world[:, 2] - terrain_height(world[:, 0], world[:, 1])))
+    r = np.concatenate(res)
+    return len(r), float(np.median(r)), float(np.percentile(r, 95))
+
+
+def phase4(torch, mm, card, workdir: Path, rig_true):
+    """``calibrate`` with the depth camera: depth rows against the
+    triangulated points, depth_to_image and its scale floated from a guess
+    that is off the truth."""
+    import numpy as np
+    from multiview_tpu_torch.geometry import pose as P
+
+    ws, out = workdir / "ws3", workdir / "calib3"
+    run = run_calibrate(torch, mm, "phase 4", ws, out, [
+        "--depth_tri_weight", "25.0", "--float_scale",
+        "--depth_to_image_transforms_to_float", "haz_cam", "--save_nvm"])
+    errs = rig_errors(torch, run, rig_true, ("sci_cam", "haz_cam"))
+    d2i = np.asarray(next(s for s in run["rig"].sensors if s.name == "haz_cam").depth_to_image)
+    scale = float(np.linalg.det(d2i[:3, :3]) ** (1.0 / 3.0))
+    rot = P.matrix_to_quat(torch.as_tensor(d2i[:3, :3] / scale))
+    rot_deg = float(np.degrees(np.linalg.norm(P.quat_log(rot).numpy())))
+    n_pts, med, p95 = depth_alignment(torch, out, ws)
+    st = run["stages"]
+    print(f"[phase4] calibrate with the depth camera: wall {run['wall']:.2f} s; front end "
+          f"{st['frontend_tracks']:.2f} s; BA {st['optimize_rig']:.2f} s; read+scan "
+          f"{st['read+scan']:.2f} s; assemble {st['assemble']:.2f} s; tracks {run['tracks']}; "
+          f"pixel rows {run['pixel_rows']} of {run['points']} points; depth rows "
+          f"{run['depth_rows']}; costs {run['costs']}; tensor-core matcher launches "
+          f"{run['launches']} (FMA kernel 0); rig error (deg, m) {errs}; depth_to_image of "
+          f"haz_cam from scale {D2I_GUESS_SCALE} / 1.006 deg to scale {scale:.5f} / "
+          f"{rot_deg:.4f} deg off the truth; depth alignment over {n_pts} cloud points: "
+          f"median {med:.5f} m, 95th percentile {p95:.5f} m [{card}]", flush=True)
+    for line in run["passes"]:
+        print(f"[phase4] {line}", flush=True)
+    if run["depth_rows"] <= 0:
+        raise AssertionError("phase 4: no depth measurement was attached")
+    # measured on an H100: 0.12% and 0.007 deg off; the bars leave a factor of four
+    if not (abs(scale - 1.0) < 0.005 and rot_deg < 0.1):
+        raise AssertionError(f"phase 4: depth_to_image not recovered: scale {scale}, "
+                             f"{rot_deg} deg")
+    if not med < 0.005:                              # measured: 0.8 mm
+        raise AssertionError(f"phase 4: depth clouds {med} m (median) off the terrain")
+    for f in ("rig_config.txt", "cameras.txt", "cameras.nvm"):
+        if not (out / f).is_file():
+            raise AssertionError(f"missing output {f}")
+    return run["launches"]
+
+
+def ray_cast_check(torch, device, card, tri_np):
+    """``ray_mesh_intersect`` in float32 on the card against float64 on the
+    card at RAY_CHECK rays x all triangles, and float64 on the card against
+    float64 on the CPU on every fifth ray."""
+    import numpy as np
+    from multiview_tpu_torch.texture import raycast
+
+    g = np.random.default_rng(3)
+    o = np.column_stack([g.uniform(-0.5, 4.0, RAY_CHECK), g.uniform(-0.5, 1.5, RAY_CHECK),
+                         g.uniform(1.5, 2.5, RAY_CHECK)])
+    d = np.column_stack([g.uniform(-0.6, 0.6, (RAY_CHECK, 2)), -np.ones(RAY_CHECK)])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[::50, 2] *= -1.0                                   # rays that leave upwards: misses
+    kw = dict(min_dist=0.1, max_dist=2.6)                # some hits lie beyond max_dist
+
+    def cast(dev, dtype, sl=slice(None)):
+        args = [torch.as_tensor(a[sl], dtype=dtype, device=dev) for a in (o, d)]
+        tri = torch.as_tensor(tri_np, dtype=dtype, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raycast.ray_mesh_intersect(*args, tri, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return [x.cpu() for x in out], time.perf_counter() - t0
+
+    cast(device, torch.float32, slice(0, 256))           # warm-up
+    (t32, i32, h32), s32 = cast(device, torch.float32)
+    (t64, i64, h64), s64 = cast(device, torch.float64)
+    (tc, ic, hc), sc = cast(torch.device("cpu"), torch.float64, slice(None, None, 5))
+    if not (torch.equal(h64[::5], hc) and torch.equal(i64[::5], ic)
+            and torch.allclose(t64[::5], tc, rtol=1e-12, atol=1e-12)):
+        raise AssertionError("phase 4b: float64 ray cast differs between the card and the CPU")
+    # a float32 hit flag is held where float64 decides it by a margin: the
+    # distance is not within 1e-4 relative of either end of the search window
+    edge = ((t64 - kw["min_dist"]).abs() < 1e-4 * t64) | ((t64 - kw["max_dist"]).abs() < 1e-4 * t64)
+    decided = ~edge
+    flips = int((h32 != h64)[decided].sum())
+    both = h32 & h64
+    rel = float(((t32.double() - t64).abs() / t64)[both].max())
+    same_tri = float((i32 == i64)[both].double().mean())
+    pairs = RAY_CHECK * len(tri_np)
+    print(f"[phase4b] ray_mesh_intersect {RAY_CHECK} rays x {len(tri_np)} triangles: float32 on "
+          f"the card {s32 * 1e3:.1f} ms ({pairs / s32 / 1e9:.2f} G ray-triangle tests/s), "
+          f"float64 on the card {s64 * 1e3:.1f} ms, float64 on the CPU (every fifth ray) "
+          f"{sc:.1f} s; hits {int(h64.sum())} of {RAY_CHECK}; float64 card == CPU; float32 vs "
+          f"float64: hit flags differ on {flips} decided rays ({int((h32 != h64).sum())} in "
+          f"all), max relative |dt| {rel:.3g}, same triangle on {same_tri:.6f} of the hits "
+          f"[{card}]", flush=True)
+    if not 0.5 * RAY_CHECK < int(h64.sum()) < RAY_CHECK:
+        raise AssertionError("phase 4b: the ray-cast check needs both hits and misses")
+    if flips or not rel < 1e-4:
+        raise AssertionError(f"phase 4b: float32 ray cast off: {flips} flags, {rel} relative")
+    return s32
+
+
+def phase4b(torch, mm, device, card, workdir: Path, rig_true):
+    """The mesh families: the ray cast alone, then ``calibrate --mesh``."""
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    ws, out = workdir / "ws3", workdir / "calib3_mesh"
+    n_tri = syn.write_terrain_mesh(ws / "terrain.ply", step=MESH_STEP)
+    if n_tri < 100000:
+        raise AssertionError(f"the terrain mesh has only {n_tri} triangles")
+    verts, faces = syn.terrain_mesh(step=MESH_STEP)
+    ray_cast_check(torch, device, card, verts[faces])
+    run = run_calibrate(torch, mm, "phase 4b", ws, out, [
+        "--depth_tri_weight", "25.0", "--float_scale",
+        "--depth_to_image_transforms_to_float", "haz_cam", "--mesh", str(ws / "terrain.ply"),
+        "--mesh_tri_weight", "5.0", "--depth_mesh_weight", "10.0", "--max_ray_dist", "10.0"])
+    errs = rig_errors(torch, run, rig_true, ("sci_cam", "haz_cam"))
+    hits = [int(n) for n in re.findall(r"depth_mesh_x_m: .* \((\d+) residuals\)", run["text"])]
+    tri_rows = [int(n) for n in re.findall(r"depth_tri_x_m: .* \((\d+) residuals\)",
+                                           run["text"])]
+    cast_s = [float(x) for x in re.findall(r"mesh_intersections=(\S+)s", run["text"])]
+    print(f"[phase4b] calibrate --mesh ({n_tri} triangles): wall {run['wall']:.2f} s; BA "
+          f"{run['stages']['optimize_rig']:.2f} s; mesh_intersections per pass {cast_s} s "
+          f"({run['pixel_rows']} rays x {n_tri} triangles); depth rows {run['depth_rows']}; "
+          f"inlier depth rows with a mesh hit {hits[-1]} of {tri_rows[-1]}; costs "
+          f"{run['costs']}; tensor-core matcher launches {run['launches']}; rig error "
+          f"(deg, m) {errs} [{card}]", flush=True)
+    for line in run["passes"]:
+        print(f"[phase4b] {line}", flush=True)
+    if not hits or hits[-1] < 0.9 * tri_rows[-1]:
+        raise AssertionError(f"phase 4b: mesh hits for {hits} of {tri_rows} inlier depth rows")
+    return run["launches"]
 
 
 def phase2b(torch, mm, device, card):
@@ -369,6 +610,46 @@ def phase3(torch, card):
     return rate
 
 
+def phase5(torch, device, card):
+    """The dense LM on the card: an RPC fit with its inverse, and a dense
+    ``optimize_rig`` on a small cube scene."""
+    from multiview_tpu_torch.calib import calibrator as cal, problem as prob
+    from multiview_tpu_torch.geometry import camera as cam_mod, rpc_fit
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    cam = cam_mod.CameraParams.create(SIZE, FOCAL, (SIZE[0] / 2.0, SIZE[1] / 2.0),
+                                      (-0.12, 0.03, 5e-4, -4e-4), dtype=torch.float32,
+                                      device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coeffs = rpc_fit.fit_rpc_dist_undist(cam, rpc_degree=5, num_samples=40, num_iterations=50)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    err = rpc_fit.eval_rpc_dist_undist(cam, coeffs, num_samples=60)
+    print(f"[phase5] fit_rpc_dist_undist, degree 5 on 40x40 samples of the sci_cam model: "
+          f"{len(coeffs)} coefficients on {coeffs.device} in {fit_s:.2f} s, round trip "
+          f"{err:.3g} px [{card}]", flush=True)
+    if not (coeffs.is_cuda and err < 0.01):
+        raise AssertionError(f"phase 5: RPC round trip {err} px")
+
+    scene = syn.make_cube_scene(n_images=8, n_per_face=4, pix_noise=0.3,
+                                dtype=torch.float32, device=device)
+    state0 = syn.perturb_state(scene.true_state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cal.optimize_rig(state0, scene.observations, scene.models,
+                           prob.FloatSpec(cam_poses=True), prob.BAOptions(no_rig=True),
+                           num_passes=2, num_iterations=15, backend="dense")
+    torch.cuda.synchronize()
+    costs = [(float(r.initial_cost), float(r.cost)) for r in res.lm_results]
+    print(f"[phase5] dense optimize_rig, cube 8x4: "
+          f"{sum(len(o) for o in scene.observations.pixels)} observations, costs {costs}, "
+          f"{[r.iterations for r in res.lm_results]} LM iterations in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    if any(not (b == b and b < a) for a, b in costs):
+        raise AssertionError(f"phase 5: dense LM cost not finite and decreasing: {costs}")
+
+
 def main() -> int:
     if not (ROOT / "multiview_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
@@ -407,16 +688,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     p1 = phase1(torch, mm, dev, card)
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as tmp:
-        launches, _ = phase2(torch, mm, card, Path(tmp), n_ref=12)
+        rig_true = render_workspaces(Path(tmp))
+        paths = {"phase2": phase2(torch, mm, card, Path(tmp), rig_true),
+                 "phase4": phase4(torch, mm, card, Path(tmp), rig_true),
+                 "phase4b": phase4b(torch, mm, dev, card, Path(tmp), rig_true)}
     fma_launches = phase2b(torch, mm, dev, card)
     phase3(torch, card)
+    phase5(torch, dev, card)
 
     print(f"[done] total {time.perf_counter() - t_start:.1f} s", flush=True)
     replaces = "multiview_tpu/sfm/matching.py:118"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "knn2_wgmma", "route": "cuda", "source": WGMMA_SOURCE, "replaces": replaces,
-         "launches": launches, **{k: p1["main_path_8x4096"][k] for k in keys}},
+         "launches": sum(paths.values()), "launches_by_path": paths,
+         **{k: p1["main_path_8x4096"][k] for k in keys}},
         {"name": "knn2_top2", "route": "cuda", "source": FMA_SOURCE, "replaces": replaces,
          "launches": fma_launches, **{k: p1["odd_path_d96"][k] for k in keys}}]}))
     print(card)

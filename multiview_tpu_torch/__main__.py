@@ -2,9 +2,10 @@
 
 Port of ``multiview_tpu/__main__.py``. Ported tools:
 
-  calibrate   rig_calibrator   (multi-pass rig BA)
+  calibrate   rig_calibrator   (multi-pass rig BA with depth and mesh constraints)
+  fit-rpc     fit_rpc          (RPC distortion + inverse fitting)
 
-The other tools of the reference CLI (sfm-init, fuse-mesh, texture, fit-rpc,
+The other tools of the reference CLI (sfm-init, fuse-mesh, texture,
 undistort) are not ported yet.
 """
 
@@ -40,9 +41,9 @@ def expand_flagfiles(argv, depth: int = 0):
 
 
 def main(argv=None):
-    from multiview_tpu_torch.tools import calibrate
+    from multiview_tpu_torch.tools import calibrate, fit_rpc_tool
 
-    tools = {"calibrate": calibrate}
+    tools = {"calibrate": calibrate, "fit-rpc": fit_rpc_tool}
     parser = argparse.ArgumentParser(
         prog="multiview_tpu_torch",
         description="Rig calibration on PyTorch / CUDA (port of multiview_tpu)")

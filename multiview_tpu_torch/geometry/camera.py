@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from multiview_tpu_torch.geometry import distortion as dist_mod
+from multiview_tpu_torch.utils.device import resolve_device
 
 RAW = "raw"
 DISTORTED = "distorted"
@@ -44,7 +45,9 @@ class CameraParams:
                undistorted_size=None, distorted_crop_size=None, crop_offset=(0, 0),
                dtype=torch.float64, device=None):
         """Mirror of the array constructor (camera_params.cc:37-48): crop and
-        undistorted sizes default to the image size."""
+        undistorted sizes default to the image size. ``device=None`` means
+        the first CUDA card (an error when there is none)."""
+        device = resolve_device(device)
         dist_coeffs = torch.as_tensor(dist_coeffs, dtype=dtype, device=device)
         model = dist_mod.model_from_num_coeffs(int(dist_coeffs.shape[-1]))
         focal = torch.as_tensor(focal, dtype=dtype, device=device)
@@ -60,6 +63,13 @@ class CameraParams:
             distorted_crop_size=tuple(int(v) for v in (distorted_crop_size or image_size)),
             crop_offset=(int(crop_offset[0]), int(crop_offset[1])),
         )
+
+    def with_intrinsics(self, focal=None, optical_offset=None, dist_coeffs=None):
+        return dataclasses.replace(
+            self,
+            focal=self.focal if focal is None else focal,
+            optical_offset=self.optical_offset if optical_offset is None else optical_offset,
+            dist_coeffs=self.dist_coeffs if dist_coeffs is None else dist_coeffs)
 
     @property
     def dtype(self):

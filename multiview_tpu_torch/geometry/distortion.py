@@ -92,6 +92,37 @@ def compute_rpc(p, coeffs):
     return torch.stack([vx / wx, vy / wy], dim=-1)
 
 
+def rpc_identity_params(deg: int, dtype=np.float64) -> np.ndarray:
+    """Coefficients of the identity RPC transform of the given degree
+    (rpc_distortion.cc:301-318); host numpy."""
+    n = rpc_num_params_from_degree(deg)
+    num_len = (n + 2) // 4
+    den_len = num_len - 1
+    num_x = np.zeros(num_len, dtype)
+    num_y = np.zeros(num_len, dtype)
+    den = np.zeros(den_len, dtype)
+    num_x[1] = 1.0  # coefficient of x
+    num_y[2] = 1.0  # coefficient of y
+    return np.concatenate([num_x, den, num_y, den])
+
+
+def rpc_increment_degree(params: np.ndarray) -> np.ndarray:
+    """Raise each of the four polynomials by one degree with zero-filled new
+    coefficients (rpc_distortion.cc:336-356). Host-side helper of the
+    progressive RPC fit."""
+    params = np.asarray(params)
+    n = params.shape[0]
+    deg = rpc_degree_from_num_params(n)
+    num_len = (n + 2) // 4
+    den_len = num_len - 1
+    num_x = params[:num_len]
+    den_x = params[num_len:num_len + den_len]
+    num_y = params[num_len + den_len:2 * num_len + den_len]
+    den_y = params[2 * num_len + den_len:]
+    z = np.zeros(deg + 2, params.dtype)  # the new monomials of degree deg+1
+    return np.concatenate([num_x, z, den_x, z, num_y, z, den_y, z])
+
+
 def distort_centered(model: str, coeffs, undist_c, focal, optical_offset, dist_half_size):
     """UNDISTORTED_C -> DISTORTED_C (``DistortCentered``, camera_params.cc:260-314)."""
     if model == "none":

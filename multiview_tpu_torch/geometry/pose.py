@@ -215,6 +215,54 @@ def pose_interp(alpha, p0, p1):
 
 
 # ----------------------------------------------------------------------------
+# Affine transforms: [r00..r22 row-major, tx,ty,tz]
+# ----------------------------------------------------------------------------
+
+
+def pose_identity(dtype=torch.float64, device=None):
+    return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
+def affine_identity(dtype=torch.float64, device=None):
+    return torch.cat([torch.eye(3, dtype=dtype, device=device).reshape(9),
+                      torch.zeros(3, dtype=dtype, device=device)])
+
+
+def affine_linear(a):
+    return a[..., :9].reshape(a.shape[:-1] + (3, 3))
+
+
+def affine_t(a):
+    return a[..., 9:12]
+
+
+def make_affine(linear, t):
+    return torch.cat([linear.reshape(linear.shape[:-2] + (9,)), t], dim=-1)
+
+
+def affine_apply(a, x):
+    return torch.einsum("...ij,...j->...i", affine_linear(a), x) + affine_t(a)
+
+
+def affine_compose(a, b):
+    L = affine_linear(a) @ affine_linear(b)
+    t = torch.einsum("...ij,...j->...i", affine_linear(a), affine_t(b)) + affine_t(a)
+    return make_affine(L, t)
+
+
+def affine_inverse(a):
+    Li = torch.linalg.inv(affine_linear(a))
+    return make_affine(Li, -torch.einsum("...ij,...j->...i", Li, affine_t(a)))
+
+
+def pose_to_affine(p, scale=None):
+    L = quat_to_matrix(pose_q(p))
+    if scale is not None:
+        L = L * torch.as_tensor(scale, dtype=p.dtype, device=p.device)[..., None, None]
+    return make_affine(L, pose_t(p))
+
+
+# ----------------------------------------------------------------------------
 # Bracketed-pose interpolation (the core of the rig BA residuals)
 # ----------------------------------------------------------------------------
 

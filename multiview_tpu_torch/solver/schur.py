@@ -8,8 +8,9 @@ solved by preconditioned CG on the explicit per-row block Jacobians:
 
 - each LM iteration evaluates, per observation row, the robustified
   residual and its Jacobian with respect to the parameter blocks the row
-  touches (beg/end pose, rig, offset, focal, centre, distortion; point),
-  by reverse-mode autograd of the row-summed residuals with per-row leaf
+  touches (pixel rows: beg/end pose, rig, offset, focal, centre,
+  distortion; depth rows: beg/end pose, rig, offset, depth_to_image, depth
+  scale; point), by reverse-mode autograd of the row-summed residuals with per-row leaf
   copies of the parameters;
 - camera columns are gathered per row by the bracketing pose indices and
   reduced back with ``index_add_`` per pose (per-sensor constant columns
@@ -19,8 +20,10 @@ solved by preconditioned CG on the explicit per-row block Jacobians:
 
 The CG loop runs its fixed ``cg_iterations`` budget with convergence applied
 as a mask (no host round trip inside CG); the LM loop syncs with the host
-once per iteration for its stop test. Only pixel and xyz-prior residual
-families are ported; depth families raise.
+once per iteration for its stop test. Every residual family of the problem
+is supported: pixel reprojection, depth against the triangulated point,
+depth against the mesh (camera side only: it touches no point) and xyz
+priors (point side only).
 """
 
 from __future__ import annotations
@@ -118,6 +121,46 @@ def pixel_row_blocks(state: prob.RigState, obs: prob.PixelObs, model: str,
     return j_cam.detach(), jp.detach(), res.detach()
 
 
+def depth_row_blocks(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
+                     mesh_variant: bool):
+    """(J_cam [N,3,B], J_pt [N,3,3] | None, res [N,3]) of every depth row,
+    B = 7+7+7+1 + (7|12) + 1 (beg7, end7, rig7, offset1, depth_to_image,
+    scale1). The mesh variant (target = the row's mesh point) touches no
+    structure point: its J_pt is None."""
+    s = obs.sensor
+    n = len(obs)
+    weight = opts.depth_mesh_weight if mesh_variant else opts.depth_tri_weight
+    if mesh_variant:
+        if obs.mesh_xyz is None:
+            raise ValueError("the depth-mesh family needs DepthObs.mesh_xyz")
+        row_mask, target = prob.mesh_target(obs)
+    else:
+        row_mask = obs.mask
+    with torch.enable_grad():
+        beg = state.world_to_ref[obs.beg_idx].detach().requires_grad_(True)
+        end = state.world_to_ref[obs.end_idx].detach().requires_grad_(True)
+        rig = _rows_of(state.ref_to_cam[s], n)
+        off = _rows_of(state.timestamp_offsets[s], n)
+        d2i = _rows_of(state.depth_to_image[s], n)
+        dsc = _rows_of(state.depth_scale[s], n)
+        inputs = [beg, end, rig, off, d2i, dsc]
+        if not mesh_variant:
+            target = state.points[obs.point_idx].detach().requires_grad_(True)
+            inputs.append(target)
+        w2c = pose_mod.world_to_cam_from_bracket(beg, end, rig, obs.dt_cam,
+                                                 obs.dt_bracket, off)
+        M_world = prob.depth_world_points(w2c, d2i, dsc, obs.depth_xyz,
+                                          opts.affine_depth_to_image)
+        res = weight * (target - M_world)
+        w = prob.robust_weight(torch.sum(res * res, dim=-1), opts.robust_threshold)
+        res = res * (w * row_mask.to(res.dtype))[:, None]
+        jac = _row_jacobians(res, inputs)
+    jb, je, jr, jo, jd, js = jac[:6]
+    j_cam = torch.cat([jb, je, jr, jo[..., None], jd, js[..., None]], dim=-1)
+    j_pt = None if mesh_variant else jac[6].detach()
+    return j_cam.detach(), j_pt, res.detach()
+
+
 def prior_row_blocks(state: prob.RigState, prior: prob.XyzPriorObs,
                      weight: float, th: float):
     """(J_pt [M,3,3], res [M,3]) of an xyz-prior family (XYZError),
@@ -179,9 +222,9 @@ class SchurLMResult(NamedTuple):
 class _Family:
     """Index structure of one residual family (loop constants of a solve)."""
 
-    kind: str                            # "pix" | "prior"
+    kind: str                            # "pix" | "depth_tri" | "depth_mesh" | "prior"
     obs: object
-    point_idx: torch.Tensor              # [N]
+    point_idx: Optional[torch.Tensor]    # [N]; None: the family touches no point
     beg_idx: Optional[torch.Tensor] = None
     end_idx: Optional[torch.Tensor] = None
     const_cols: Optional[torch.Tensor] = None  # [B-14] per-sensor columns
@@ -207,8 +250,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
     structure (sensors, priors); their index arrays, masks and measurements
     are free to differ. ``preconditioner``: "jacobi", "schur_jacobi" or
     "auto" (jacobi for cg_tolerance >= 0.01, as the reference picks)."""
-    if observations.depths:
-        raise NotImplementedError("depth residual families are not ported yet")
     layout = cam_layout(template)
     num_points = template.points.shape[0]
     num_ref = template.world_to_ref.shape[0]
@@ -228,9 +269,22 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             layout.dist[s] + np.arange(d)]).astype(np.int64)
         return torch.as_tensor(cols, device=device)
 
+    def depth_const_cols(s: int) -> torch.Tensor:
+        nd = int(template.depth_to_image.shape[1])
+        cols = np.concatenate([
+            layout.ref_to_cam + s * 7 + np.arange(7),
+            [layout.offsets + s],
+            layout.d2i + s * nd + np.arange(nd),
+            [layout.dscale + s]]).astype(np.int64)
+        return torch.as_tensor(cols, device=device)
+
     def families(obs: prob.Observations) -> List[_Family]:
         fams = [_Family("pix", o, o.point_idx, o.beg_idx, o.end_idx, const_cols(o.sensor))
                 for o in obs.pixels]
+        fams += [_Family("depth_mesh" if mesh else "depth_tri", o,
+                         None if mesh else o.point_idx, o.beg_idx, o.end_idx,
+                         depth_const_cols(o.sensor))
+                 for o, mesh in prob.depth_families(obs, opts)]
         fams += [_Family("prior", p, p.point_idx, weight=w, th=th)
                  for p, w, th in prob.static_priors(obs, opts)]
         return fams
@@ -260,12 +314,14 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         free_pose = cam_free[:num_ref * 7].reshape(num_ref, 7)
 
         def blocks_at(cam_vec, points):
-            """Per-family (j_cam | None, j_pt) and the flat residual."""
+            """Per-family (j_cam | None, j_pt | None) and the flat residual."""
             st = unpack(cam_vec, points)
             jc, jp, res = [], [], []
             for f in fams:
                 if f.kind == "pix":
                     a, b, r = pixel_row_blocks(st, f.obs, models[f.obs.sensor], opts)
+                elif f.kind != "prior":
+                    a, b, r = depth_row_blocks(st, f.obs, opts, f.kind == "depth_mesh")
                 else:
                     a = None
                     b, r = prior_row_blocks(st, f.obs, f.weight, f.th)
@@ -274,11 +330,11 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 res.append(r.reshape(-1))
             return jc, jp, torch.cat(res)
 
-        def split(u, jp):
+        def split(u, jc, jp):
             """Flat residual-space vector -> per-family [n,k] blocks."""
             out, off = [], 0
-            for j in jp:
-                n, k = j.shape[0], j.shape[1]
+            for a, b in zip(jc, jp):
+                n, k = (b if a is None else a).shape[:2]
                 out.append(u[off:off + n * k].reshape(n, k))
                 off += n * k
             return out
@@ -309,23 +365,25 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 u = None
                 if a is not None and xc is not None:
                     u = torch.einsum("nkb,nb->nk", a, gather_cols(f, xc))
-                if xp is not None:
+                if b is not None and xp is not None:
                     up = torch.einsum("nkj,nj->nk", b, xp[f.point_idx])
                     u = up if u is None else u + up
                 if u is None:
-                    u = torch.zeros(b.shape[:2], dtype=dtype, device=device)
+                    u = torch.zeros((b if a is None else a).shape[:2], dtype=dtype,
+                                    device=device)
                 parts.append(u.reshape(-1))
             return torch.cat(parts)
 
         def JTmv_c(jc, jp, u):
             contribs = [(f, torch.einsum("nkb,nk->nb", a, ub))
-                        for f, a, ub in zip(fams, jc, split(u, jp)) if a is not None]
+                        for f, a, ub in zip(fams, jc, split(u, jc, jp)) if a is not None]
             return reduce_cols(contribs)
 
-        def JTmv_p(jp, u):
+        def JTmv_p(jc, jp, u):
             gp = torch.zeros((num_points, 3), dtype=dtype, device=device)
-            for f, b, ub in zip(fams, jp, split(u, jp)):
-                gp.index_add_(0, f.point_idx, torch.einsum("nkj,nk->nj", b, ub))
+            for f, b, ub in zip(fams, jp, split(u, jc, jp)):
+                if b is not None:
+                    gp.index_add_(0, f.point_idx, torch.einsum("nkj,nk->nj", b, ub))
             return gp
 
         def dot(a, b):
@@ -342,11 +400,12 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
         for _ in range(max_iterations):
             g_c = JTmv_c(jc, jp, r) * cam_free
-            g_p = JTmv_p(jp, r)
+            g_p = JTmv_p(jc, jp, r)
 
             hpp = torch.zeros((num_points, 3, 3), dtype=dtype, device=device)
             for f, b in zip(fams, jp):
-                hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
+                if b is not None:
+                    hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
             cam_diag = reduce_cols([(f, torch.sum(a * a, dim=1))
                                     for f, a in zip(fams, jc) if a is not None])
             cam_diag = torch.clamp(cam_diag, 1e-12, 1e32)
@@ -366,12 +425,13 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 for f, a, b in zip(fams, jc, jp):
                     if a is None:
                         continue
-                    hinv = hpp_inv[f.point_idx]
                     for sl, idx in ((slice(0, 7), f.beg_idx), (slice(7, 14), f.end_idx)):
                         jb = a[:, :, sl] * free_pose[idx][:, None, :]       # [N,k,7]
-                        E = torch.einsum("nki,nkm->nim", jb, b)             # [N,7,3]
-                        bb = torch.einsum("nki,nkj->nij", jb, jb) \
-                            - torch.einsum("nim,nmq,njq->nij", E, hinv, E)
+                        bb = torch.einsum("nki,nkj->nij", jb, jb)
+                        if b is not None:
+                            E = torch.einsum("nki,nkm->nim", jb, b)         # [N,7,3]
+                            bb = bb - torch.einsum("nim,nmq,njq->nij", E,
+                                                   hpp_inv[f.point_idx], E)
                         blocks.index_add_(0, idx, bb)
                 blocks = blocks + torch.diag_embed(dc[:num_ref * 7].reshape(num_ref, 7))
                 pose_prec_inv = torch.linalg.inv(blocks)
@@ -387,7 +447,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
             def schur_mv(x):
                 u = Jmv(jc, jp, x * cam_free, None)
-                w = solve3(JTmv_p(jp, u))
+                w = solve3(JTmv_p(jc, jp, u))
                 z = Jmv(jc, jp, None, w)
                 return JTmv_c(jc, jp, u - z) * cam_free + dc * x
 
@@ -426,7 +486,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
             # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
             u = Jmv(jc, jp, dc_step * cam_free, None)
-            dp = solve3(-g_p - JTmv_p(jp, u))
+            dp = solve3(-g_p - JTmv_p(jc, jp, u))
 
             cam_new = project(cam + dc_step * cam_free)
             pts_new = points + dp
@@ -453,7 +513,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             points = torch.where(good, pts_new, points)
             cost = torch.where(good, new_cost, cost)
             jc = [None if a is None else torch.where(good, a, a0) for a, a0 in zip(jc_t, jc)]
-            jp = [torch.where(good, b, b0) for b, b0 in zip(jp_t, jp)]
+            jp = [None if b is None else torch.where(good, b, b0) for b, b0 in zip(jp_t, jp)]
             r = torch.where(good, r_t, r)
             lam = lam_new
             cg_total = cg_total + cg_k

@@ -1,15 +1,14 @@
 """``calibrate`` tool — the rig_calibrator executable equivalent. Port of
 ``multiview_tpu/tools/calibrate.py`` with the same flags: rig config +
-camera poses (+ images for feature matching), multi-pass robust BA with
-float specs, reference-format outputs (rig_config.txt / cameras.txt /
-cameras.nvm).
+camera poses (+ images for feature matching, + ``.pc`` depth clouds beside
+them), multi-pass robust BA with float specs, depth and mesh constraints,
+reference-format outputs (rig_config.txt / cameras.txt / cameras.nvm, the
+voxblox layout and world-frame depth clouds).
 
 Runs on the first CUDA card (float32) and raises when there is none;
 ``--device cpu`` asks for the CPU (float64). Flags of parts not ported yet
-raise NotImplementedError:
-depth and mesh constraints, registration, sharding, retrieval and
-out-of-core matching, texture output and the voxblox / depth-cloud /
-match-file exports.
+raise NotImplementedError: registration, sharding, retrieval and out-of-core
+matching, texture output and the match-file export.
 """
 
 from __future__ import annotations
@@ -54,10 +53,12 @@ def add_args(p: argparse.ArgumentParser):
                    const="__all__", default="")
     p.add_argument("--affine_depth_to_image", action="store_true")
     p.add_argument("--depth_tri_weight", type=float, default=0.0,
-                   help="depth constraints (not ported yet: must be 0)")
-    p.add_argument("--mesh", help="mesh constraints (not ported yet)")
-    p.add_argument("--mesh_tri_weight", type=float, default=0.0)
-    p.add_argument("--depth_mesh_weight", type=float, default=0.0)
+                   help="weight of depth measurement vs triangulated point")
+    p.add_argument("--mesh", help="PLY triangle mesh for the mesh constraints")
+    p.add_argument("--mesh_tri_weight", type=float, default=0.0,
+                   help="weight of triangulated point vs its rays' mesh hits")
+    p.add_argument("--depth_mesh_weight", type=float, default=0.0,
+                   help="weight of depth measurement vs the pixel ray's mesh hit")
     p.add_argument("--out_texture_dir", default="", help="not ported yet")
     p.add_argument("--min_ray_dist", type=float, default=0.0)
     p.add_argument("--max_ray_dist", type=float, default=100.0)
@@ -84,24 +85,20 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--xyz_file")
     p.add_argument("--save_nvm", action="store_true")
     p.add_argument("--save_matches", action="store_true", help="not ported yet")
-    p.add_argument("--export_to_voxblox", action="store_true", help="not ported yet")
+    p.add_argument("--export_to_voxblox", action="store_true",
+                   help="write <out_dir>/voxblox/<sensor>/ clouds and poses")
     p.add_argument("--save_transformed_depth_clouds", action="store_true",
-                   help="not ported yet")
+                   help="write each depth cloud as a world-frame PLY")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="print per-phase wall times per pass")
 
 
 _NOT_PORTED = (
-    ("depth_tri_weight", lambda v: v > 0.0, "--depth_tri_weight > 0 (depth constraints)"),
-    ("depth_mesh_weight", lambda v: v > 0.0, "--depth_mesh_weight > 0 (depth constraints)"),
-    ("mesh", bool, "--mesh (mesh constraints)"),
     ("registration", bool, "--registration"),
     ("sharded", bool, "--sharded"),
     ("out_texture_dir", bool, "--out_texture_dir"),
     ("save_matches", bool, "--save_matches"),
-    ("export_to_voxblox", bool, "--export_to_voxblox"),
-    ("save_transformed_depth_clouds", bool, "--save_transformed_depth_clouds"),
     ("num_nearest_neighbors_for_global_descriptor_matching", lambda v: v > 0,
      "--num_nearest_neighbors_for_global_descriptor_matching > 0 (retrieval)"),
     ("match_out_of_core", bool, "--match_out_of_core"),
@@ -145,6 +142,8 @@ def _parse_intrinsics_to_float(spec_str: str, sensor_names):
 
 
 def run(args):
+    import dataclasses
+
     from multiview_tpu_torch.calib import assemble, calibrator as cal, rig_init
     from multiview_tpu_torch.calib import bracketing as br, problem as prob
     from multiview_tpu_torch.geometry import pose as pose_mod
@@ -198,11 +197,12 @@ def run(args):
                 br.ImageRecord(float(parts.stem), n, None))
         for recs in image_data:
             recs.sort(key=lambda r: r.timestamp)
+    depth_data = common.scan_depth_dir(args.images, sensor_names) if args.images else []
     ref_ts_stream = [r.timestamp for r in image_data[0]]
     offsets = [s.timestamp_offset for s in rig.sensors]
     _tk("read+scan")
     cams, min_off, max_off = br.lookup_images(
-        args.no_rig, ref_ts_stream, image_data, [], offsets,
+        args.no_rig, ref_ts_stream, image_data, depth_data, offsets,
         bracket_len=args.bracket_len,
         timestamp_offsets_max_change=args.timestamp_offsets_max_change, verbose=True)
     print(f"Bracketing kept {len(cams)} camera entries")
@@ -257,6 +257,12 @@ def run(args):
 
     observations, num_points = assemble.build_observations(
         rig, cams, ref_stamps, trackset, no_rig=args.no_rig, dtype=dtype, device=device)
+    if args.depth_tri_weight > 0.0 or args.depth_mesh_weight > 0.0:
+        depth_obs = assemble.build_depth_observations(
+            rig, cams, ref_stamps, trackset, no_rig=args.no_rig, dtype=dtype, device=device)
+        if depth_obs:
+            observations = dataclasses.replace(observations, depths=depth_obs)
+            print(f"Attached {sum(len(o) for o in depth_obs)} depth measurements")
     state = assemble.build_state(rig, cams, w2c_entries, ref_stamps, world_to_ref,
                                  num_points, no_rig=args.no_rig,
                                  affine_depth=args.affine_depth_to_image,
@@ -291,6 +297,15 @@ def run(args):
         affine_depth_to_image=args.affine_depth_to_image,
         tri_robust_threshold=args.tri_robust_threshold)
 
+    mesh_tri_verts = None
+    if args.mesh:
+        from multiview_tpu_torch.io import ply as ply_io
+        from multiview_tpu_torch.texture.raycast import mesh_tri_verts as soup
+        mesh_data = ply_io.read_ply(args.mesh)
+        mesh_tri_verts = torch.as_tensor(soup(mesh_data["vertices"], mesh_data["faces"]),
+                                         dtype=dtype, device=device)
+        print(f"Loaded mesh with {len(mesh_tri_verts)} triangles for constraints")
+
     bounds = np.stack([min_off, max_off], axis=1) if args.float_timestamp_offsets else None
     models = tuple(s.model for s in rig.sensors)
     _tk("pre_optimize")
@@ -299,8 +314,10 @@ def run(args):
         num_passes=args.calibrator_num_passes, num_iterations=args.num_iterations,
         min_triangulation_angle=args.min_triangulation_angle,
         max_reprojection_error=args.max_reprojection_error,
-        timestamp_offset_bounds=bounds, sensor_names=sensor_names, verbose=True,
-        profile=args.profile)
+        timestamp_offset_bounds=bounds, parameter_tolerance=args.parameter_tolerance,
+        mesh_tri_verts=mesh_tri_verts, min_ray_dist=args.min_ray_dist,
+        max_ray_dist=args.max_ray_dist, cam_params=cam_params,
+        sensor_names=sensor_names, verbose=True, profile=args.profile)
     for i, r in enumerate(result.lm_results):
         print(f"BA pass {i + 1}: cost {float(r.initial_cost):.9g} -> {float(r.cost):.9g} "
               f"in {r.iterations} LM iterations, {int(r.cg_iters_total)} CG iterations")
@@ -343,6 +360,25 @@ def run(args):
         _write_solution_nvm(out / "cameras.nvm", rig, cams, state, mats, trackset,
                             result.observations)
         print(f"Writing: {out / 'cameras.nvm'}")
+
+    if args.export_to_voxblox or args.save_transformed_depth_clouds:
+        from multiview_tpu_torch.io import depth_io
+        d2i_mats = np.stack([np.asarray(s.depth_to_image) for s in rig.sensors])
+        entries = []
+        for c in cams:
+            inten = None
+            if c.image is not None:
+                inten = np.asarray(c.image)
+                if inten.ndim == 3:
+                    inten = inten.mean(axis=-1)
+            entries.append((c.camera_type, c.timestamp, c.depth_cloud, inten))
+        if args.export_to_voxblox:
+            depth_io.export_to_voxblox(out, sensor_names, entries, d2i_mats, mats)
+            print(f"Exported voxblox clouds to {out / 'voxblox'}")
+        if args.save_transformed_depth_clouds:
+            written = depth_io.save_transformed_depth_clouds(
+                out / "transformed_depth_clouds", entries, d2i_mats, mats)
+            print(f"Wrote {len(written)} transformed depth clouds")
     _tk("write_outputs")
     return 0
 

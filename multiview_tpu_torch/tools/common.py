@@ -24,6 +24,8 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".pgm")
 
 def cam_params_from_sensor(s: rc.SensorConfig, dtype=torch.float64,
                            device=None) -> CameraParams:
+    """CameraParams of one rig-config sensor; ``device=None`` means the first
+    CUDA card (an error when there is none)."""
     return CameraParams.create(
         s.image_size, s.focal_length, s.optical_center, s.distortion,
         undistorted_size=s.undistorted_image_size,
@@ -68,6 +70,27 @@ def scan_image_dir(images_dir, sensor_names: Sequence[str], load: bool = True
                 except ValueError:
                     continue
                 recs.append(ImageRecord(ts, str(p), load_gray(p) if load else None))
+        recs.sort(key=lambda r: r.timestamp)
+        out.append(recs)
+    return out
+
+
+def scan_depth_dir(images_dir, sensor_names: Sequence[str]) -> List[List[ImageRecord]]:
+    """Per-sensor .pc depth clouds alongside the images; the clouds stay on
+    the host as numpy xyz-images."""
+    from multiview_tpu_torch.io import depth_io
+    images_dir = Path(images_dir)
+    out: List[List[ImageRecord]] = []
+    for name in sensor_names:
+        recs = []
+        d = images_dir / name
+        if d.is_dir():
+            for p in sorted(d.glob("*.pc")):
+                try:
+                    ts = float(p.stem)
+                except ValueError:
+                    continue
+                recs.append(ImageRecord(ts, str(p), depth_io.read_xyz_image(p)))
         recs.sort(key=lambda r: r.timestamp)
         out.append(recs)
     return out

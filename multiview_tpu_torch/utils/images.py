@@ -1,13 +1,52 @@
-"""Image helpers: ``adjust_image_size`` (copied from
-``multiview_tpu/utils/images.py``) and binary PGM (P5) read/write with
-numpy alone, the port's image format on machines without imageio."""
+"""Image helpers: ``depth_value`` / ``depth_values_batch`` and
+``adjust_image_size`` (copied from ``multiview_tpu/utils/images.py``) and
+binary PGM (P5) read/write with numpy alone, the port's image format on
+machines without imageio."""
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+def depth_value(depth_cloud: Optional[np.ndarray], dist_ip) -> Optional[np.ndarray]:
+    """Depth xyz at the rounded pixel, None when absent/invalid
+    (``depthValue``, dense_map_utils.cc:1364-1391).
+
+    depth_cloud: [H,W,3] xyz-image or None; dist_ip: (x, y) pixel.
+    (0,0,0) entries are invalid measurements.
+    """
+    if depth_cloud is None or depth_cloud.size == 0:
+        return None
+    h, w = depth_cloud.shape[:2]
+    col = int(round(float(dist_ip[0])))
+    row = int(round(float(dist_ip[1])))
+    if col < 0 or row < 0 or col > w or row > h:
+        raise ValueError("Out of range in the depth cloud.")
+    if col == w or row == h:
+        return None
+    xyz = depth_cloud[row, col]
+    if np.all(xyz == 0.0):
+        return None
+    return np.asarray(xyz, float)
+
+
+def depth_values_batch(depth_cloud: Optional[np.ndarray], dist_ips: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized depth_value over [N,2] pixels -> (xyz [N,3], valid [N])."""
+    n = len(dist_ips)
+    if depth_cloud is None or depth_cloud.size == 0:
+        return np.zeros((n, 3)), np.zeros(n, bool)
+    h, w = depth_cloud.shape[:2]
+    cols = np.round(dist_ips[:, 0]).astype(int)
+    rows = np.round(dist_ips[:, 1]).astype(int)
+    inb = (cols >= 0) & (rows >= 0) & (cols < w) & (rows < h)
+    xyz = np.zeros((n, 3))
+    xyz[inb] = depth_cloud[rows[inb], cols[inb]]
+    valid = inb & ~np.all(xyz == 0.0, axis=-1)
+    return xyz, valid
 
 
 def adjust_image_size(calib_size: Tuple[int, int], image: np.ndarray

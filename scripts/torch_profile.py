@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's main path on one GPU.
 
-    python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba]
+    python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba] [--depth]
 
-Renders the two-sensor rig workspace of chip_smoke.py, then traces with
+Renders the two-sensor rig workspace of chip_smoke.py (with ``--depth`` the
+three-sensor one, calibrated with the depth camera's flags of phase 4; with
+``--mesh`` too, the mesh families of phase 4b), then traces with
 torch.profiler (a) one ``calibrate`` run through the CLI entry point and
 (b) one Schur-LM solve at the bench's size (cube scene 160x20, ~384k
 observations, float32, 10 LM x 30 CG). For each it writes the CUDA kernel
@@ -61,6 +63,10 @@ def main() -> int:
     ap.add_argument("--n_ref", type=int, default=12)
     ap.add_argument("--out", default=str(ROOT / "profile_out"))
     ap.add_argument("--skip_ba", action="store_true", help="trace calibrate only")
+    ap.add_argument("--depth", action="store_true",
+                    help="the three-sensor workspace and the depth-camera flags")
+    ap.add_argument("--mesh", action="store_true",
+                    help="with --depth: the mesh families on the tessellated terrain")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -76,12 +82,20 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="mv_profile_") as tmp:
         ws = Path(tmp) / "ws"
-        syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0)
+        syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0, depth=args.depth,
+                                workers=7)
         argv = ["calibrate", "--rig_config", str(ws / "rig_config.txt"),
                 "--camera_poses", str(ws / "cameras.txt"), "--images", str(ws / "images"),
                 "--rig_transforms_to_float", "--camera_poses_to_float",
                 "--bracket_len", "1.5", "--max_features", "4096", "--num_overlaps", "3",
                 "--num_iterations", "20", "--calibrator_num_passes", "2", "--profile"]
+        if args.depth:
+            argv += ["--depth_tri_weight", "25.0", "--float_scale",
+                     "--depth_to_image_transforms_to_float", "haz_cam"]
+        if args.depth and args.mesh:
+            syn.write_terrain_mesh(ws / "terrain.ply", step=0.03)
+            argv += ["--mesh", str(ws / "terrain.ply"), "--mesh_tri_weight", "5.0",
+                     "--depth_mesh_weight", "10.0", "--max_ray_dist", "10.0"]
 
         def calibrate(run):
             buf = io.StringIO()

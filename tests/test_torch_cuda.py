@@ -99,3 +99,70 @@ def test_tensor_core_kernel_ties_keep_the_lowest_index(cuda_device, d):
     assert float(got.second_dist[3]) == float(got.best_dist[3]) <= 1e-6
     assert int(got.best_idx[199]) == 1036
     assert not bool(tm.ratio_test_mask(got)[3])
+
+
+# ----------------------------------------------------------------------------
+# The depth and mesh paths on the card (plain PyTorch there: no kernel of
+# their own), held against the same functions on the CPU in float64
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_constructors_default_to_the_card(cuda_device):
+    from multiview_tpu_torch.geometry.camera import CameraParams
+    from multiview_tpu_torch.utils import synthetic as syn
+    assert CameraParams.create((64, 48), 50.0, (32.0, 24.0)).device.type == "cuda"
+    scene = syn.add_depth_observations(syn.make_rig_scene(n_ref=4, n_per_face=2))
+    assert scene.true_state.device.type == "cuda"
+    assert scene.observations.depths[0].depth_xyz.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_ray_cast_on_the_card_matches_the_cpu(cuda_device):
+    import numpy as np
+    from multiview_tpu_torch.texture import raycast
+    from multiview_tpu_torch.utils import synthetic as syn
+    verts, faces = syn.terrain_mesh(lo=(-1.0, -1.0), hi=(2.0, 2.0), step=0.05)
+    tri = verts[faces]
+    g = np.random.default_rng(0)
+    o = np.column_stack([g.uniform(-0.5, 1.5, (3000, 2)), np.full(3000, 2.0)])
+    d = np.column_stack([g.uniform(-0.8, 0.8, (3000, 2)), -np.ones(3000)])
+    ref_t, ref_i, ref_h = raycast.ray_mesh_intersect(torch.as_tensor(o), torch.as_tensor(d),
+                                                     torch.as_tensor(tri), max_dist=10.0)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        t, i, h = raycast.ray_mesh_intersect(
+            torch.as_tensor(o, dtype=dtype, device=cuda_device),
+            torch.as_tensor(d, dtype=dtype, device=cuda_device),
+            torch.as_tensor(tri, dtype=dtype, device=cuda_device), max_dist=10.0)
+        assert t.is_cuda and 0 < int(h.sum()) < 3000
+        assert float((h.cpu() != ref_h).double().mean()) <= (0.0 if dtype == torch.float64
+                                                             else 0.002)
+        both = h.cpu() & ref_h
+        torch.testing.assert_close(t.cpu().double()[both], ref_t[both], rtol=tol, atol=tol)
+        if dtype == torch.float64:
+            assert torch.equal(i.cpu(), ref_i)
+
+
+@pytest.mark.cuda
+def test_depth_calibration_on_the_card_follows_the_cpu(cuda_device):
+    """Float depth_to_image and scale of the rig+depth scene in float32 on
+    the card: the result is the float64 CPU result to float32 accuracy."""
+    import dataclasses
+    from multiview_tpu_torch.calib import calibrator as cal, problem as prob
+    from multiview_tpu_torch.utils import synthetic as syn
+    out = {}
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (cuda_device, torch.float32)):
+        scene = syn.add_depth_observations(
+            syn.make_rig_scene(n_ref=6, n_per_face=3, dtype=dtype, device=dev), sensors=(1,))
+        st = scene.true_state
+        bad = dataclasses.replace(
+            st, depth_scale=st.depth_scale * torch.tensor([1.0, 0.97, 1.0], dtype=dtype,
+                                                          device=dev))
+        res = cal.optimize_rig(bad, scene.observations, scene.models,
+                               prob.FloatSpec(depth_to_image=(1,), depth_scale=True),
+                               prob.BAOptions(depth_tri_weight=100.0), num_passes=2,
+                               num_iterations=30)
+        assert res.state.device == st.device and "depth_tri_x_m" in res.stats_after
+        out[dev.type] = res.state.depth_scale.cpu().double()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+    assert abs(float(out["cuda"][1]) - 1.0) < 1e-3

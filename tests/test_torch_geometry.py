@@ -163,7 +163,7 @@ def test_camera_frame_conversions(name):
     jc = JC.CameraParams.create((640, 480), 400.0, (322.0, 238.0), coeffs,
                                 undistorted_size=(700, 520))
     tc = TC.CameraParams.create((640, 480), 400.0, (322.0, 238.0), coeffs,
-                                undistorted_size=(700, 520))
+                                undistorted_size=(700, 520), device="cpu")
     pix = np.random.default_rng(8).uniform(20, 460, size=(32, 2))
     frames = [JC.RAW, JC.DISTORTED, JC.DISTORTED_C, JC.UNDISTORTED, JC.UNDISTORTED_C]
     for src in frames:
@@ -205,3 +205,57 @@ def test_triangulation_batched_and_masked():
     ang_j = jax.vmap(JT.convergence_angles)(jnp.asarray(poses), jx, jnp.asarray(mask))
     close(TT.convergence_angles(torch.as_tensor(poses), tx, torch.as_tensor(mask))[ok],
           np.asarray(ang_j)[ok], rtol=1e-9, atol=1e-9)
+
+
+def test_affine_transforms():
+    """The 12-vector affine algebra (9 row-major linear entries, then the
+    translation), values and gradients."""
+    rng = np.random.default_rng(11)
+    a = np.concatenate([np.eye(3).reshape(9) + 0.2 * rng.normal(size=(4, 9)),
+                        rng.normal(size=(4, 3))], axis=-1)
+    b = np.concatenate([np.eye(3).reshape(9) + 0.2 * rng.normal(size=(4, 9)),
+                        rng.normal(size=(4, 3))], axis=-1)
+    x = rng.normal(size=(4, 3))
+    pose = np.concatenate([rng.normal(size=(4, 3)), rng.normal(size=(4, 4))], axis=-1)
+    check_fn(JP.affine_apply, TP.affine_apply, a, x)
+    check_fn(JP.affine_compose, TP.affine_compose, a, b)
+    check_fn(JP.affine_inverse, TP.affine_inverse, a, rtol=1e-9, atol=1e-10)
+    check_fn(lambda p: JP.pose_to_affine(p, 1.03), lambda p: TP.pose_to_affine(p, 1.03), pose)
+    check_fn(lambda v: JP.make_affine(JP.affine_linear(v), JP.affine_t(v)),
+             lambda v: TP.make_affine(TP.affine_linear(v), TP.affine_t(v)), a)
+    close(TP.affine_identity(), JP.affine_identity(jnp.float64))
+    close(TP.pose_identity(), JP.pose_identity(jnp.float64))
+    close(TP.affine_apply(TP.affine_compose(TP.affine_inverse(torch.as_tensor(a)),
+                                            torch.as_tensor(a)), torch.as_tensor(x)),
+          x, rtol=1e-9, atol=1e-9)
+
+
+def test_similarity_registration():
+    """``find_similarity_transform`` and the transforms that apply its result
+    to cameras, points and the rig."""
+    from multiview_tpu.geometry import registration as JR
+    from multiview_tpu_torch.geometry import registration as TR
+    rng = np.random.default_rng(12)
+    src = rng.normal(size=(9, 3))
+    q = rng.normal(size=4)
+    true_pose = np.concatenate([[0.3, -0.2, 0.5], q / np.linalg.norm(q)])
+    dst = np.asarray(JR.apply_similarity(1.7, jnp.asarray(true_pose), jnp.asarray(src))) \
+        + 1e-3 * rng.normal(size=(9, 3))
+    w = rng.uniform(0.5, 1.5, size=9)
+    for weights in (None, w):
+        js, jp = JR.find_similarity_transform(
+            jnp.asarray(src), jnp.asarray(dst), None if weights is None else jnp.asarray(w))
+        ts, tp = TR.find_similarity_transform(
+            torch.as_tensor(src), torch.as_tensor(dst),
+            None if weights is None else torch.as_tensor(w))
+        close(ts, js)
+        close(tp, jp, rtol=1e-9, atol=1e-10)
+        assert abs(float(ts) - 1.7) < 0.01
+    cams = np.concatenate([rng.normal(size=(5, 3)), rng.normal(size=(5, 4))], axis=-1)
+    tpose, tcams, tsrc = torch.as_tensor(true_pose), torch.as_tensor(cams), torch.as_tensor(src)
+    jpose, jcams, jsrc = jnp.asarray(true_pose), jnp.asarray(cams), jnp.asarray(src)
+    close(TR.apply_similarity(1.7, tpose, tsrc), JR.apply_similarity(1.7, jpose, jsrc))
+    close(TR.transform_points(1.7, tpose, tsrc), JR.transform_points(1.7, jpose, jsrc))
+    close(TR.transform_cameras(1.7, tpose, tcams), JR.transform_cameras(1.7, jpose, jcams),
+          rtol=1e-9, atol=1e-10)
+    close(TR.transform_rig(1.7, tcams), JR.transform_rig(1.7, jcams))

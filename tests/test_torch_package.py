@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r"""
@@ -33,7 +35,21 @@ def test_port_imports_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 32
+    for new in ("texture.raycast", "calib.mesh_constraints", "calib.checkpoint", "solver.lm",
+                "geometry.rpc_fit", "geometry.registration", "io.depth_io", "io.ply",
+                "tools.fit_rpc_tool"):
+        assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
+
+
+def test_chip_smoke_and_scripts_name_no_jax():
+    """Neither chip_smoke.py nor any module of the port imports jax or the
+    JAX package, by the text of their import statements too."""
+    import re
+    files = [ROOT / "chip_smoke.py"] + sorted((ROOT / "multiview_tpu_torch").rglob("*.py"))
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|multiview_tpu)(?:\.|\s|$)", re.M)
+    bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu_or_the_repo(tmp_path):
@@ -50,3 +66,85 @@ def test_chip_smoke_refuses_to_run_without_a_gpu_or_the_repo(tmp_path):
     for proc in runs:
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _constructors(device):
+    """Every constructor of the port that puts a problem on a device, called
+    at a tiny size; ``device`` None means "name no device"."""
+    import numpy as np
+    import torch
+    from multiview_tpu_torch.calib import assemble, bracketing as br, problem as prob
+    from multiview_tpu_torch.geometry.camera import CameraParams
+    from multiview_tpu_torch.io import rig_config as rc
+    from multiview_tpu_torch.sfm.tracks import TrackSet
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    kw = {} if device is None else {"device": device}
+    sensor = rc.SensorConfig(
+        name="nav_cam", focal_length=50.0, optical_center=np.array([32.0, 24.0]),
+        distortion=np.array([]), image_size=(64, 48), distorted_crop_size=(64, 48),
+        undistorted_image_size=(64, 48), ref_to_sensor=np.eye(4), depth_to_image=np.eye(4),
+        timestamp_offset=0.0)
+    rig = rc.RigConfig([sensor])
+    cloud = np.ones((48, 64, 3), np.float32)
+    images = [[br.ImageRecord(float(t), f"nav_cam/{t}.pgm", None) for t in (0, 1)]]
+    depth = [[br.ImageRecord(float(t), f"nav_cam/{t}.pc", cloud) for t in (0, 1)]]
+    cams, _, _ = br.lookup_images(False, [0.0, 1.0], images, depth, [0.0], bracket_len=1.5)
+    tracks = TrackSet([np.array([[10.0, 12.0]]), np.array([[11.0, 12.0]])], [{0: 0, 1: 0}])
+    ident = np.tile([0, 0, 0, 0, 0, 0, 1.0], (2, 1))
+    cpu_scene = syn.make_cube_scene(n_images=3, n_per_face=2, device="cpu")
+    arrays = prob.to_numpy(cpu_scene.true_state)
+    obs_arrays = {"pixels": [{
+        f: getattr(cpu_scene.observations.pixels[0], f).numpy()
+        for f in ("pix", "beg_idx", "end_idx", "point_idx", "dt_cam", "dt_bracket", "mask",
+                  "dist_half_size")}]}
+    return {
+        "from_numpy": lambda: prob.from_numpy(arrays, obs_arrays, **kw)[0].points,
+        "build_state": lambda: assemble.build_state(
+            rig, cams, ident, np.array([0.0, 1.0]), ident, 1, **kw).points,
+        "build_observations": lambda: assemble.build_observations(
+            rig, cams, np.array([0.0, 1.0]), tracks, **kw)[0].pixels[0].pix,
+        "build_depth_observations": lambda: assemble.build_depth_observations(
+            rig, cams, np.array([0.0, 1.0]), tracks, **kw)[0].depth_xyz,
+        "make_cube_scene": lambda: syn.make_cube_scene(
+            n_images=3, n_per_face=2, **kw).true_state.points,
+        "make_rig_scene": lambda: syn.make_rig_scene(
+            n_ref=3, n_per_face=2, **kw).true_state.points,
+        "add_depth_observations": lambda: syn.add_depth_observations(
+            syn.make_rig_scene(n_ref=3, n_per_face=2, **kw)).observations.depths[0].depth_xyz,
+        "CameraParams.create": lambda: CameraParams.create(
+            (64, 48), 50.0, (32.0, 24.0), **kw).focal,
+        "cam_params_from_sensor": lambda: common.cam_params_from_sensor(sensor, **kw).focal,
+    }
+
+
+_CONSTRUCTORS = ["from_numpy", "build_state", "build_observations", "build_depth_observations",
+                 "make_cube_scene", "make_rig_scene", "add_depth_observations",
+                 "CameraParams.create", "cam_params_from_sensor"]
+
+
+def test_constructor_list_is_complete():
+    assert sorted(_constructors("cpu")) == sorted(_CONSTRUCTORS)
+
+
+@pytest.mark.parametrize("name", _CONSTRUCTORS)
+def test_constructors_never_choose_the_cpu_by_themselves(name):
+    """With ``device="cpu"`` each constructor works on the CPU; with no device
+    named it puts its tensors on the first CUDA card, and raises the error
+    that names the remedy where there is none."""
+    import torch
+    assert _constructors("cpu")[name]().device.type == "cpu"
+    if torch.cuda.is_available():
+        assert _constructors(None)[name]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            _constructors(None)[name]()
+
+
+def test_render_terrain_names_the_cpu_itself(tmp_path):
+    """The workspace renderer is host numpy work: it runs with no device
+    named and no card."""
+    from multiview_tpu_torch.utils import synthetic as syn
+    syn.build_rig_workspace(tmp_path, 2, (32, 24), 28.0, depth=True)
+    assert (tmp_path / "images" / "haz_cam" / "10000.25.pc").is_file()

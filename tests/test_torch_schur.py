@@ -90,7 +90,7 @@ def test_cube_scene_and_perturbation_are_identical():
     j = JSyn.make_cube_scene(n_images=8, n_per_face=3, dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4),
                              pix_noise=0.3)
     t = TSyn.make_cube_scene(n_images=8, n_per_face=3, dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4),
-                             pix_noise=0.3)
+                             pix_noise=0.3, device="cpu")
     for a, b in ((t.observations.pixels[0].pix, j.observations.pixels[0].pix),
                  (t.observations.pixels[0].point_idx, j.observations.pixels[0].point_idx),
                  (t.true_state.world_to_ref, j.true_state.world_to_ref)):

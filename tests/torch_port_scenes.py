@@ -1,8 +1,10 @@
 """Shared inputs of the port parity tests (tests/test_torch_*.py): the
 rendered textured-terrain frames and two-sensor rig workspace of
 tests/test_cli_tools.py (written as binary PGM, which both packages read),
-and a RANSAC hypothesis sampler that returns the JAX package's own draws."""
+a RANSAC hypothesis sampler that returns the JAX package's own draws, the
+carrier of a JAX problem into the port and the shared rig+depth scene."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -104,3 +106,45 @@ def jax_sampler(valid, num_hypotheses, seed):
     s = jax.random.choice(jax.random.PRNGKey(seed), valid.shape[0],
                           shape=(num_hypotheses, 3), replace=True, p=probs)
     return torch.as_tensor(np.array(s), dtype=torch.int64, device=valid.device)
+
+
+def _np_leaf(x):
+    return tuple(np.asarray(v) for v in x) if isinstance(x, tuple) else np.asarray(x)
+
+
+def _obs_fields(o):
+    return {f.name: (o.sensor if f.name == "sensor" else
+                     None if getattr(o, f.name) is None else np.asarray(getattr(o, f.name)))
+            for f in dataclasses.fields(o)}
+
+
+def port_problem(state, observations):
+    """JAX RigState/Observations (every family, depths included) -> the
+    port's on the CPU in float64, by field name through ``from_numpy``."""
+    from multiview_tpu_torch.calib import problem as TPr
+    sa = {k: _np_leaf(v) for k, v in dataclasses.asdict(state).items()}
+    oa = {"pixels": [_obs_fields(o) for o in observations.pixels],
+          "depths": [_obs_fields(o) for o in observations.depths]}
+    for name in ("tri_prior", "mesh_tri"):
+        pr = getattr(observations, name)
+        if pr is not None:
+            oa[name] = _obs_fields(pr)
+    return TPr.from_numpy(sa, oa, device="cpu", dtype=torch.float64)
+
+
+# depth_to_image and scale of sensor 1 in the rig+depth scene
+DEPTH_D2I = np.tile([0, 0, 0, 0, 0, 0, 1.0], (3, 1))
+DEPTH_D2I[1] = P.make_pose(torch.tensor([0.01, -0.02, 0.005], dtype=torch.float64),
+                           P.quat_exp(torch.tensor([0.02, 0.01, -0.015], dtype=torch.float64))
+                           ).numpy()
+DEPTH_SCALE = np.array([1.0, 1.02, 1.0])
+
+
+def make_depth_scene(syn_mod, n_ref=6, n_per_face=3, pix_noise=0.0, depth_noise=0.0, **kw):
+    """The rig+depth scene of tests/test_depth_ba.py at a small size, from
+    either package's synthetic module (``kw``: the port's ``device``)."""
+    scene = syn_mod.make_rig_scene(n_ref=n_ref, n_per_face=n_per_face, pix_noise=pix_noise,
+                                   **kw)
+    return syn_mod.add_depth_observations(scene, sensors=(1,), subsample=2,
+                                          depth_noise=depth_noise, depth_to_image=DEPTH_D2I,
+                                          depth_scale=DEPTH_SCALE)
