@@ -3,10 +3,11 @@
 Port of ``multiview_tpu/__main__.py``. Ported tools:
 
   calibrate   rig_calibrator   (multi-pass rig BA with depth and mesh constraints)
+  sfm-init    theia_sfm        (global / incremental SfM pose initialization)
   fit-rpc     fit_rpc          (RPC distortion + inverse fitting)
 
-The other tools of the reference CLI (sfm-init, fuse-mesh, texture,
-undistort) are not ported yet.
+The other tools of the reference CLI (fuse-mesh, texture, undistort) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ def expand_flagfiles(argv, depth: int = 0):
 
 
 def main(argv=None):
-    from multiview_tpu_torch.tools import calibrate, fit_rpc_tool
+    from multiview_tpu_torch.tools import calibrate, fit_rpc_tool, sfm_init
 
-    tools = {"calibrate": calibrate, "fit-rpc": fit_rpc_tool}
+    tools = {"calibrate": calibrate, "sfm-init": sfm_init, "fit-rpc": fit_rpc_tool}
     parser = argparse.ArgumentParser(
         prog="multiview_tpu_torch",
         description="Rig calibration on PyTorch / CUDA (port of multiview_tpu)")

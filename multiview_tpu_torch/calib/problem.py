@@ -154,6 +154,26 @@ class FloatSpec:
     cam_pose_sensors: Optional[Sequence[int]] = None
 
 
+def identity_state(num_ref: int, num_sensors: int, num_points: int,
+                   dist_sizes: Sequence[int], affine_depth: bool = False,
+                   dtype=torch.float64, device=None) -> RigState:
+    """A state of identity poses, unit focals and points at the origin, on
+    ``device`` (the first CUDA card when None; pass ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
+    ident = pose_mod.pose_identity(dtype, device)
+    d2i = pose_mod.affine_identity(dtype, device) if affine_depth else ident
+    return RigState(
+        world_to_ref=ident.repeat(num_ref, 1),
+        ref_to_cam=ident.repeat(num_sensors, 1),
+        timestamp_offsets=torch.zeros(num_sensors, dtype=dtype, device=device),
+        focal=torch.ones(num_sensors, dtype=dtype, device=device),
+        optical_center=torch.zeros((num_sensors, 2), dtype=dtype, device=device),
+        dist=tuple(torch.zeros(d, dtype=dtype, device=device) for d in dist_sizes),
+        depth_to_image=d2i.repeat(num_sensors, 1),
+        depth_scale=torch.ones(num_sensors, dtype=dtype, device=device),
+        points=torch.zeros((num_points, 3), dtype=dtype, device=device))
+
+
 # ----------------------------------------------------------------------------
 # Carrying a problem across from the JAX package
 # ----------------------------------------------------------------------------

@@ -68,6 +68,14 @@ def triangulate_track(P, pix, mask, iters: int = 3):
     return X, min_depth, valid
 
 
+def triangulate_tracks(P, pix, mask, iters: int = 3):
+    """``triangulate_track`` over a leading track axis: P [T,V,3,4], pix
+    [T,V,2], mask [T,V]. The reference maps the single-track function over
+    the tracks; here that function is batched already, so this is its name
+    for callers that hold a padded track table."""
+    return triangulate_track(P, pix, mask, iters)
+
+
 def convergence_angles(w2c_poses, xyz, mask):
     """Max pairwise angle (degrees) between rays from cameras to each point
     (the min-triangulation-angle gate, rig_calibrator.cc:1045-1119).

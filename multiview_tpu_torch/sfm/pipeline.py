@@ -11,8 +11,12 @@ distance + top-2 kernel over [P,K,128] descriptor stacks, and verified by
 one batched RANSAC. On the CPU each pair is matched on its compacted
 matches, as the reference does on the CPU.
 
-Not ported yet: SURF detection, retrieval-based pair selection, the
-out-of-core feature store and the sharded (mesh) path.
+Pairs come from the temporal ``num_overlaps`` scheme or, with
+``retrieval_neighbors`` > 0, from global-descriptor retrieval
+(``sfm/retrieval.py``).
+
+Not ported yet: SURF detection, the out-of-core feature store and the
+sharded (mesh) path.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ class FrontendConfig:
     sigma0: float = 1.6               # --sift_sigma
     contrast_threshold: Optional[float] = None  # --sift_contrastThreshold
     edge_threshold: float = 10.0      # --sift_edgeThreshold
+    # >0: select match pairs by global-descriptor retrieval (each image vs
+    # its K most similar) instead of temporal num_overlaps: Theia's
+    # num_nearest_neighbors_for_global_descriptor_matching (theia_flags.txt:57-62)
+    retrieval_neighbors: int = 0
+    retrieval_clusters: int = 16      # num_gmm_clusters_for_fisher_vector
 
     @property
     def detect_threshold(self) -> float:
@@ -188,8 +197,14 @@ def detect_match_features(images: Sequence[np.ndarray],
     device = resolve_device(device)
     kps, descs = detect_all(images, cfg, device=device)
     n = len(images)
-    pair_ids = [(i, j) for i in range(n)
-                for j in range(i + 1, min(i + 1 + cfg.num_overlaps, n))]
+    if cfg.retrieval_neighbors > 0:
+        from multiview_tpu_torch.sfm import retrieval
+        pair_ids = retrieval.select_pairs(
+            descs, [k.valid for k in kps], cfg.retrieval_neighbors,
+            num_clusters=cfg.retrieval_clusters)
+    else:
+        pair_ids = [(i, j) for i in range(n)
+                    for j in range(i + 1, min(i + 1 + cfg.num_overlaps, n))]
     if device.type == "cpu":
         raw = {(i, j): match_pair(kps[i], descs[i], kps[j], descs[j], cfg,
                                   seed=i * 1000 + j) for i, j in pair_ids}

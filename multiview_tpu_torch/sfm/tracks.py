@@ -114,3 +114,31 @@ def build_tracks(pair_matches: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarra
         tracks.append({int(cids[m]): int(fid_of[members[m]]) for m in srt})
     return TrackSet(keypoints, tracks)
 
+
+
+def tracks_to_arrays(ts: TrackSet):
+    """Flatten tracks into the observation-row arrays the BA layer wants:
+    (cam_idx [N], fid [N], pix [N,2], point_idx [N])."""
+    cam_idx, fid_arr, pix, pid_arr = [], [], [], []
+    for pid, track in enumerate(ts.tracks):
+        for cid, fid in track.items():
+            cam_idx.append(cid)
+            fid_arr.append(fid)
+            pix.append(ts.keypoints[cid][fid])
+            pid_arr.append(pid)
+    return (np.asarray(cam_idx, np.int32), np.asarray(fid_arr, np.int32),
+            np.asarray(pix, float), np.asarray(pid_arr, np.int32))
+
+
+def subset_views(ts: TrackSet, keep) -> TrackSet:
+    """Restrict a TrackSet to a subset of views (e.g. the views incremental
+    SfM actually registered): keypoints are re-indexed to the new cid order
+    and tracks drop unkept views (tracks left with <2 views are removed)."""
+    remap = {int(old): new for new, old in enumerate(keep)}
+    kps = [ts.keypoints[int(c)] for c in keep]
+    tracks = []
+    for t in ts.tracks:
+        nt = {remap[c]: f for c, f in t.items() if c in remap}
+        if len(nt) >= 2:
+            tracks.append(nt)
+    return TrackSet(kps, tracks)

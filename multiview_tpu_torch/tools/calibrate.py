@@ -7,8 +7,8 @@ voxblox layout and world-frame depth clouds).
 
 Runs on the first CUDA card (float32) and raises when there is none;
 ``--device cpu`` asks for the CPU (float64). Flags of parts not ported yet
-raise NotImplementedError: registration, sharding, retrieval and out-of-core
-matching, texture output and the match-file export.
+raise NotImplementedError: registration, sharding, out-of-core matching,
+texture output and the match-file export.
 """
 
 from __future__ import annotations
@@ -99,8 +99,6 @@ _NOT_PORTED = (
     ("sharded", bool, "--sharded"),
     ("out_texture_dir", bool, "--out_texture_dir"),
     ("save_matches", bool, "--save_matches"),
-    ("num_nearest_neighbors_for_global_descriptor_matching", lambda v: v > 0,
-     "--num_nearest_neighbors_for_global_descriptor_matching > 0 (retrieval)"),
     ("match_out_of_core", bool, "--match_out_of_core"),
 )
 

@@ -107,12 +107,14 @@ def add_sift_args(p):
                    help="detection-response threshold (default DoG contrast 0.015)")
     p.add_argument("--sift_edgeThreshold", type=float, default=10.0)
     p.add_argument("--sift_sigma", type=float, default=1.6)
-    # retrieval and out-of-core matching are not ported: the two switches
-    # raise in the tool, and the settings that only they read are ignored
     p.add_argument("--num_nearest_neighbors_for_global_descriptor_matching",
-                   type=int, default=0, help="retrieval pair selection (not ported yet)")
+                   type=int, default=0,
+                   help=">0: pick match pairs by global-descriptor (VLAD) retrieval "
+                        "instead of temporal --num_overlaps (theia_flags.txt:57-62)")
     p.add_argument("--num_gmm_clusters_for_fisher_vector", type=int, default=16,
-                   help="ignored (retrieval is not ported yet)")
+                   help="retrieval codebook size (theia_flags.txt:61)")
+    # out-of-core matching is not ported: the switch raises in the tools, and
+    # the settings that only it reads are ignored
     p.add_argument("--match_out_of_core", action="store_true",
                    help="out-of-core matching (not ported yet)")
     p.add_argument("--matching_working_directory", default=None,
@@ -132,6 +134,8 @@ def frontend_config_from_args(args, **overrides):
         feature_detector=args.feature_detector.lower(),
         contrast_threshold=args.sift_contrastThreshold,
         edge_threshold=args.sift_edgeThreshold,
-        num_overlaps=args.num_overlaps)
+        num_overlaps=args.num_overlaps,
+        retrieval_neighbors=args.num_nearest_neighbors_for_global_descriptor_matching,
+        retrieval_clusters=args.num_gmm_clusters_for_fisher_vector)
     kw.update(overrides)
     return FrontendConfig(**kw)

@@ -562,3 +562,38 @@ def build_rig_workspace(ws, n_ref: int, size: Tuple[int, int], focal: float,
             _render_frame(job)
     nvm_io.write_camera_poses(ws / "cameras.txt", names, np.stack(mats))
     return rig_true
+
+
+def compute_ate(est_names, est_mats, gt_file) -> Dict[str, float]:
+    """Absolute trajectory error of estimated world->cam matrices
+    (``est_names`` [N] image names, ``est_mats`` [N,4,4]) against the true
+    poses of a workspace's cameras.txt, after a similarity alignment of the
+    camera centres (scale from the path lengths, rotation by Kabsch, as
+    ``geometry/registration.py``): {n_poses, ate_rmse_m, rot_mean_deg,
+    rot_max_deg}. The rotation errors are read after the same world transform
+    is applied to the estimated poses. Images are paired by file name."""
+    from multiview_tpu_torch.geometry import registration as reg
+    from multiview_tpu_torch.io import nvm as nvm_io
+
+    gnames, gmats = nvm_io.read_camera_poses(gt_file)
+    gm = {Path(n).name: M for n, M in zip(gnames, gmats)}
+    est, gt = [], []
+    for n, M in zip(est_names, est_mats):
+        if Path(n).name in gm:
+            est.append(M)
+            gt.append(gm[Path(n).name])
+    E, G = _f64(np.stack(est)), _f64(np.stack(gt))
+
+    def centres(M):
+        return -torch.einsum("nji,nj->ni", M[:, :3, :3], M[:, :3, 3])
+
+    ce, cg = centres(E), centres(G)
+    scale, spose = reg.find_similarity_transform(ce, cg)
+    ce_al = reg.apply_similarity(scale, spose, ce)
+    ate_rmse = float(torch.sqrt(torch.mean(torch.sum((ce_al - cg) ** 2, dim=-1))))
+    est_al = reg.transform_cameras(scale, spose, pose_mod.matrix_to_pose(E))
+    Re = pose_mod.quat_to_matrix(pose_mod.pose_q(est_al))
+    cosang = (torch.einsum("nij,nij->n", Re, G[:, :3, :3]) - 1.0) / 2.0
+    rots = torch.rad2deg(torch.arccos(torch.clamp(cosang, -1.0, 1.0)))
+    return {"n_poses": int(len(E)), "ate_rmse_m": ate_rmse,
+            "rot_mean_deg": float(rots.mean()), "rot_max_deg": float(rots.max())}

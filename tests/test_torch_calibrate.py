@@ -18,7 +18,9 @@ from multiview_tpu.__main__ import main as jax_main
 from multiview_tpu_torch.__main__ import main as torch_main
 from multiview_tpu_torch.io import rig_config as rc
 from multiview_tpu_torch.sfm import ransac as TR
-from torch_port_scenes import jax_sampler, rig_error, write_rig_workspace
+from torch_port_scenes import jax_sampler, one_torch_thread, rig_error, write_rig_workspace
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARGS = ["--rig_transforms_to_float", "--camera_poses_to_float", "--bracket_len", "1.5",
         "--num_iterations", "15", "--calibrator_num_passes", "1",
@@ -66,8 +68,7 @@ def test_calibrate_cli_matches_jax(workspace, tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--registration"], ["--sharded"],
                                   ["--out_texture_dir", "tex"], ["--save_matches"],
-                                  ["--num_nearest_neighbors_for_global_descriptor_matching",
-                                   "5"], ["--match_out_of_core"]])
+                                  ["--match_out_of_core"]])
 def test_unported_flags_raise(workspace, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         torch_main(["calibrate", "--rig_config", str(workspace / "rig_config.txt"),

@@ -28,7 +28,9 @@ from multiview_tpu_torch.geometry import pose as TP
 from multiview_tpu_torch.io import rig_config as rc
 from multiview_tpu_torch.sfm import ransac as TR
 from multiview_tpu_torch.utils import synthetic as TSyn
-from torch_port_scenes import jax_sampler
+from torch_port_scenes import jax_sampler, one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CPU = ["--device", "cpu"]
 

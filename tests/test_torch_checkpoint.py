@@ -8,12 +8,15 @@ of the JAX package's resumed run."""
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from multiview_tpu.calib import calibrator as JCal, checkpoint as JCk, problem as JPr
 from multiview_tpu.utils import synthetic as JSyn
 from multiview_tpu_torch.calib import calibrator as TCal, checkpoint as TCk, problem as TPr
-from torch_port_scenes import make_depth_scene, port_problem
+from torch_port_scenes import make_depth_scene, one_torch_thread, port_problem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_save_load_round_trip_with_empty_distortion_and_depth_masks(tmp_path):

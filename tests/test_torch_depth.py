@@ -27,7 +27,9 @@ from multiview_tpu_torch.calib import calibrator as TCal, problem as TPr
 from multiview_tpu_torch.geometry import pose as TP
 from multiview_tpu_torch.solver import schur as TS
 from multiview_tpu_torch.utils import synthetic as TSyn
-from torch_port_scenes import make_depth_scene, port_problem
+from torch_port_scenes import make_depth_scene, one_torch_thread, port_problem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _close(t, j, tol):

@@ -22,7 +22,9 @@ import torch
 from multiview_tpu.sfm import features as JF, pipeline as JPl, ransac as JR, tracks as JTr
 from multiview_tpu_torch.sfm import features as TF, pipeline as TPl, ransac as TR
 from multiview_tpu_torch.sfm import tracks as TTr
-from torch_port_scenes import jax_sampler, ref_pose, render_plane_image
+from torch_port_scenes import jax_sampler, one_torch_thread, ref_pose, render_plane_image
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,9 @@ from multiview_tpu.utils import synthetic as JSyn
 from multiview_tpu_torch.calib import calibrator as TCal, problem as TPr
 from multiview_tpu_torch.geometry import camera as TC, distortion as TD, rpc_fit as TRpc
 from multiview_tpu_torch.solver.lm import levenberg_marquardt as torch_lm
-from torch_port_scenes import port_problem
+from torch_port_scenes import one_torch_thread, port_problem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _RNG = np.random.default_rng(0)
 _A, _B = _RNG.normal(size=(20, 5)), _RNG.normal(size=20)

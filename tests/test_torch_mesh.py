@@ -22,7 +22,9 @@ from multiview_tpu_torch.calib import calibrator as TCal, mesh_constraints as TM
 from multiview_tpu_torch.calib import problem as TPr
 from multiview_tpu_torch.texture import raycast as TRay
 from test_mesh_constraints import make_roof_scene, roof_mesh
-from torch_port_scenes import port_problem
+from torch_port_scenes import one_torch_thread, port_problem
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _soup(rng, n):

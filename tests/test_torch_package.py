@@ -35,8 +35,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 32
-    for new in ("texture.raycast", "calib.mesh_constraints", "calib.checkpoint", "solver.lm",
+    assert int(proc.stdout.strip()) >= 36
+    for new in ("sfm.global_sfm", "sfm.incremental", "sfm.retrieval", "tools.sfm_init",
+                "texture.raycast", "calib.mesh_constraints", "calib.checkpoint", "solver.lm",
                 "geometry.rpc_fit", "geometry.registration", "io.depth_io", "io.ply",
                 "tools.fit_rpc_tool"):
         assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
@@ -46,7 +47,9 @@ def test_chip_smoke_and_scripts_name_no_jax():
     """Neither chip_smoke.py nor any module of the port imports jax or the
     JAX package, by the text of their import statements too."""
     import re
-    files = [ROOT / "chip_smoke.py"] + sorted((ROOT / "multiview_tpu_torch").rglob("*.py"))
+    files = ([ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
+             + sorted((ROOT / "multiview_tpu_torch").rglob("*.py")))
+    assert len(files) > 40
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|multiview_tpu)(?:\.|\s|$)", re.M)
     bad = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
     assert not bad, bad
@@ -148,3 +151,54 @@ def test_render_terrain_names_the_cpu_itself(tmp_path):
     from multiview_tpu_torch.utils import synthetic as syn
     syn.build_rig_workspace(tmp_path, 2, (32, 24), 28.0, depth=True)
     assert (tmp_path / "images" / "haz_cam" / "10000.25.pc").is_file()
+
+
+def _sfm_entry_points(device):
+    """The entry points of the sfm-init slice that put work on a device,
+    called at a tiny size; ``device`` None means "name no device"."""
+    import numpy as np
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.sfm import global_sfm as gs, incremental as inc
+
+    kw = {} if device is None else {"device": device}
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1, 1, (40, 3)) + [0, 0, 4.0]
+    cams = [np.array([0.3 * i, 0.0, 0.0]) for i in range(3)]
+    uv = [(pts - c)[:, :2] / (pts - c)[:, 2:] for c in cams]
+    pair_data = {(0, 1): (uv[0], uv[1]), (1, 2): (uv[1], uv[2])}
+    obs = (np.repeat(np.arange(3), 40), np.tile(np.arange(40), 3), np.concatenate(uv))
+    return {
+        "make_view_graph": lambda: gs.make_view_graph(
+            [[0, 1]], [[0, 0, 0, 1.0]], [[1.0, 0, 0]], [1.0], **kw).rel_rot,
+        "view_graph_from_matches": lambda: gs.view_graph_from_matches(
+            pair_data, 3, **kw).rel_rot,
+        "run_global_sfm": lambda: gs.run_global_sfm(pair_data, 3, **kw),
+        "run_incremental_sfm": lambda: inc.run_incremental_sfm(
+            pair_data, 3, obs, inc.IncrementalOptions(min_pnp_inliers=10), **kw)[0],
+        "identity_state": lambda: prob.identity_state(2, 1, 3, [0], **kw).points,
+    }
+
+
+@pytest.mark.parametrize("name", ["make_view_graph", "view_graph_from_matches", "run_global_sfm",
+                                  "run_incremental_sfm", "identity_state"])
+def test_sfm_entry_points_never_choose_the_cpu_by_themselves(name):
+    """As the constructors above: the CPU only when it is named."""
+    import torch
+    assert sorted(_sfm_entry_points("cpu")) == sorted(_sfm_entry_points(None))
+    assert _sfm_entry_points("cpu")[name]().device.type == "cpu"
+    if torch.cuda.is_available():
+        assert _sfm_entry_points(None)[name]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            _sfm_entry_points(None)[name]()
+
+
+def test_ransacs_and_retrieval_run_where_their_tensors_are():
+    """The RANSACs and ``select_pairs`` take tensors and compute on those
+    tensors' device (the front end and ``view_graph_from_matches`` put them on the
+    device the caller named); nothing in them moves work to the CPU."""
+    import re
+    for mod in ("sfm/ransac.py", "sfm/retrieval.py"):
+        text = (ROOT / "multiview_tpu_torch" / mod).read_text()
+        assert not re.search(r"device\s*=\s*[\"']cpu", text), mod
+        assert ".cpu()" not in text.replace("(g @ g.T).cpu()", ""), mod

@@ -23,6 +23,9 @@ from multiview_tpu.utils import synthetic as JSyn
 from multiview_tpu_torch.calib import calibrator as TCal, problem as TPr
 from multiview_tpu_torch.solver import schur as TS
 from multiview_tpu_torch.utils import synthetic as TSyn
+from torch_port_scenes import one_torch_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _leaf(x):

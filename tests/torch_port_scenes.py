@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from multiview_tpu_torch.geometry import pose as P
@@ -23,6 +24,19 @@ RIG_POSE = P.make_pose(torch.tensor([0.12, -0.04, 0.02], dtype=torch.float64),
                        P.quat_exp(torch.tensor([0.03, -0.02, 0.05], dtype=torch.float64))
                        ).numpy()
 _TEX_GRID = np.random.default_rng(42).uniform(size=(512, 512)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tests with one intra-op thread in PyTorch. The port's
+    CPU tests are thousands of tiny tensor operations; several test
+    processes with a thread pool each, on one machine, spend their time
+    waiting at the pools' barriers (a file of these tests took six times its
+    single-core time that way)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _terrain_height(x, y):
@@ -97,15 +111,24 @@ def rig_error(M):
             float(np.linalg.norm(P.pose_t(rel).numpy())))
 
 
-def jax_sampler(valid, num_hypotheses, seed):
+def jax_sampler(valid, num_hypotheses, seed, size=3):
     """Drop-in for multiview_tpu_torch.sfm.ransac.sample_hypotheses that
-    returns exactly the draws of multiview_tpu.sfm.ransac.ransac_affine2d
-    for PRNGKey(seed) (probabilities in float32, as there)."""
-    vf = jnp.asarray(valid.cpu().numpy()).astype(jnp.float32)
-    probs = vf / jnp.maximum(jnp.sum(vf), 1.0)
-    s = jax.random.choice(jax.random.PRNGKey(seed), valid.shape[0],
-                          shape=(num_hypotheses, 3), replace=True, p=probs)
-    return torch.as_tensor(np.array(s), dtype=torch.int64, device=valid.device)
+    returns exactly the draws of the JAX package's RANSACs for
+    PRNGKey(seed), for each point set of ``valid`` [...,N]. The JAX functions
+    form the probabilities in the dtype of their points: float32 in the front
+    end's affine RANSAC (size 3), float64 in the two-view and PnP RANSACs."""
+    dt = jnp.float32 if size == 3 else jnp.float64
+    v = valid.cpu().numpy()
+    flat = v.reshape(-1, v.shape[-1])
+    out = []
+    for row in flat:
+        vf = jnp.asarray(row).astype(dt)
+        probs = vf / jnp.maximum(jnp.sum(vf), 1.0)
+        out.append(np.array(jax.random.choice(
+            jax.random.PRNGKey(seed), row.shape[0], shape=(num_hypotheses, size),
+            replace=True, p=probs)))
+    s = np.stack(out).reshape(v.shape[:-1] + (num_hypotheses, size))
+    return torch.as_tensor(s, dtype=torch.int64, device=valid.device)
 
 
 def _np_leaf(x):
@@ -148,3 +171,32 @@ def make_depth_scene(syn_mod, n_ref=6, n_per_face=3, pix_noise=0.0, depth_noise=
     return syn_mod.add_depth_observations(scene, sensors=(1,), subsample=2,
                                           depth_noise=depth_noise, depth_to_image=DEPTH_D2I,
                                           depth_scale=DEPTH_SCALE)
+
+
+def two_view_scene(seed, n=160, noise=3e-4, outlier_frac=0.2, planar=False, n_invalid=12):
+    """Unit-plane correspondences of two views with gross outliers in the
+    second image and ``n_invalid`` trailing rows marked invalid: (x1 [n,2],
+    x2 [n,2], valid [n]). ``planar`` puts the points on the plane z = 2 in
+    the first camera's frame (the scene of tests/test_pipeline_ate.py)."""
+    rng = np.random.default_rng(seed)
+    if planar:
+        pts = np.concatenate([rng.uniform(-1, 1, (n, 2)), np.full((n, 1), 2.0)], 1)
+    else:
+        pts = rng.uniform(-1, 1, (n, 3)) + np.array([0.0, 0.0, 4.0])
+    R = P.quat_to_matrix(P.quat_exp(torch.as_tensor(rng.normal(0, 0.1, 3)))).numpy()
+    t = rng.normal(0, 0.3, 3)
+    p2 = pts @ R.T + t
+    x1 = pts[:, :2] / pts[:, 2:] + rng.normal(0, noise, (n, 2))
+    x2 = p2[:, :2] / p2[:, 2:] + rng.normal(0, noise, (n, 2))
+    out = rng.random(n) < outlier_frac
+    x2[out] += rng.uniform(0.05, 0.3, (int(out.sum()), 2)) * rng.choice([-1, 1], (int(out.sum()), 2))
+    valid = np.ones(n, bool)
+    valid[n - n_invalid:] = False
+    return x1, x2, valid
+
+
+def torch_view_graph(graph):
+    """A JAX ViewGraph as the port's, on the CPU in float64."""
+    from multiview_tpu_torch.sfm import global_sfm as TG
+    return TG.make_view_graph(np.array(graph.edges), np.array(graph.rel_rot),
+                              np.array(graph.rel_dir), np.array(graph.weight), device="cpu")
