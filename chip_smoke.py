@@ -69,11 +69,28 @@ printing a result):
    cameras.nvm (no rig, floating camera poses, the tool's default 2 passes of
    20 iterations, with the front end's matches merged in): the cost falls,
    the trajectory meets the bars of the JAX package's hard-scene test (0.05 m,
-   2 deg) and is no worse than phase 6's.
+   2 deg) and is no worse than phase 6's;
+2c. the rest of the front end: ``calibrate`` on the phase 2 workspace with
+   SURF features, out-of-core matching through a cache of 4 images, the
+   match-file export and registration to 8 control points made from the
+   truth: tensor-core launches, the rig, the registration error, the camera
+   centres against the truth with no alignment, the match files read back;
+7. the dense path: ``python -m multiview_tpu_torch fuse-mesh`` in process on
+   the three-sensor workspace (31 consecutive pairs of 1280x960, SGM, 64
+   planes, the left-right check, 0.02 m voxels): the file layout, per-pair
+   point counts, the fused
+   mesh against the analytic terrain (median and 90th percentile vertical
+   error), the stage times, a resume from ``mesh_gen`` that writes the same
+   mesh; then one pair on the card alone (cost pass, SGM and the cloud
+   filter's k-NN timed) and at 640x480 with 32 planes on the card (float32)
+   against the CPU (float64);
+7b. ``python -m multiview_tpu_torch undistort`` of the 11 sci_cam frames:
+   the intrinsics file, and one undistorted frame against a pinhole render of
+   the terrain from its pose with the undistorted intrinsics.
 
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
-over phases 2, 4, 4b, 6, 6b and 6c, each counted from 0 and each required to
+over phases 2, 2c, 4, 4b, 6, 6b and 6c, each counted from 0 and each required to
 be positive; ``launches_by_path`` has them all), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
 that path's shape), the card's name and power limit, and
@@ -144,6 +161,28 @@ ROW_REF = 8                # reference frames of the first row of the lawnmower 
 # of the JAX package's hard-scene test whatever mode sfm-init landed in
 CALIB_PASSES, CALIB_ITERATIONS = 2, 20
 WORKFLOW_ATE_MAX_M, WORKFLOW_ROT_MEAN_MAX_DEG = 0.05, 2.0
+# phase 2c: control points for the registration, and its bars
+CONTROL_POINTS = 8
+REGISTRATION_MAX_M, CENTRE_MAX_M = 0.01, 0.02
+# phase 7: fuse-mesh flags (the cameras fly 2 m above terrain of +-0.25 m
+# relief) and the bar on the fused mesh's median vertical error (one voxel).
+# With the reference's unchecked depths the mesh is 0.227 m off (median,
+# scripts/torch_dense_probe.py on an H100, PERF.md): each pair's pixels that
+# its neighbour does not see take a wrong, too great depth (12-17% of the
+# points more than 5 cm below the terrain), whose rays carve free space under
+# the surface; the left-right check removes them
+FUSE_FLAGS = ["--stereo_algorithm", "sgm", "--num_planes", "64", "--min_depth", "1.5",
+              "--max_depth", "3.0", "--voxel_size", "0.02", "--grid_dim", "320",
+              "--left_right_check"]
+# with it, measured on an H100: median 0.00653 m, 90th percentile 0.106 m,
+# 169443 vertices, 161951 points per pair (median; the row change's nav_cam
+# pair keeps none); the bars leave a factor of two or more
+FUSE_PAIRS = 31
+MESH_MEDIAN_MAX_M, MESH_P90_MAX_M = 0.02, 0.2
+MIN_MEDIAN_PAIR_POINTS, MIN_MESH_VERTICES = 100000, 100000
+# phase 7b: |undistorted - pinhole render| in gray levels, measured on an
+# H100: median 0.992, 90th percentile 1.48
+UNDISTORT_MEDIAN_MAX = 2.0
 
 
 class Tee(io.TextIOBase):
@@ -935,6 +974,251 @@ def phase6c(torch, mm, card, workdir: Path, sfm_run):
     return run["launches"]
 
 
+def phase2c(torch, mm, card, workdir: Path, rig_true):
+    """``calibrate`` with SURF, out-of-core matching, the match files and
+    registration to control points made from the truth."""
+    import numpy as np
+    from multiview_tpu_torch.io import match_file, nvm as nvm_io, rig_config as rc
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    ws, out = workdir / "ws", workdir / "calib_surf"
+    names, mats = nvm_io.read_camera_poses(ws / "cameras.txt")
+    nav = [i for i, n in enumerate(names) if Path(n).parent.name == "nav_cam"][2:4]
+    cam = common.cam_params_from_sensor(rc.read_rig_config(ws / "rig_config.txt").sensors[0],
+                                        device="cpu")
+    syn.write_control_points(workdir / "control.pto", workdir / "control.xyz",
+                             [names[i] for i in nav], mats[nav], [cam, cam], n=CONTROL_POINTS)
+    run = run_calibrate(torch, mm, "phase 2c", ws, out, [
+        "--feature_detector", "SURF", "--match_out_of_core", "--matching_working_directory",
+        str(workdir / "features"), "--matching_max_num_images_in_cache", "4",
+        "--save_matches", "--registration", "--hugin_file", str(workdir / "control.pto"),
+        "--xyz_file", str(workdir / "control.xyz")], every_pass=False)
+    errs = rig_errors(torch, run, rig_true, ("sci_cam",))
+    reg_err = float(re.search(r"Registration mean absolute error: (\S+) meters",
+                              run["text"]).group(1))
+    truth = {Path(n).name: M for n, M in zip(names, mats)}
+    centre = lambda M: -M[:3, :3].T @ M[:3, 3]  # noqa: E731
+    est_names, est_mats = nvm_io.read_camera_poses(out / "cameras.txt")
+    centre_err = max(float(np.linalg.norm(centre(M) - centre(truth[Path(n).name])))
+                     for n, M in zip(est_names, est_mats))
+    files = sorted((out / "matches").glob("*.match"))
+    counts = [tuple(len(x) for x in match_file.read_match_file(f)) for f in files]
+    spilled = len(list((workdir / "features").glob("feat_*.npz")))
+    print(f"[phase2c] calibrate --feature_detector SURF --match_out_of_core (cache of 4, "
+          f"{spilled} feature files) --save_matches --registration ({CONTROL_POINTS} control "
+          f"points): wall {run['wall']:.2f} s; stages "
+          + " ".join(f"{k}={v}s" for k, v in run["stages"].items())
+          + f"; tracks {run['tracks']}; costs {run['costs']}; tensor-core matcher launches "
+          f"{run['launches']} (FMA kernel 0); rig error (deg, m) {errs}; registration error "
+          f"{reg_err:.6g} m; largest camera-centre error against the truth, unaligned, "
+          f"{centre_err:.5f} m over {len(est_names)} cameras; {len(files)} match files, "
+          f"{sum(a for a, _ in counts)} matches read back [{card}]", flush=True)
+    if spilled != len(est_names):
+        raise AssertionError(f"phase 2c: {spilled} feature files for {len(est_names)} images")
+    if not reg_err < REGISTRATION_MAX_M:
+        raise AssertionError(f"phase 2c: registration error {reg_err} m")
+    if not centre_err < CENTRE_MAX_M:
+        raise AssertionError(f"phase 2c: a camera centre is {centre_err} m off the truth")
+    if not files or any(a != b or a == 0 for a, b in counts):
+        raise AssertionError(f"phase 2c: match files {counts}")
+    return run["launches"]
+
+
+def mesh_terrain_error(path):
+    """(vertices, median m, 90th percentile m) of |z - terrain_height(x, y)|
+    over a mesh's vertices."""
+    import numpy as np
+    from multiview_tpu_torch.io import ply
+    from multiview_tpu_torch.utils.synthetic import terrain_height
+
+    v = ply.read_ply(path)["vertices"]
+    err = np.abs(v[:, 2] - terrain_height(v[:, 0], v[:, 1]))
+    return len(v), float(np.median(err)), float(np.percentile(err, 90))
+
+
+def fuse_mesh(torch, out: Path, ws: Path, extra):
+    """``fuse-mesh`` in process; returns (wall, log)."""
+    from multiview_tpu_torch.__main__ import main as cli_main
+
+    argv = ["fuse-mesh", "--rig_config", str(ws / "rig_config.txt"), "--camera_poses",
+            str(ws / "cameras.txt"), "--images", str(ws / "images"), "--out_dir", str(out)]
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        ret = cli_main(argv + FUSE_FLAGS + extra)
+    torch.cuda.synchronize()
+    if ret != 0:
+        raise AssertionError(f"fuse-mesh returned {ret}")
+    return time.perf_counter() - t0, tee.buf.getvalue()
+
+
+def dense_pair_checks(torch, dev, card, ws: Path):
+    """One pair of the workspace: at full size on the card, the cost pass, the
+    SGM aggregation and the cloud filter's k-NN timed alone; at 640x480 with
+    32 planes, ``plane_sweep`` (SGM) on the card in float32 against the CPU in
+    float64."""
+    import numpy as np
+    from multiview_tpu_torch.dense import pc_filter, stereo
+    from multiview_tpu_torch.geometry import pose as P
+    from multiview_tpu_torch.io import nvm as nvm_io, rig_config as rc
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import images, undistort
+
+    names, mats = nvm_io.read_camera_poses(ws / "cameras.txt")
+    sci = [i for i, n in enumerate(names) if Path(n).parent.name == "sci_cam"][3:5]
+    sensor = rc.read_rig_config(ws / "rig_config.txt").sensors[1]
+    cam = common.cam_params_from_sensor(sensor, dtype=torch.float32, device=dev)
+    imgs = [undistort.undistort_image(torch.as_tensor(common.load_gray(names[i]), device=dev),
+                                      cam)[0] for i in sci]
+    K = cam.intrinsic_matrix("undistorted").double().cpu().numpy()
+    w2c = [P.matrix_to_pose(torch.as_tensor(mats[i])) for i in sci]
+    r2n = P.pose_compose(w2c[1], P.pose_inverse(w2c[0])).numpy()
+    focal, center = K[[0, 1], [0, 1]], K[:2, 2]
+    sweep = dict(min_depth=1.5, max_depth=3.0)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    stereo.plane_sweep(*imgs, focal, center, r2n, num_planes=64, **sweep)       # warm-up
+    _, wta_s = timed(stereo.plane_sweep, *imgs, focal, center, r2n, num_planes=64, **sweep)
+    res, sgm_total_s = timed(stereo.plane_sweep, *imgs, focal, center, r2n, num_planes=64,
+                             aggregate="sgm", **sweep)
+    H, W = imgs[0].shape
+    cost = torch.rand((H, W, 64), device=dev)
+    _, sgm_s = timed(stereo.sgm_aggregate, cost)
+    del cost
+    cloud = stereo.stereo_pair_to_cloud(res, focal, center, subsample=2)
+    pts = torch.as_tensor(cloud, dtype=torch.float32, device=dev)
+    _, knn_s = timed(pc_filter.knn_mean_distance, pts)
+    print(f"[phase7] one sci_cam pair at {W}x{H} on the card: plane sweep with 64 planes "
+          f"(cost pass and winner-take-all) {wta_s * 1e3:.1f} ms, with SGM {sgm_total_s * 1e3:.1f} "
+          f"ms; sgm_aggregate alone on [{H},{W},64] {sgm_s * 1e3:.1f} ms; knn_mean_distance "
+          f"(k = 8) of its cloud of {len(cloud)} points {knn_s * 1e3:.1f} ms "
+          f"({len(cloud) ** 2 / knn_s / 1e9:.2f} G pair distances/s) [{card}]", flush=True)
+
+    half = [images.adjust_image_size((W // 2, H // 2), im.double().cpu().numpy()) for im in imgs]
+    f2, c2 = focal / 2.0, (center - 0.5) / 2.0
+    out = {}
+    for name, d, dt in (("cuda", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float64)):
+        a, b = (torch.as_tensor(h, dtype=dt, device=d) for h in half)
+        out[name], sec = timed(stereo.plane_sweep, a, b, f2, c2, r2n, num_planes=32,
+                               aggregate="sgm", **sweep)
+        out[name] = [x.cpu() for x in out[name]]
+        out[name + "_s"] = sec
+    vg, vc = out["cuda"][2], out["cpu"][2]
+    agree = float((vg == vc).double().mean())
+    both = vg & vc
+    rel = ((out["cuda"][0].double() - out["cpu"][0]).abs() / out["cpu"][0])[both]
+    print(f"[phase7] plane_sweep SGM at {W // 2}x{H // 2}, 32 planes: card (float32) "
+          f"{out['cuda_s']:.2f} "
+          f"s, CPU (float64) {out['cpu_s']:.2f} s; valid masks agree on {agree:.5f} of the "
+          f"pixels ({int(vg.sum())} and {int(vc.sum())} valid); relative depth difference "
+          f"where both are valid: median {float(rel.median()):.3g}, 99th percentile "
+          f"{float(rel.quantile(0.99)):.3g}, max {float(rel.max()):.3g} [{card}]", flush=True)
+    if agree < 0.98 or float(rel.median()) > 1e-3:
+        raise AssertionError(f"phase 7: plane sweep on the card disagrees with the CPU: "
+                             f"masks {agree}, median relative depth {float(rel.median())}")
+
+
+def phase7(torch, dev, card, workdir: Path):
+    """``fuse-mesh`` on the three-sensor workspace, a resume from mesh_gen,
+    and the one-pair checks."""
+    import numpy as np
+    from multiview_tpu_torch.io import ply
+
+    ws, out = workdir / "ws3", workdir / "fused"
+    wall, text = fuse_mesh(torch, out, ws, [])
+    counts = [int(n) for n in re.findall(r"^pair \S+ / \S+: (\d+) points", text, re.M)]
+    kept = [(int(a), int(b)) for a, b in re.findall(r"kept (\d+)/(\d+)", text)]
+    stages = dict(re.findall(r"(\w+)=(\S+)", re.search(r"stage seconds: (.*)", text).group(1)))
+    pair_dirs = sorted(out.glob("*/stereo/*"))
+    layout_ok = all((d / f).is_file() for d in pair_dirs for f in (
+        "run-PC.pcd", "run-PC-filter.pcd", "run-PC-debug.ply", "run_cam2world.txt"))
+    index_lines = sum(len((out / s / "voxblox_index.txt").read_text().splitlines())
+                      for s in ("nav_cam", "sci_cam", "haz_cam"))
+    n_vert, med, p90 = mesh_terrain_error(out / "fused_mesh.ply")
+    print(f"[phase7] fuse-mesh on {len(counts)} pairs of 1280x960 ({' '.join(FUSE_FLAGS)}): "
+          f"wall {wall:.2f} s; stage seconds {stages}; points per pair min {min(counts)} "
+          f"median {int(np.median(counts))} max {max(counts)}; kept by pc_filter "
+          f"{sum(a for a, _ in kept) / sum(b for _, b in kept):.4f}; fused mesh {n_vert} "
+          f"vertices, vertical error against the terrain median {med:.5f} m, 90th "
+          f"percentile {p90:.5f} m [{card}]", flush=True)
+    if len(counts) != FUSE_PAIRS or len(pair_dirs) != FUSE_PAIRS or not layout_ok \
+            or index_lines != 2 * FUSE_PAIRS:
+        raise AssertionError(f"phase 7: {len(counts)} pairs, {len(pair_dirs)} pair directories "
+                             f"(layout complete: {layout_ok}), {index_lines} index lines")
+    if np.median(counts) < MIN_MEDIAN_PAIR_POINTS or n_vert < MIN_MESH_VERTICES:
+        raise AssertionError(f"phase 7: too few points ({np.median(counts)} per pair, median) "
+                             f"or vertices ({n_vert})")
+    if not (med <= MESH_MEDIAN_MAX_M and p90 <= MESH_P90_MAX_M):
+        raise AssertionError(f"phase 7: fused mesh {med} m (median), {p90} m (90th percentile) "
+                             f"off the terrain")
+
+    first = ply.read_ply(out / "fused_mesh.ply")
+    wall2, _ = fuse_mesh(torch, out, ws, ["--first_step", "mesh_gen"])
+    again = ply.read_ply(out / "fused_mesh.ply")
+    same = (np.array_equal(first["faces"], again["faces"])
+            and np.allclose(first["vertices"], again["vertices"], rtol=0, atol=1e-9))
+    print(f"[phase7] resume with --first_step mesh_gen: wall {wall2:.2f} s, the same mesh: "
+          f"{same} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("phase 7: the resumed run wrote another mesh")
+    dense_pair_checks(torch, dev, card, ws)
+
+
+def phase7b(torch, card, workdir: Path):
+    """``undistort`` of the sci_cam frames; one frame against a pinhole render
+    of the terrain with the undistorted intrinsics."""
+    import numpy as np
+    from multiview_tpu_torch.__main__ import main as cli_main
+    from multiview_tpu_torch.geometry import camera as cam_mod, pose as P
+    from multiview_tpu_torch.io import nvm as nvm_io, rig_config as rc
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import images, synthetic as syn
+
+    ws, out = workdir / "ws3", workdir / "undistorted"
+    frames = sorted((ws / "images" / "sci_cam").glob("*.pgm"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = cli_main(["undistort", "--rig_config", str(ws / "rig_config.txt"), "--sensor",
+                    "sci_cam", "--images", *map(str, frames), "--out_dir", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    intr = out / "undistorted_intrinsics.txt"
+    if ret != 0 or not intr.is_file() or len(list(out.glob("*.pgm"))) != len(frames):
+        raise AssertionError(f"phase 7b: undistort returned {ret} or wrote too little")
+    w, h, f, cx, cy = (float(v) for v in intr.read_text().splitlines()[1].split())
+    names, mats = nvm_io.read_camera_poses(ws / "cameras.txt")
+    k = len(frames) // 2
+    w2c = mats[[Path(n).name for n in names].index(frames[k].name)]
+    pinhole = cam_mod.CameraParams.create((int(w), int(h)), f, (cx, cy), device="cpu")
+    render = syn.render_terrain(pinhole, P.matrix_to_pose(torch.as_tensor(w2c)).numpy())
+    got = images.read_pgm(out / frames[k].name).astype(np.float64)
+    # the valid area: undistorted pixels whose source lies a pixel inside the frame
+    sensor = rc.read_rig_config(ws / "rig_config.txt").sensors[1]
+    cam = common.cam_params_from_sensor(sensor, device="cpu")
+    vs, us = np.mgrid[0:int(h), 0:int(w)]
+    src = cam.convert(torch.as_tensor(np.stack([us, vs], -1), dtype=torch.float64),
+                      cam_mod.UNDISTORTED, cam_mod.DISTORTED).numpy()
+    inside = ((src[..., 0] >= 1) & (src[..., 0] <= sensor.image_size[0] - 2)
+              & (src[..., 1] >= 1) & (src[..., 1] <= sensor.image_size[1] - 2))
+    diff = np.abs(got - np.clip(render * 255.0, 0, 255))[inside]
+    print(f"[phase7b] undistort of {len(frames)} sci_cam frames of 1280x960: wall {wall:.2f} s; "
+          f"undistorted intrinsics {w:.0f}x{h:.0f} f {f} c ({cx}, {cy}); frame {frames[k].name} "
+          f"against a pinhole render of its pose over {inside.mean():.4f} of the pixels: "
+          f"median |difference| {np.median(diff):.3f} gray levels, 90th percentile "
+          f"{np.percentile(diff, 90):.3f} [{card}]", flush=True)
+    if not np.median(diff) < UNDISTORT_MEDIAN_MAX:
+        raise AssertionError(f"phase 7b: undistorted frame {np.median(diff)} gray levels "
+                             f"(median) off the pinhole render")
+
+
 def main() -> int:
     if not (ROOT / "multiview_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
@@ -975,12 +1259,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as tmp:
         rig_true = render_workspaces(Path(tmp))
         paths = {"phase2": phase2(torch, mm, card, Path(tmp), rig_true),
+                 "phase2c": phase2c(torch, mm, card, Path(tmp), rig_true),
                  "phase4": phase4(torch, mm, card, Path(tmp), rig_true),
                  "phase4b": phase4b(torch, mm, dev, card, Path(tmp), rig_true)}
         sfm_run = phase6(torch, mm, card, Path(tmp))
         paths["phase6"] = sfm_run["launches"]
         paths["phase6b"] = phase6b(torch, mm, card, Path(tmp))
         paths["phase6c"] = phase6c(torch, mm, card, Path(tmp), sfm_run)
+        phase7(torch, dev, card, Path(tmp))
+        phase7b(torch, card, Path(tmp))
     fma_launches = phase2b(torch, mm, dev, card)
     phase3(torch, card)
     phase5(torch, dev, card)

@@ -1,19 +1,20 @@
 """multiview_tpu_torch: the PyTorch / CUDA port of ``multiview_tpu``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``io/``, ``calib/``, ``geometry/``, ``sfm/``, ``solver/``, ``tools/``,
-``utils/``) with PyTorch code that runs on an NVIDIA H100. Plain tensor
+(``io/``, ``calib/``, ``dense/``, ``geometry/``, ``sfm/``, ``solver/``,
+``tools/``, ``utils/``) with PyTorch code that runs on an NVIDIA H100. Plain tensor
 math is PyTorch; the one TPU (Pallas) kernel of the reference, the fused
 descriptor distance + top-2 matcher, is a pair of hand-written CUDA kernels
 for Hopper (``csrc/knn2_wgmma.cu`` for 64- and 128-wide descriptors,
 ``csrc/knn2.cu`` for any other width), built with nvcc at first use.
 
 Ported: the ``calibrate`` path (rig BA with depth and mesh constraints, the
-dense LM and the RPC refit, ``fit-rpc``) and the ``sfm-init`` path (two-view
-geometry, global and incremental SfM, retrieval pair selection). Not ported
-yet: SURF/Hessian detection, the out-of-core feature store, the match-file
-export, registration to control points, dense stereo and fusion, texturing,
-their tools, and sharding over several cards.
+dense LM and the RPC refit, ``fit-rpc``, SIFT and SURF features, out-of-core
+matching, match files, registration to control points), the ``sfm-init``
+path (two-view geometry, global and incremental SfM, retrieval pair
+selection) and the dense path (``undistort``, ``fuse-mesh``: plane-sweep
+stereo, the cloud filter, TSDF fusion, marching tetrahedra). Not ported yet:
+texturing with its tool, and sharding over several cards.
 
 Numerics: on CUDA the port computes in float32 with TF32 disabled for
 both matmuls and cuDNN convolutions (TF32 keeps about three decimal

@@ -4,10 +4,12 @@ Port of ``multiview_tpu/__main__.py``. Ported tools:
 
   calibrate   rig_calibrator   (multi-pass rig BA with depth and mesh constraints)
   sfm-init    theia_sfm        (global / incremental SfM pose initialization)
+  fuse-mesh   multi_stereo     (plane-sweep stereo -> pc_filter -> TSDF -> mesh)
+  undistort   undistort_image_texrecon (undistorted images + intrinsics)
   fit-rpc     fit_rpc          (RPC distortion + inverse fitting)
 
-The other tools of the reference CLI (fuse-mesh, texture, undistort) are not
-ported yet.
+Each runs on the first CUDA card unless given ``--device cpu``. The texture
+tool of the reference CLI is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ def expand_flagfiles(argv, depth: int = 0):
 
 
 def main(argv=None):
-    from multiview_tpu_torch.tools import calibrate, fit_rpc_tool, sfm_init
+    from multiview_tpu_torch.tools import (calibrate, fit_rpc_tool, fuse_mesh, sfm_init,
+                                           undistort_tool)
 
-    tools = {"calibrate": calibrate, "sfm-init": sfm_init, "fit-rpc": fit_rpc_tool}
+    tools = {"calibrate": calibrate, "sfm-init": sfm_init, "fuse-mesh": fuse_mesh,
+             "undistort": undistort_tool, "fit-rpc": fit_rpc_tool}
     parser = argparse.ArgumentParser(
         prog="multiview_tpu_torch",
         description="Rig calibration on PyTorch / CUDA (port of multiview_tpu)")

@@ -95,6 +95,25 @@ class CameraParams:
         """GetFocalLength(): mean of the two focal lengths."""
         return torch.mean(self.focal)
 
+    def intrinsic_matrix(self, frame: str = DISTORTED):
+        """K [3,3] for the given frame (camera_params.cc:420-449)."""
+        if frame == RAW:
+            c = self.optical_offset + self._vec(self.crop_offset)
+        elif frame == DISTORTED:
+            c = self.optical_offset
+        elif frame == DISTORTED_C:
+            c = self.optical_offset - self.distorted_half_size
+        elif frame == UNDISTORTED:
+            c = self.undistorted_half_size
+        elif frame == UNDISTORTED_C:
+            c = self._vec((0.0, 0.0))
+        else:
+            raise ValueError(f"Unknown frame {frame}")
+        K = torch.eye(3, dtype=self.dtype, device=self.device)
+        K[0, 0], K[1, 1] = self.focal[0], self.focal[1]
+        K[0, 2], K[1, 2] = c[0], c[1]
+        return K
+
     def distort_centered(self, undist_c):
         return dist_mod.distort_centered(
             self.model, self.dist_coeffs, undist_c, self.focal, self.optical_offset,

@@ -68,6 +68,16 @@ def triangulate_track(P, pix, mask, iters: int = 3):
     return X, min_depth, valid
 
 
+def triangulate_pair(focal1, focal2, w2c1, w2c2, pix1, pix2, iters: int = 3):
+    """Two-view convenience wrapper (``TriangulatePair``,
+    interest_point.cc:374-397): the point [3] seen at undistorted centered
+    pixels pix1 / pix2 by world->cam poses w2c1 / w2c2."""
+    P = torch.stack([projection_matrix(focal1, w2c1), projection_matrix(focal2, w2c2)])
+    mask = torch.ones(2, dtype=torch.bool, device=P.device)
+    X, _, _ = triangulate_track(P, torch.stack([pix1, pix2]), mask, iters)
+    return X
+
+
 def triangulate_tracks(P, pix, mask, iters: int = 3):
     """``triangulate_track`` over a leading track axis: P [T,V,3,4], pix
     [T,V,2], mask [T,V]. The reference maps the single-track function over

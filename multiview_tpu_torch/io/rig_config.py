@@ -51,6 +51,12 @@ class RigConfig:
     def ref_sensor_name(self) -> str:
         return self.sensors[0].name
 
+    def sensor_index(self, name: str) -> int:
+        for i, s in enumerate(self.sensors):
+            if s.name == name:
+                return i
+        raise KeyError(name)
+
 
 def _affine_to_str(M: np.ndarray) -> str:
     """Row-major linear part then translation, 17 significant digits

@@ -13,15 +13,18 @@ matches, as the reference does on the CPU.
 
 Pairs come from the temporal ``num_overlaps`` scheme or, with
 ``retrieval_neighbors`` > 0, from global-descriptor retrieval
-(``sfm/retrieval.py``).
+(``sfm/retrieval.py``). With ``match_out_of_core`` the features of each
+image are written to disk as they are detected and read back through an LRU
+cache (``FeatureStore``).
 
-Not ported yet: SURF detection, the out-of-core feature store and the
-sharded (mesh) path.
+Not ported yet: the sharded (mesh) path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +59,13 @@ class FrontendConfig:
     # num_nearest_neighbors_for_global_descriptor_matching (theia_flags.txt:57-62)
     retrieval_neighbors: int = 0
     retrieval_clusters: int = 16      # num_gmm_clusters_for_fisher_vector
+    # out-of-core matching (Theia's --match_out_of_core /
+    # --matching_working_directory / --matching_max_num_images_in_cache,
+    # theia_flags.txt:30-46): features spill to disk per image and are read
+    # back through an LRU cache
+    match_out_of_core: bool = False
+    matching_working_directory: Optional[str] = None
+    matching_max_num_images_in_cache: int = 128
 
     @property
     def detect_threshold(self) -> float:
@@ -64,11 +74,77 @@ class FrontendConfig:
         return feat_mod.default_threshold(self.feature_detector)
 
 
+class FeatureStore:
+    """Disk-backed per-image feature store with an LRU read cache (Theia's
+    out-of-core matching, theia_flags.txt:30-46). Each image's features are
+    written once as ``feat_<idx>.npz`` and read back on demand onto
+    ``device``; at most ``max_in_cache`` images stay resident."""
+
+    def __init__(self, workdir, max_in_cache: int = 128, device=None):
+        self.dir = str(workdir)
+        os.makedirs(self.dir, exist_ok=True)
+        self.max_in_cache = max(1, int(max_in_cache))
+        self.device = resolve_device(device)
+        self._cache: OrderedDict = OrderedDict()
+        self.n = 0
+
+    def _path(self, idx: int) -> str:
+        return os.path.join(self.dir, f"feat_{idx:06d}.npz")
+
+    def put(self, idx: int, kp: feat_mod.Keypoints, desc: torch.Tensor):
+        np.savez(self._path(idx), desc=desc.cpu().numpy(),
+                 **{f: getattr(kp, f).cpu().numpy() for f in kp._fields})
+        self.n = max(self.n, idx + 1)
+        self._insert(idx, (kp, desc))
+
+    def _load(self, idx: int):
+        with np.load(self._path(idx)) as z:
+            def t(name):
+                return torch.as_tensor(z[name], device=self.device)
+            return feat_mod.Keypoints(*(t(f) for f in feat_mod.Keypoints._fields)), t("desc")
+
+    def _insert(self, idx, item):
+        self._cache[idx] = item
+        self._cache.move_to_end(idx)
+        while len(self._cache) > self.max_in_cache:
+            self._cache.popitem(last=False)
+
+    def get(self, idx: int):
+        if idx in self._cache:
+            self._cache.move_to_end(idx)
+            return self._cache[idx]
+        item = self._load(idx)
+        self._insert(idx, item)
+        return item
+
+    class _View:
+        def __init__(self, store, which):
+            self._store, self._which = store, which
+
+        def __len__(self):
+            return self._store.n
+
+        def __getitem__(self, idx):
+            return self._store.get(idx)[self._which]
+
+        def __iter__(self):
+            return (self[i] for i in range(len(self)))
+
+    @property
+    def kps(self):
+        return FeatureStore._View(self, 0)
+
+    @property
+    def descs(self):
+        return FeatureStore._View(self, 1)
+
+
 def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8,
-               device=None):
+               device=None, store: Optional[FeatureStore] = None):
     """Detect + describe every image on ``device`` (the first CUDA card when
     None; pass ``"cpu"`` for the CPU). Returns (keypoints list, descriptor
-    list) of device tensors.
+    list) of device tensors; with ``store``, each image's features go to the
+    store as they come and the store's views are returned.
 
     Same-shape images are detected as one batch per ``chunk``; an image of
     a batch that comes back under the adaptive floor (``max_features//10``
@@ -100,7 +176,12 @@ def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8
             for row, i in enumerate(sel):
                 if len(ids) > 1 and counts[row] < min_features:
                     outs[row] = run(stack[row:row + 1], cfg.detect_threshold * 0.25 ** 4)[0]
-                kps[i], descs[i] = outs[row]
+                if store is not None:
+                    store.put(i, *outs[row])
+                else:
+                    kps[i], descs[i] = outs[row]
+    if store is not None:
+        return store.kps, store.descs
     return kps, descs
 
 
@@ -195,7 +276,16 @@ def detect_match_features(images: Sequence[np.ndarray],
     when None; pass ``"cpu"`` for the CPU). With cam_params/world_to_cam
     given, applies the camera-guided reprojection filter per pair."""
     device = resolve_device(device)
-    kps, descs = detect_all(images, cfg, device=device)
+    store = None
+    if cfg.match_out_of_core:
+        workdir = cfg.matching_working_directory
+        if not workdir:
+            import tempfile
+            workdir = tempfile.mkdtemp(prefix="mv_features_")
+            print(f"match_out_of_core: no matching_working_directory set, "
+                  f"spilling features to {workdir}")
+        store = FeatureStore(workdir, cfg.matching_max_num_images_in_cache, device)
+    kps, descs = detect_all(images, cfg, device=device, store=store)
     n = len(images)
     if cfg.retrieval_neighbors > 0:
         from multiview_tpu_torch.sfm import retrieval

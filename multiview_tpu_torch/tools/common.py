@@ -99,7 +99,8 @@ def scan_depth_dir(images_dir, sensor_names: Sequence[str]) -> List[List[ImageRe
 def add_sift_args(p):
     """The reference's detector flags (interest_point.cc:51-57)."""
     p.add_argument("--feature_detector", default="SIFT",
-                   help="SIFT (DoG + gradient histograms); SURF is not ported yet")
+                   help="SIFT (DoG + gradient histograms) or SURF (determinant of "
+                        "Hessian + Haar-style sums)")
     p.add_argument("--sift_nFeatures", type=int, default=None,
                    help="overrides --max_features when given")
     p.add_argument("--sift_nOctaveLayers", type=int, default=3)
@@ -113,14 +114,13 @@ def add_sift_args(p):
                         "instead of temporal --num_overlaps (theia_flags.txt:57-62)")
     p.add_argument("--num_gmm_clusters_for_fisher_vector", type=int, default=16,
                    help="retrieval codebook size (theia_flags.txt:61)")
-    # out-of-core matching is not ported: the switch raises in the tools, and
-    # the settings that only it reads are ignored
     p.add_argument("--match_out_of_core", action="store_true",
-                   help="out-of-core matching (not ported yet)")
+                   help="spill features to disk and match through an LRU cache "
+                        "(theia_flags.txt:30-46)")
     p.add_argument("--matching_working_directory", default=None,
-                   help="ignored (out-of-core matching is not ported yet)")
+                   help="feature-spill directory for --match_out_of_core")
     p.add_argument("--matching_max_num_images_in_cache", type=int, default=128,
-                   help="ignored (out-of-core matching is not ported yet)")
+                   help="images kept in memory with --match_out_of_core")
 
 
 def frontend_config_from_args(args, **overrides):
@@ -136,6 +136,9 @@ def frontend_config_from_args(args, **overrides):
         edge_threshold=args.sift_edgeThreshold,
         num_overlaps=args.num_overlaps,
         retrieval_neighbors=args.num_nearest_neighbors_for_global_descriptor_matching,
-        retrieval_clusters=args.num_gmm_clusters_for_fisher_vector)
+        retrieval_clusters=args.num_gmm_clusters_for_fisher_vector,
+        match_out_of_core=args.match_out_of_core,
+        matching_working_directory=args.matching_working_directory,
+        matching_max_num_images_in_cache=args.matching_max_num_images_in_cache)
     kw.update(overrides)
     return FrontendConfig(**kw)

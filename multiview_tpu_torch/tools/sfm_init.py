@@ -169,8 +169,6 @@ def run(args):
     from multiview_tpu_torch.tools import common
     from multiview_tpu_torch.utils.device import resolve_device, working_dtype
 
-    if args.match_out_of_core:
-        raise NotImplementedError("sfm-init: --match_out_of_core is not ported yet")
     device = resolve_device(args.device)
     t_last = [time.perf_counter()]
 

@@ -1,7 +1,7 @@
 """Image helpers: ``depth_value`` / ``depth_values_batch`` and
 ``adjust_image_size`` (copied from ``multiview_tpu/utils/images.py``) and
-binary PGM (P5) read/write with numpy alone, the port's image format on
-machines without imageio."""
+binary PGM (P5) and PPM (P6) read/write with numpy alone, the port's image
+formats on machines without imageio."""
 
 from __future__ import annotations
 
@@ -109,3 +109,23 @@ def write_pgm(path, img: np.ndarray) -> None:
         raise ValueError("write_pgm takes a [H,W] uint8 array")
     h, w = img.shape
     Path(path).write_bytes(f"P5\n{w} {h}\n255\n".encode() + img.tobytes())
+
+
+def read_ppm(path) -> np.ndarray:
+    """Binary PPM (P6, 8 bit) -> [H,W,3] uint8 array."""
+    data = Path(path).read_bytes()
+    if data[:2] != b"P6":
+        raise ValueError(f"{path}: not a binary PPM (P6) file")
+    (w, h, maxval), off = _pgm_tokens(data, 3)
+    if maxval > 255:
+        raise ValueError(f"{path}: 16-bit PPM is not supported")
+    return np.frombuffer(data, np.uint8, count=w * h * 3, offset=off).reshape(h, w, 3).copy()
+
+
+def write_ppm(path, img: np.ndarray) -> None:
+    """[H,W,3] uint8 array -> binary PPM (P6)."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError("write_ppm takes a [H,W,3] uint8 array")
+    h, w = img.shape[:2]
+    Path(path).write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())

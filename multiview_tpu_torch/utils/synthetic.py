@@ -597,3 +597,38 @@ def compute_ate(est_names, est_mats, gt_file) -> Dict[str, float]:
     rots = torch.rad2deg(torch.arccos(torch.clamp(cosang, -1.0, 1.0)))
     return {"n_poses": int(len(E)), "ate_rmse_m": ate_rmse,
             "rot_mean_deg": float(rots.mean()), "rot_max_deg": float(rots.max())}
+
+
+def write_control_points(pto_path, xyz_path, image_names, w2c_mats, cams, n: int = 8,
+                         seed: int = 0) -> np.ndarray:
+    """Registration control points from the truth: ``n`` terrain points seen
+    by both images of ``image_names`` (two paths, with world->cam matrices
+    ``w2c_mats`` [2,4,4] and CameraParams ``cams`` on the CPU), found by
+    casting rays through random pixels of the first image's middle half,
+    projected into distorted pixels of both. Writes a Hugin ``.pto`` (``i``
+    and ``c`` lines) and an ``.xyz`` of the true world coordinates; returns
+    them [n,3]."""
+    rng = np.random.default_rng(seed)
+    pix, world = [], []
+    W, H = cams[0].distorted_size
+    while len(world) < n:
+        p = np.array([rng.uniform(0.25, 0.75) * W, rng.uniform(0.25, 0.75) * H])
+        ray = cams[0].ray_from_dist_pix(_f64(p)).numpy()
+        M = np.linalg.inv(w2c_mats[0])
+        d = M[:3, :3] @ ray
+        X = M[:3, 3] + _terrain_hit(M[:3, 3][None], d[None])[0] * d
+        Xc = w2c_mats[1][:3, :3] @ X + w2c_mats[1][:3, 3]
+        q = cams[1].project_cam_to_dist_pix(_f64(Xc)).numpy()
+        W1, H1 = cams[1].distorted_size
+        if Xc[2] > 0 and 0 <= q[0] < W1 and 0 <= q[1] < H1:
+            pix.append((p, q))
+            world.append(X)
+    lines = [f'i w{c.distorted_size[0]} h{c.distorted_size[1]} n"{name}"'
+             for name, c in zip(image_names, cams)]
+    lines += [f"c n0 N1 x{float(p[0])!r} y{float(p[1])!r} X{float(q[0])!r} Y{float(q[1])!r} t0"
+              for p, q in pix]
+    Path(pto_path).write_text("\n".join(lines) + "\n")
+    world = np.stack(world)
+    Path(xyz_path).write_text("".join(f"{float(x)!r} {float(y)!r} {float(z)!r}\n"
+                                      for x, y, z in world))
+    return world

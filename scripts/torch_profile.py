@@ -2,6 +2,7 @@
 """Device-time breakdown of the PyTorch port's main path on one GPU.
 
     python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba] [--depth]
+    python3 scripts/torch_profile.py --fuse [--n_ref 4]
 
 Renders the two-sensor rig workspace of chip_smoke.py (with ``--depth`` the
 three-sensor one, calibrated with the depth camera's flags of phase 4; with
@@ -12,6 +13,10 @@ observations, float32, 10 LM x 30 CG). For each it writes the CUDA kernel
 time table to ``<out>/profile_<name>.txt`` and prints wall time, summed
 device time and the device idle share (1 - device time / wall time; kernels
 on one stream, so they do not overlap).
+
+With ``--fuse`` it traces ``fuse-mesh`` instead, with chip_smoke.py phase 7's
+flags on the nav_cam pairs of the three-sensor workspace (after a warm-up
+run), and nothing else.
 """
 
 from __future__ import annotations
@@ -67,6 +72,8 @@ def main() -> int:
                     help="the three-sensor workspace and the depth-camera flags")
     ap.add_argument("--mesh", action="store_true",
                     help="with --depth: the mesh families on the tessellated terrain")
+    ap.add_argument("--fuse", action="store_true",
+                    help="trace fuse-mesh on the nav_cam pairs instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -82,8 +89,24 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="mv_profile_") as tmp:
         ws = Path(tmp) / "ws"
-        syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0, depth=args.depth,
-                                workers=7)
+        syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0,
+                                depth=args.depth or args.fuse, workers=7)
+        if args.fuse:
+            import chip_smoke as cs
+            fuse_argv = ["fuse-mesh", "--rig_config", str(ws / "rig_config.txt"),
+                         "--camera_poses", str(ws / "cameras.txt"), "--images",
+                         str(ws / "images"), "--sensor", "nav_cam"] + cs.FUSE_FLAGS
+
+            def fuse(run):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    cli_main(fuse_argv + ["--out_dir", str(Path(tmp) / f"fused{run}")])
+                return buf.getvalue()
+
+            print(fuse(0).splitlines()[-1], flush=True)       # warm-up
+            traced("fuse_mesh", lambda: fuse(1), out_dir)
+            print(torch.cuda.get_device_name(0))
+            return 0
         argv = ["calibrate", "--rig_config", str(ws / "rig_config.txt"),
                 "--camera_poses", str(ws / "cameras.txt"), "--images", str(ws / "images"),
                 "--rig_transforms_to_float", "--camera_poses_to_float",

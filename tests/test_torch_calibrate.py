@@ -66,9 +66,7 @@ def test_calibrate_cli_matches_jax(workspace, tmp_path, capsys, monkeypatch):
     assert [c.split()[0] for c in cams_t] == [c.split()[0] for c in cams_j]
 
 
-@pytest.mark.parametrize("flag", [["--registration"], ["--sharded"],
-                                  ["--out_texture_dir", "tex"], ["--save_matches"],
-                                  ["--match_out_of_core"]])
+@pytest.mark.parametrize("flag", [["--sharded"], ["--out_texture_dir", "tex"]])
 def test_unported_flags_raise(workspace, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         torch_main(["calibrate", "--rig_config", str(workspace / "rig_config.txt"),

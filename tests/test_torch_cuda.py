@@ -166,3 +166,84 @@ def test_depth_calibration_on_the_card_follows_the_cpu(cuda_device):
         out[dev.type] = res.state.depth_scale.cpu().double()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
     assert abs(float(out["cuda"][1]) - 1.0) < 1e-3
+
+
+def _terrain_pair(size=(160, 120), focal=140.0):
+    """Two rendered views of the textured terrain 0.3 m apart, their
+    intrinsics and the ref->neighbour pose."""
+    import numpy as np
+    from multiview_tpu_torch.geometry import pose as P
+    from multiview_tpu_torch.geometry.camera import CameraParams
+    from multiview_tpu_torch.utils import synthetic as syn
+    cam = CameraParams.create(size, focal, (size[0] / 2.0, size[1] / 2.0), device="cpu")
+    w2c = [syn.look_at_pose(np.array([x, 0.2, 2.0]), np.array([x + 0.15, 0.22, 1.0]))
+           for x in (0.0, 0.3)]
+    imgs = [syn.render_terrain(cam, w).astype(np.float64) for w in w2c]
+    r2n = P.pose_compose(torch.as_tensor(w2c[1]), P.pose_inverse(torch.as_tensor(w2c[0])))
+    return imgs, np.array([focal, focal]), np.array([size[0] / 2.0, size[1] / 2.0]), r2n.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregate", ["none", "sgm"])
+def test_plane_sweep_on_the_card_follows_the_cpu(cuda_device, aggregate):
+    """float32 on the card against float64 on the CPU: the valid masks agree
+    on all but a few pixels at the confidence threshold, the depths to
+    float32 accuracy."""
+    from multiview_tpu_torch.dense import stereo
+    imgs, focal, center, r2n = _terrain_pair()
+    out = {}
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (cuda_device, torch.float32)):
+        a, b = (torch.as_tensor(i, dtype=dtype, device=dev) for i in imgs)
+        res = stereo.plane_sweep(a, b, focal, center, r2n, 1.5, 3.0, num_planes=32,
+                                 aggregate=aggregate)
+        assert res.depth.device.type == dev.type
+        out[dev.type] = [x.cpu() for x in res]
+    v_gpu, v_cpu = out["cuda"][2], out["cpu"][2]
+    assert int(v_cpu.sum()) > 0.3 * v_cpu.numel()
+    assert float((v_gpu == v_cpu).double().mean()) > 0.99
+    both = v_gpu & v_cpu
+    rel = (out["cuda"][0].double() - out["cpu"][0]).abs()[both] / out["cpu"][0][both]
+    assert float(rel.median()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_knn_mean_distance_on_the_card_follows_the_cpu(cuda_device):
+    import numpy as np
+    from multiview_tpu_torch.dense import pc_filter
+    g = np.random.default_rng(0)
+    xy = g.uniform(-1.0, 1.0, (20000, 2))
+    pts = np.column_stack([xy, 2.0 + 0.1 * np.sin(3 * xy[:, 0]) + g.normal(0, 0.002, 20000)])
+    ref = pc_filter.knn_mean_distance(torch.as_tensor(pts), k=8)
+    got = pc_filter.knn_mean_distance(torch.as_tensor(pts, dtype=torch.float32,
+                                                      device=cuda_device), k=8)
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu().double(), ref, rtol=1e-3, atol=1e-6)
+    keep_cpu = pc_filter.statistical_outlier_removal(pts, device="cpu")
+    keep_gpu = pc_filter.statistical_outlier_removal(pts)          # the card by default
+    assert (keep_cpu != keep_gpu).mean() < 1e-3
+
+
+@pytest.mark.cuda
+def test_fusion_and_mesh_on_the_card_follow_the_cpu(cuda_device):
+    """A terrain cloud fused into a float64 grid on the card and on the CPU:
+    the same grid to 1e-12 and the same faces, vertices to 1e-10."""
+    import numpy as np
+    from multiview_tpu_torch.dense import marching, stereo, tsdf
+    from multiview_tpu_torch.geometry import pose as P
+    imgs, focal, center, r2n = _terrain_pair()
+    res = stereo.plane_sweep(*(torch.as_tensor(i) for i in imgs), focal, center, r2n, 1.5, 3.0,
+                             num_planes=32)
+    cloud = stereo.stereo_pair_to_cloud(res, focal, center)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        grid = tsdf.make_grid((60, 47, 27), (-0.9, -0.7, 1.6), 0.03, dtype=torch.float64,
+                              device=dev)
+        grid = tsdf.integrate_point_cloud(grid, torch.as_tensor(cloud, device=dev),
+                                          P.pose_identity(), focal=(200.0, 200.0),
+                                          image_size=(256, 192))
+        out[dev.type] = (grid, marching.extract_mesh(grid))
+    (gc, (vc, fc, ic)), (gg, (vg, fg, ig)) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(gg.tsdf.cpu(), gc.tsdf, rtol=0, atol=1e-12)
+    assert len(fc) > 100 and np.array_equal(fg, fc)
+    np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ig, ic, rtol=0, atol=1e-10)

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     for new in ("sfm.global_sfm", "sfm.incremental", "sfm.retrieval", "tools.sfm_init",
                 "texture.raycast", "calib.mesh_constraints", "calib.checkpoint", "solver.lm",
                 "geometry.rpc_fit", "geometry.registration", "io.depth_io", "io.ply",
-                "tools.fit_rpc_tool"):
+                "tools.fit_rpc_tool", "dense.stereo", "dense.pc_filter", "dense.tsdf",
+                "dense.marching", "utils.undistort", "tools.fuse_mesh", "tools.undistort_tool",
+                "io.match_file", "calib.registration", "calib.pose_storage", "geometry.plane"):
         assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
 
 

@@ -173,13 +173,12 @@ def test_calibrate_starts_from_the_ports_cameras_nvm(runs, tmp_path, capsys):
 
 def test_sfm_init_names_its_device_and_its_unported_flag(runs, tmp_path):
     """Without ``--device cpu`` and without a card ``sfm-init`` raises the
-    error that names the flag, before reading an image; out-of-core matching
-    is not ported and says so."""
+    error that names the flag, before reading an image. (Its one unported
+    flag, --match_out_of_core, is ported now: tests/test_torch_frontend_extras.py
+    holds it.)"""
     ws = runs["ws"]
     argv = ["sfm-init", "--rig_config", str(ws / "rig_config.txt"), "--images",
             str(ws / "images"), "--out_dir", str(tmp_path / "out")] + COMMON
-    with pytest.raises(NotImplementedError, match="--match_out_of_core"):
-        torch_main(argv + ["--device", "cpu", "--match_out_of_core"])
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default device exists")
     for extra in ([], ["--device", "cuda"]):
