@@ -86,12 +86,30 @@ printing a result):
    against the CPU (float64);
 7b. ``python -m multiview_tpu_torch undistort`` of the 11 sci_cam frames:
    the intrinsics file, and one undistorted frame against a pinhole render of
-   the terrain from its pose with the undistorted intrinsics.
+   the terrain from its pose with the undistorted intrinsics;
+8. ``python -m multiview_tpu_torch texture`` in process on phase 7's fused
+   mesh with all 34 frames and the tool's defaults (colour, ``auto``
+   occlusion, which must choose the grid march, gauss clamping, the MRF,
+   global and local seam leveling, 0.01 m texels): stage seconds, the
+   occlusion method, the atlas, the MRF energies (ICM no higher than
+   argmin), the global leveling's sweeps and residual (converged or at its
+   cap), the seam steps (no larger after local leveling), the PNG read back
+   equal to the page, every filled texel of a visible face against the
+   terrain's analytic albedo at its 3D point, and the peak device memory;
+8b. a 0.5 m x 0.5 m window of the same mesh with all 34 views: ``view_costs``
+   with the exact ray cast and with the grid march on the card, timed, and
+   their agreement; ``view_costs`` (grid) + ``mrf_view_selection`` on the
+   card (float32) against the CPU (float64), the share of equal labels;
+8c. ``calibrate --mesh --out_texture_dir`` on the two-sensor workspace (one
+   pass of 5 iterations, a terrain mesh of 0.2 m cells): one OBJ/MTL/PNG
+   triple per image, each PNG the image the run held, faces kept for every
+   camera, the projection step's seconds, the matcher's launches.
 
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
-over phases 2, 2c, 4, 4b, 6, 6b and 6c, each counted from 0 and each required to
-be positive; ``launches_by_path`` has them all), its time, its plain version's, the
+over phases 2, 2c, 4, 4b, 6, 6b, 6c and 8c, each counted from 0 and each
+required to be positive; ``launches_by_path`` has them all; the texture path
+of phases 8-8b launches no kernel), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
 that path's shape), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -183,6 +201,30 @@ MIN_MEDIAN_PAIR_POINTS, MIN_MESH_VERTICES = 100000, 100000
 # phase 7b: |undistorted - pinhole render| in gray levels, measured on an
 # H100: median 0.992, 90th percentile 1.48
 UNDISTORT_MEDIAN_MAX = 2.0
+# phase 8: texture phase 7's fused mesh from the 34 frames with the tool's
+# defaults. Bars on the textured page against the terrain's analytic albedo,
+# in gray levels over the filled texels of the visible faces. The first run on
+# an H100 (PERF.md) read a median of 20.26 and a 90th percentile of 88.82 for
+# the tool's page: the global seam leveling, fit to face-centre colours,
+# carries texture across the view seams (in the JAX package too). The bars
+# leave a factor of 1.5 and 1.35. The same labels rendered without gains are
+# held to the albedo more tightly (a CPU rehearsal at 320x240 read 0.76 and
+# 2.9 gray levels; the first on the H100 0.935 and 8.883: bars of 2 and 15).
+TEXTURE_FLAGS = ["--pixel_size", "0.01"]
+ALBEDO_MEDIAN_MAX, ALBEDO_P90_MAX = 30.0, 120.0
+RENDER_MEDIAN_MAX, RENDER_P90_MAX = 2.0, 15.0
+# phase 8b: a window of the fused mesh (faces whose centres lie in a square
+# of this side, in metres: 21951 faces), and the share of its visible faces
+# that must get the same MRF label on the card (float32) as on the CPU
+# (float64), both with the grid march (the exact cast of the window's 746k
+# face-view pairs took 306 s on the CPU). With the exact cast the first run
+# on an H100 read 1.00000 of 5003 faces; the bar leaves a margin for cells
+# the march's samples reach on one device only
+WINDOW_SIDE = 0.5
+LABEL_AGREEMENT_MIN = 0.98
+# phase 8c: calibrate --out_texture_dir with a coarse terrain mesh (0.2 m
+# cells: 4000 triangles) on the two-sensor workspace, one short pass
+OUT_TEXTURE_MESH_STEP = 0.2
 
 
 class Tee(io.TextIOBase):
@@ -356,12 +398,14 @@ def render_workspaces(workdir: Path):
     return rig_true
 
 
-def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool = True):
+def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool = True,
+                  passes: int = 2):
     """``calibrate`` in process on a rendered workspace, with the launch
     counts set to 0 just before and read just after. Returns what the checks
     read: launches, wall time, the parsed log, the written rig config. The BA
     cost must decrease over the run and rise in no pass; with ``every_pass``
-    it must decrease in each of the two passes."""
+    it must decrease in each of the ``passes`` passes (two unless ``extra``
+    sets --calibrator_num_passes)."""
     from multiview_tpu_torch.__main__ import main as cli_main
     from multiview_tpu_torch.io import rig_config as rc
 
@@ -398,7 +442,7 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
         raise AssertionError(f"{tag}: the path (D = 128) must launch the tensor-core matcher "
                              f"and only it: counted {launches} and {fma_launches} (FMA)")
     costs = run["costs"]
-    if len(costs) != 2 or not costs[-1][1] < costs[0][0] or any(b > a for a, b in costs) \
+    if len(costs) != passes or not costs[-1][1] < costs[0][0] or any(b > a for a, b in costs) \
             or (every_pass and any(not b < a for a, b in costs)):
         raise AssertionError(f"{tag}: BA cost did not decrease: {costs}")
     return run
@@ -1219,6 +1263,242 @@ def phase7b(torch, card, workdir: Path):
                              f"(median) off the pinhole render")
 
 
+def texture_spies(texturing):
+    """Wrap ``render_atlas`` and ``write_textured_obj`` of the texturing
+    module to keep what the ``texture`` tool hands them: the render's
+    arguments (atlas, mesh, labels, visibility, images, cameras, poses), the
+    atlas and the final pages. Returns (record, undo)."""
+    record = {}
+    render, write = texturing.render_atlas, texturing.write_textured_obj
+
+    def render_spy(*a, **kw):
+        record["render_args"] = a
+        return render(*a, **kw)
+
+    def write_spy(prefix, vertices, faces, atlas, page):
+        record["atlas"], record["pages"] = atlas, page
+        return write(prefix, vertices, faces, atlas, page)
+
+    texturing.render_atlas, texturing.write_textured_obj = render_spy, write_spy
+
+    def undo():
+        texturing.render_atlas, texturing.write_textured_obj = render, write
+    return record, undo
+
+
+def texel_albedo_error(atlas, pages, visible):
+    """|page - albedo| in gray levels at every texel of the charts of the
+    visible faces: each texel lifted to 3D (the chart origin plus its basis
+    times the texel offset and the pixel size) and the terrain's analytic
+    albedo (``synthetic._texture_at``, a function of x and y; the renders
+    carry no shading) read there."""
+    import numpy as np
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    pages = pages if isinstance(pages, list) else [pages]
+    errs = []
+    for f_sel in np.array_split(np.nonzero(visible)[0], 64):
+        wh = atlas.face_wh[f_sel]
+        n = (wh[:, 0] * wh[:, 1]).astype(np.int64)
+        face = np.repeat(f_sel, n)
+        j = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        tx, ty = j % atlas.face_wh[face, 0], j // atlas.face_wh[face, 0]
+        pts = (atlas.face_origin3d[face]
+               + (tx * atlas.pixel_size)[:, None] * atlas.face_basis[face, 0]
+               + (ty * atlas.pixel_size)[:, None] * atlas.face_basis[face, 1])
+        got = np.zeros(len(face))
+        pg = atlas.face_page[face]
+        for p in np.unique(pg):
+            m = pg == p
+            texel = pages[p][atlas.face_uv0[face[m], 1] + ty[m], atlas.face_uv0[face[m], 0] + tx[m]]
+            got[m] = texel.mean(axis=-1) if texel.ndim == 2 else texel
+        errs.append(np.abs(got - syn._texture_at(pts)) * 255.0)
+    return np.concatenate(errs)
+
+
+def phase8(torch, card, workdir: Path):
+    """``texture`` in process on phase 7's fused mesh with the 34 frames of the
+    three-sensor workspace and the tool's defaults."""
+    import ast
+
+    import numpy as np
+    from multiview_tpu_torch.__main__ import main as cli_main
+    from multiview_tpu_torch.texture import texturing
+    from multiview_tpu_torch.utils.images import read_png
+
+    ws, out = workdir / "ws3", workdir / "textured"
+    argv = ["texture", "--rig_config", str(ws / "rig_config.txt"), "--camera_poses",
+            str(ws / "cameras.txt"), "--images", str(ws / "images"), "--mesh",
+            str(workdir / "fused" / "fused_mesh.ply"), "--out_dir", str(out)] + TEXTURE_FLAGS
+    record, undo = texture_spies(texturing)
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            ret = cli_main(argv)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    text = tee.buf.getvalue()
+    if ret != 0:
+        raise AssertionError(f"phase 8: texture returned {ret}")
+    n_vert, n_face = (int(v) for v in re.search(r"Mesh: (\d+) verts, (\d+) faces", text).groups())
+    views = int(re.search(r"Texturing from (\d+) views", text).group(1))
+    method, pairs = re.search(r"Occlusion: (\w+) for (\d+) face-view pairs", text).groups()
+    stages = {k: float(v) for k, v in re.findall(r"\[texture\] (.+?): (\S+) s", text)}
+    e_arg, e_icm = (float(v) for v in re.search(r"argmin (\S+) -> ICM (\S+)", text).groups())
+    sweeps, resid = re.search(r"Global seam leveling: (\d+) sweeps, relative residual (\S+)",
+                              text).groups()
+    seam = {k: ast.literal_eval(v) for k, v in re.findall(
+        r"Seam step (before|after) local leveling: (\{.*\})", text)}
+    atlas, pages = record["atlas"], record["pages"]
+    pages = pages if isinstance(pages, list) else [pages]
+    multi = len(pages) > 1
+    png_equal = all(np.array_equal(
+        read_png(out / (f"textured_mesh_{p}.png" if multi else "textured_mesh.png")),
+        (np.clip(pg, 0, 1) * 255).astype(np.uint8)) for p, pg in enumerate(pages))
+    verts, faces, _, visible = (np.asarray(a) for a in record["render_args"][1:5])
+    tri = verts[faces]
+    down = float((np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])[:, 2] < 0).mean())
+    err = texel_albedo_error(atlas, pages, visible)
+    med, p90 = float(np.median(err)), float(np.percentile(err, 90))
+    # the same labels rendered without the seam leveling's gains
+    raw = texel_albedo_error(atlas, texturing.render_atlas(*record["render_args"]), visible)
+    raw_med, raw_p90 = float(np.median(raw)), float(np.percentile(raw, 90))
+    print(f"[phase8] texture of the fused mesh ({n_vert} vertices, {n_face} faces) from {views} "
+          f"views ({' '.join(TEXTURE_FLAGS)}): wall {wall:.2f} s; stage seconds {stages}; "
+          f"occlusion {method} for {pairs} face-view pairs; visible faces {int(visible.sum())} "
+          f"(faces whose normal points down: {down:.4f}); "
+          f"atlas {atlas.num_pages} page(s) {list(atlas.page_sizes)}; MRF energy argmin "
+          f"{e_arg:.4f} -> ICM {e_icm:.4f}; global leveling {sweeps} sweeps, relative residual "
+          f"{resid}; seam step before {seam.get('before')}; after {seam.get('after')}; PNG "
+          f"reads back equal: {png_equal}; texels of visible faces {len(err)}: |page - albedo| "
+          f"median {med:.3f}, 90th percentile {p90:.3f} gray levels; rendered without the "
+          f"leveling's gains: median {raw_med:.3f}, 90th percentile {raw_p90:.3f}; peak device "
+          f"memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    if method != "grid" or int(pairs) != n_face * views or views != 3 * N_REF - 2:
+        raise AssertionError(f"phase 8: occlusion {method} for {pairs} pairs, {views} views")
+    if not all((out / f"textured_mesh.{e}").is_file() for e in ("obj", "mtl")) or not png_equal:
+        raise AssertionError("phase 8: the OBJ, MTL or PNG is missing, or the PNG reads back "
+                             "other pixels than the page")
+    if not e_icm <= e_arg:
+        raise AssertionError(f"phase 8: ICM energy {e_icm} above argmin's {e_arg}")
+    if not (float(resid) <= 1e-4 or int(sweeps) >= 2000):
+        raise AssertionError(f"phase 8: global leveling stopped at {sweeps} sweeps with a "
+                             f"relative residual {resid}")
+    if not seam["after"]["seam_mean"] <= seam["before"]["seam_mean"]:
+        raise AssertionError(f"phase 8: local leveling raised the seam step: {seam}")
+    if not (med <= ALBEDO_MEDIAN_MAX and p90 <= ALBEDO_P90_MAX
+            and raw_med <= RENDER_MEDIAN_MAX and raw_p90 <= RENDER_P90_MAX):
+        raise AssertionError(f"phase 8: texture {med} (median), {p90} (90th percentile) gray "
+                             f"levels off the albedo; without gains {raw_med}, {raw_p90}")
+    return {"wall": wall, "stages": stages}
+
+
+def phase8b(torch, dev, card, workdir: Path):
+    """A window of the fused mesh with all 34 views: ``view_costs`` with the
+    exact ray cast and with the grid march on the card, timed, and the labels
+    of ``view_costs`` (grid) + ``mrf_view_selection`` on the card (float32)
+    against the CPU (float64)."""
+    import numpy as np
+    from multiview_tpu_torch.geometry import pose as P
+    from multiview_tpu_torch.io import nvm as nvm_io, ply
+    from multiview_tpu_torch.texture import texturing as TT
+
+    mesh = ply.read_ply(workdir / "fused" / "fused_mesh.ply")
+    verts, faces = mesh["vertices"], mesh["faces"]
+    ctr = verts[faces].mean(axis=1)
+    lo = np.median(ctr[:, :2], axis=0) - WINDOW_SIDE / 2
+    inside = np.all((ctr[:, :2] >= lo) & (ctr[:, :2] < lo + WINDOW_SIDE), axis=1)
+    win = faces[inside]
+    _, mats = nvm_io.read_camera_poses(workdir / "ws3" / "cameras.txt")
+    poses = P.matrix_to_pose(torch.as_tensor(np.asarray(mats, np.float64)))
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def on(device, dtype):
+        return (torch.as_tensor(verts, dtype=dtype, device=device),
+                torch.as_tensor(win, device=device).long(), poses.to(device=device, dtype=dtype))
+
+    v, f, p = on(dev, torch.float32)
+    TT.view_costs(v, f, p, occlusion_method="exact")                 # warm-up
+    TT.view_costs(v, f, p, occlusion_method="grid")
+    (_, exact), exact_s = timed(TT.view_costs, v, f, p, occlusion_method="exact")
+    (_, grid), grid_s = timed(TT.view_costs, v, f, p, occlusion_method="grid")
+    _, free = TT.view_costs(v, f, p, occlusion=False)
+    agree = float((exact == grid)[free].double().mean())
+    nbr = TT.face_neighbors(win, TT.face_adjacency(win))
+    labels = {}
+    for name, d, dt in (("cuda", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float64)):
+        vv, ff, pp = on(d, dt)
+        (cost, usable), sec = timed(TT.view_costs, vv, ff, pp, occlusion_method="grid")
+        best, vis = TT.mrf_view_selection(cost, usable, nbr)
+        labels[name] = (best.cpu().numpy(), vis.cpu().numpy(), sec)
+    (bg, vg, sg), (bc, vc, sc) = labels["cuda"], labels["cpu"]
+    both = vg & vc
+    same = float((bg == bc)[both].mean())
+    n_rays = int(free.sum())
+    print(f"[phase8b] window of {WINDOW_SIDE} m x {WINDOW_SIDE} m: {len(win)} faces x "
+          f"{len(poses)} views, {n_rays} geometrically usable face-view pairs; view_costs on the "
+          f"card: exact ray cast {exact_s * 1e3:.1f} ms ({n_rays} rays x {len(win)} triangles), "
+          f"grid march {grid_s * 1e3:.1f} ms; usable exact {int(exact.sum())}, grid "
+          f"{int(grid.sum())}; they agree on {agree:.5f} of the usable entries; view_costs "
+          f"(grid) + MRF labels: card (float32) {sg * 1e3:.1f} ms, CPU (float64) {sc * 1e3:.1f} "
+          f"ms, visible {int(vg.sum())} / {int(vc.sum())}, equal labels on {same:.5f} of the "
+          f"faces visible in both [{card}]", flush=True)
+    if len(win) < 100 or not (vg == vc).mean() > LABEL_AGREEMENT_MIN \
+            or not same >= LABEL_AGREEMENT_MIN:
+        raise AssertionError(f"phase 8b: {len(win)} faces; labels on the card and the CPU "
+                             f"agree on {same} (visibility {(vg == vc).mean()})")
+    return {"exact_ms": exact_s * 1e3, "grid_ms": grid_s * 1e3, "agree": agree}
+
+
+def phase8c(torch, mm, card, workdir: Path):
+    """``calibrate --mesh --out_texture_dir`` on the two-sensor workspace, one
+    short pass: one OBJ/MTL/PNG triple per image, each PNG the image the run
+    held, faces kept for every camera; the projection step timed."""
+    import numpy as np
+    from multiview_tpu_torch.io import nvm as nvm_io
+    from multiview_tpu_torch.tools import common
+    from multiview_tpu_torch.utils import synthetic as syn
+    from multiview_tpu_torch.utils.images import read_png
+
+    ws, out, tex = workdir / "ws", workdir / "calib_tex", workdir / "tex_per_camera"
+    n_tri = syn.write_terrain_mesh(workdir / "coarse.ply", step=OUT_TEXTURE_MESH_STEP)
+    run = run_calibrate(torch, mm, "phase 8c", ws, out, [
+        "--num_iterations", "5", "--calibrator_num_passes", "1", "--mesh",
+        str(workdir / "coarse.ply"), "--out_texture_dir", str(tex)], passes=1)
+    # the images the run kept (the bracketing's camera entries)
+    images = [Path(n) for n in nvm_io.read_camera_poses(out / "cameras.txt")[0]]
+    want = {f"{float(p.stem):10.7f}_{p.parent.name}": p for p in images}
+    got = sorted(tex.iterdir())
+    names_ok = sorted(q.name for q in got) == sorted(
+        f"{k}.{e}" for k in want for e in ("obj", "mtl", "png"))
+    png_ok = names_ok and all(np.array_equal(
+        read_png(tex / f"{k}.png"),
+        (np.clip(common.load_gray(p), 0, 1) * 255).astype(np.uint8)) for k, p in want.items())
+    kept = [sum(ln.startswith("f ") for ln in (tex / f"{k}.obj").read_text().splitlines())
+            for k in want] if names_ok else []
+    print(f"[phase8c] calibrate --mesh ({n_tri} triangles) --out_texture_dir, 1 pass of 5 "
+          f"iterations: wall {run['wall']:.2f} s; projection step "
+          f"{run['stages'].get('out_texture')} s for {len(want)} images; files {len(got)}; "
+          f"PNGs equal to the images held: {png_ok}; faces kept per camera min "
+          f"{min(kept, default=0)} max {max(kept, default=0)}; matcher launches "
+          f"{run['launches']} [{card}]", flush=True)
+    if not (names_ok and png_ok and kept and min(kept) > 0):
+        raise AssertionError(f"phase 8c: names {names_ok}, PNGs {png_ok}, faces kept {kept}")
+    return run["launches"]
+
+
 def main() -> int:
     if not (ROOT / "multiview_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
@@ -1268,6 +1548,9 @@ def main() -> int:
         paths["phase6c"] = phase6c(torch, mm, card, Path(tmp), sfm_run)
         phase7(torch, dev, card, Path(tmp))
         phase7b(torch, card, Path(tmp))
+        phase8(torch, card, Path(tmp))
+        phase8b(torch, dev, card, Path(tmp))
+        paths["phase8c"] = phase8c(torch, mm, card, Path(tmp))
     fma_launches = phase2b(torch, mm, dev, card)
     phase3(torch, card)
     phase5(torch, dev, card)

@@ -1,15 +1,15 @@
 """CLI dispatcher: ``python -m multiview_tpu_torch <tool> ...``.
 
-Port of ``multiview_tpu/__main__.py``. Ported tools:
+Port of ``multiview_tpu/__main__.py``, with every tool of the reference CLI:
 
   calibrate   rig_calibrator   (multi-pass rig BA with depth and mesh constraints)
   sfm-init    theia_sfm        (global / incremental SfM pose initialization)
   fuse-mesh   multi_stereo     (plane-sweep stereo -> pc_filter -> TSDF -> mesh)
+  texture     texrecon         (view selection -> atlas -> seam leveling -> OBJ)
   undistort   undistort_image_texrecon (undistorted images + intrinsics)
   fit-rpc     fit_rpc          (RPC distortion + inverse fitting)
 
-Each runs on the first CUDA card unless given ``--device cpu``. The texture
-tool of the reference CLI is not ported yet.
+Each runs on the first CUDA card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -45,10 +45,10 @@ def expand_flagfiles(argv, depth: int = 0):
 
 def main(argv=None):
     from multiview_tpu_torch.tools import (calibrate, fit_rpc_tool, fuse_mesh, sfm_init,
-                                           undistort_tool)
+                                           texture_mesh, undistort_tool)
 
     tools = {"calibrate": calibrate, "sfm-init": sfm_init, "fuse-mesh": fuse_mesh,
-             "undistort": undistort_tool, "fit-rpc": fit_rpc_tool}
+             "texture": texture_mesh, "undistort": undistort_tool, "fit-rpc": fit_rpc_tool}
     parser = argparse.ArgumentParser(
         prog="multiview_tpu_torch",
         description="Rig calibration on PyTorch / CUDA (port of multiview_tpu)")

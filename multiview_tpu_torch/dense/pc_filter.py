@@ -21,10 +21,13 @@ from multiview_tpu_torch.utils.device import resolve_device, working_dtype
 
 def knn_mean_distance(points: torch.Tensor, k: int = 8, chunk: int = 512) -> torch.Tensor:
     """Mean distance from each point of points [N,3] to its k nearest
-    neighbours, itself excluded (N > k). Returns [N] in points' dtype."""
+    neighbours, itself excluded. Returns [N] in points' dtype. With k or
+    fewer other points, the missing neighbours are rows at (1e15, 1e15,
+    1e15), as the JAX package's padding makes them."""
     n = points.shape[0]
     if n <= k:
-        raise ValueError(f"knn_mean_distance needs more than k = {k} points, got {n}")
+        pad = torch.full((k + 1 - n, 3), 1e15, dtype=points.dtype, device=points.device)
+        return knn_mean_distance(torch.cat([points, pad]), k=k, chunk=chunk)[:n]
     cols = points.T.contiguous()                                     # [3,N]
     out = []
     for c0 in range(0, n, chunk):

@@ -3,11 +3,12 @@
 camera poses (+ images for feature matching, + ``.pc`` depth clouds beside
 them), multi-pass robust BA with float specs, depth and mesh constraints,
 reference-format outputs (rig_config.txt / cameras.txt / cameras.nvm, the
-voxblox layout and world-frame depth clouds).
+voxblox layout and world-frame depth clouds, and with ``--out_texture_dir``
+one textured OBJ per image, the mesh projected into it).
 
 Runs on the first CUDA card (float32) and raises when there is none;
-``--device cpu`` asks for the CPU (float64). Flags of parts not ported yet
-raise NotImplementedError: sharding and texture output.
+``--device cpu`` asks for the CPU (float64). ``--sharded``, the one flag of a
+part not ported yet, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ def add_args(p: argparse.ArgumentParser):
                    help="weight of triangulated point vs its rays' mesh hits")
     p.add_argument("--depth_mesh_weight", type=float, default=0.0,
                    help="weight of depth measurement vs the pixel ray's mesh hit")
-    p.add_argument("--out_texture_dir", default="", help="not ported yet")
+    p.add_argument("--out_texture_dir", default="",
+                   help="write <timestamp>_<sensor>.{obj,mtl,png} per image: the --mesh "
+                        "projected into the image with the optimized cameras")
     p.add_argument("--min_ray_dist", type=float, default=0.0)
     p.add_argument("--max_ray_dist", type=float, default=100.0)
     p.add_argument("--tri_weight", type=float, default=0.0)
@@ -98,7 +101,6 @@ def add_args(p: argparse.ArgumentParser):
 
 _NOT_PORTED = (
     ("sharded", bool, "--sharded"),
-    ("out_texture_dir", bool, "--out_texture_dir"),
 )
 
 
@@ -155,6 +157,10 @@ def run(args):
             raise NotImplementedError(f"calibrate: {what} is not ported yet")
     if args.registration and not (args.hugin_file and args.xyz_file):
         raise SystemExit("--registration needs --hugin_file and --xyz_file")
+    if args.out_texture_dir and not args.mesh:
+        raise SystemExit("--out_texture_dir needs --mesh")
+    if args.out_texture_dir and not args.images:
+        raise SystemExit("--out_texture_dir needs --images")
 
     device = resolve_device(args.device)
     dtype = working_dtype(device)
@@ -370,6 +376,19 @@ def run(args):
         _write_solution_nvm(out / "cameras.nvm", rig, cams, state, mats, trackset,
                             result.observations)
         print(f"Writing: {out / 'cameras.nvm'}")
+
+    if args.out_texture_dir:
+        # per-camera forward projection of the constraint mesh with the
+        # optimized cameras (rig_calibrator.cc:2008-2016 -> meshProjectCameras)
+        from multiview_tpu_torch.texture import mesh_project as mp
+        _tk("write_outputs")
+        mp.mesh_project_cameras(
+            sensor_names,
+            [common.cam_params_from_sensor(s, dtype=dtype, device=device) for s in rig.sensors],
+            [c.image for c in cams], [c.timestamp for c in cams],
+            [c.camera_type for c in cams], w2c_final, mesh_data["vertices"],
+            mesh_data["faces"], args.out_texture_dir)
+        _tk("out_texture")
 
     if args.save_matches:
         from multiview_tpu_torch.io import match_file

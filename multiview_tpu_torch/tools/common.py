@@ -1,9 +1,10 @@
 """Shared helpers for the CLI tools: rig-config -> CameraParams, image
 directory scanning (``<images_dir>/<sensor_name>/<timestamp>.<ext>``),
-grayscale loading. Port of ``multiview_tpu/tools/common.py``.
+grayscale and colour loading. Port of ``multiview_tpu/tools/common.py``.
 
-``load_gray`` reads binary PGM with numpy alone; other formats go through
-imageio when it is installed, and raise a clear error when it is not.
+``load_gray`` and ``load_color`` read binary PGM and PPM with numpy alone;
+other formats go through imageio when it is installed, and raise a clear
+error when it is not.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from multiview_tpu_torch.calib.bracketing import ImageRecord
 from multiview_tpu_torch.geometry.camera import CameraParams
 from multiview_tpu_torch.io import rig_config as rc
-from multiview_tpu_torch.utils.images import read_pgm
+from multiview_tpu_torch.utils.images import read_pgm, read_ppm
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".pgm")
 
@@ -32,19 +33,24 @@ def cam_params_from_sensor(s: rc.SensorConfig, dtype=torch.float64,
         distorted_crop_size=s.distorted_crop_size, dtype=dtype, device=device)
 
 
+def _read_image(path: Path) -> np.ndarray:
+    """A file's pixels as float32: PGM / PPM with numpy, the rest through imageio."""
+    if path.suffix.lower() == ".pgm":
+        return read_pgm(path).astype(np.float32)
+    if path.suffix.lower() == ".ppm":
+        return read_ppm(path).astype(np.float32)
+    try:
+        import imageio.v3 as iio
+    except ImportError as e:
+        raise RuntimeError(
+            f"cannot read {path.name}: reading {path.suffix} images needs imageio, "
+            "which is not installed (binary .pgm / .ppm images need nothing)") from e
+    return np.asarray(iio.imread(path)).astype(np.float32)
+
+
 def load_gray(path) -> np.ndarray:
     """[H,W] float32 grayscale in [0,1] (8-bit sources scaled by 1/255)."""
-    path = Path(path)
-    if path.suffix.lower() == ".pgm":
-        img = read_pgm(path).astype(np.float32)
-    else:
-        try:
-            import imageio.v3 as iio
-        except ImportError as e:
-            raise RuntimeError(
-                f"cannot read {path.name}: reading {path.suffix} images needs imageio, "
-                "which is not installed (binary .pgm images need nothing)") from e
-        img = np.asarray(iio.imread(path)).astype(np.float32)
+    img = _read_image(Path(path))
     if img.ndim == 3:
         img = img[..., :3].mean(-1)
     if img.max() > 1.5:
@@ -52,11 +58,26 @@ def load_gray(path) -> np.ndarray:
     return img
 
 
-def scan_image_dir(images_dir, sensor_names: Sequence[str], load: bool = True
-                   ) -> List[List[ImageRecord]]:
+def load_color(path) -> np.ndarray:
+    """[H,W,3] float32 in [0,1]: the texturing path textures in colour like
+    the reference (bin/texrecon:108-131,164-173); grayscale sources are
+    replicated across the channels."""
+    img = _read_image(Path(path))
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    img = img[..., :3]
+    if img.max() > 1.5:
+        img = img / 255.0
+    return img
+
+
+def scan_image_dir(images_dir, sensor_names: Sequence[str], load: bool = True,
+                   color: bool = False) -> List[List[ImageRecord]]:
     """Per-sensor time-sorted ImageRecords; timestamp parsed from the file
-    stem (the reference's <sensor>/<timestamp>.ext layout)."""
+    stem (the reference's <sensor>/<timestamp>.ext layout). ``color`` loads
+    [H,W,3] images (``load_color``) instead of grayscale."""
     images_dir = Path(images_dir)
+    loader = load_color if color else load_gray
     out: List[List[ImageRecord]] = []
     for name in sensor_names:
         recs = []
@@ -69,7 +90,7 @@ def scan_image_dir(images_dir, sensor_names: Sequence[str], load: bool = True
                     ts = float(p.stem)
                 except ValueError:
                     continue
-                recs.append(ImageRecord(ts, str(p), load_gray(p) if load else None))
+                recs.append(ImageRecord(ts, str(p), loader(p) if load else None))
         recs.sort(key=lambda r: r.timestamp)
         out.append(recs)
     return out

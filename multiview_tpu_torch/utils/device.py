@@ -34,3 +34,16 @@ def resolve_device(device) -> torch.device:
 def working_dtype(device) -> torch.dtype:
     """float32 on CUDA, float64 on the CPU."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+_CPU_BUDGET_BYTES = 256 << 20
+
+
+def rows_that_fit(n: int, bytes_per_row: int, device) -> int:
+    """How many of ``n`` rows to process at once: all of them where a quarter
+    of the device's free memory holds ``bytes_per_row`` for each, else as
+    many as it holds (at least one). On the CPU the budget is 256 MiB."""
+    device = torch.device(device)
+    budget = (torch.cuda.mem_get_info(device)[0] // 4 if device.type == "cuda"
+              else _CPU_BUDGET_BYTES)
+    return int(max(1, min(n, budget // max(bytes_per_row, 1))))

@@ -1,14 +1,20 @@
 """Image helpers: ``depth_value`` / ``depth_values_batch`` and
-``adjust_image_size`` (copied from ``multiview_tpu/utils/images.py``) and
+``adjust_image_size`` (copied from ``multiview_tpu/utils/images.py``),
 binary PGM (P5) and PPM (P6) read/write with numpy alone, the port's image
-formats on machines without imageio."""
+formats on machines without imageio, and an 8-bit PNG writer in the
+standard library alone (the texture pages; the reference writes them with
+PIL) with a reader for its own output."""
 
 from __future__ import annotations
 
+import struct
+import zlib
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def depth_value(depth_cloud: Optional[np.ndarray], dist_ip) -> Optional[np.ndarray]:
@@ -129,3 +135,56 @@ def write_ppm(path, img: np.ndarray) -> None:
         raise ValueError("write_ppm takes a [H,W,3] uint8 array")
     h, w = img.shape[:2]
     Path(path).write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+
+
+def write_png(path, img: np.ndarray, compress_level: int = 6) -> None:
+    """[H,W] or [H,W,3] uint8 array -> 8-bit gray or RGB PNG, written with
+    the standard library alone (zlib, struct): one IDAT chunk, no filtering,
+    no interlace. Stands in for PIL's ``Image.fromarray(img).save(path)``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError("write_png takes a [H,W] or [H,W,3] uint8 array")
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)      # filter byte 0 (None) per row
+    rows[:, 1:] = img.reshape(h, -1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    color_type = 0 if img.ndim == 2 else 2
+    Path(path).write_bytes(
+        _PNG_SIGNATURE
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level))
+        + chunk(b"IEND", b""))
+
+
+def read_png(path) -> np.ndarray:
+    """The PNGs ``write_png`` writes (8-bit gray or RGB, unfiltered rows, no
+    interlace) -> [H,W] or [H,W,3] uint8 array; other PNGs raise ValueError."""
+    data = Path(path).read_bytes()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in (0, 2) or interlace:
+        raise ValueError(f"{path}: only 8-bit gray or RGB PNGs without interlace are read")
+    ch = 1 if color_type == 0 else 3
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * ch)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered PNG rows are not read")
+    img = rows[:, 1:].reshape((h, w) if ch == 1 else (h, w, 3))
+    return img.copy()

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba] [--depth]
     python3 scripts/torch_profile.py --fuse [--n_ref 4]
+    python3 scripts/torch_profile.py --texture [--n_ref 12]
 
 Renders the two-sensor rig workspace of chip_smoke.py (with ``--depth`` the
 three-sensor one, calibrated with the depth camera's flags of phase 4; with
@@ -16,7 +17,10 @@ on one stream, so they do not overlap).
 
 With ``--fuse`` it traces ``fuse-mesh`` instead, with chip_smoke.py phase 7's
 flags on the nav_cam pairs of the three-sensor workspace (after a warm-up
-run), and nothing else.
+run), and nothing else. With ``--texture`` it runs ``fuse-mesh`` with phase
+7's flags on every pair of the three-sensor workspace (not traced) and traces
+``texture`` of the fused mesh with chip_smoke.py phase 8's flags (after a
+warm-up run), and nothing else.
 """
 
 from __future__ import annotations
@@ -74,6 +78,8 @@ def main() -> int:
                     help="with --depth: the mesh families on the tessellated terrain")
     ap.add_argument("--fuse", action="store_true",
                     help="trace fuse-mesh on the nav_cam pairs instead")
+    ap.add_argument("--texture", action="store_true",
+                    help="trace texture of the fused mesh of every pair instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -90,7 +96,28 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mv_profile_") as tmp:
         ws = Path(tmp) / "ws"
         syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0,
-                                depth=args.depth or args.fuse, workers=7)
+                                depth=args.depth or args.fuse or args.texture, workers=7)
+        common = ["--rig_config", str(ws / "rig_config.txt"), "--camera_poses",
+                  str(ws / "cameras.txt"), "--images", str(ws / "images")]
+        if args.texture:
+            import chip_smoke as cs
+            fused = Path(tmp) / "fused"
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_main(["fuse-mesh"] + common + ["--out_dir", str(fused)] + cs.FUSE_FLAGS)
+
+            def texture(run):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    cli_main(["texture"] + common + [
+                        "--mesh", str(fused / "fused_mesh.ply"),
+                        "--out_dir", str(Path(tmp) / f"textured{run}")] + cs.TEXTURE_FLAGS)
+                return buf.getvalue()
+
+            print("\n".join(line for line in texture(0).splitlines()       # warm-up
+                            if line.startswith(("[texture]", "Mesh", "Occlusion"))), flush=True)
+            traced("texture", lambda: texture(1), out_dir)
+            print(torch.cuda.get_device_name(0))
+            return 0
         if args.fuse:
             import chip_smoke as cs
             fuse_argv = ["fuse-mesh", "--rig_config", str(ws / "rig_config.txt"),

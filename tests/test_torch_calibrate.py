@@ -68,10 +68,22 @@ def test_calibrate_cli_matches_jax(workspace, tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--out_texture_dir", "tex"]])
 def test_unported_flags_raise(workspace, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        torch_main(["calibrate", "--rig_config", str(workspace / "rig_config.txt"),
-                    "--camera_poses", str(workspace / "cameras.txt"),
-                    "--out_dir", str(tmp_path)] + ARGS + CPU + flag)
+    """``--sharded`` is the one flag still refused. ``--out_texture_dir`` is
+    ported: without ``--mesh``, and without ``--images``, it stops with the
+    reference's messages (multiview_tpu/tools/calibrate.py:418-421), before
+    any work."""
+    argv = ["calibrate", "--rig_config", str(workspace / "rig_config.txt"),
+            "--camera_poses", str(workspace / "cameras.txt"),
+            "--out_dir", str(tmp_path / "out")] + ARGS + CPU + flag
+    if flag[0] == "--sharded":
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            torch_main(argv)
+        return
+    with pytest.raises(SystemExit, match="--out_texture_dir needs --mesh"):
+        torch_main(argv)
+    with pytest.raises(SystemExit, match="--out_texture_dir needs --images"):
+        torch_main(argv + ["--mesh", str(tmp_path / "mesh.ply")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_calibrate_without_device_cpu_raises_and_never_reaches_the_front_end(

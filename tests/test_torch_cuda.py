@@ -247,3 +247,58 @@ def test_fusion_and_mesh_on_the_card_follow_the_cpu(cuda_device):
     assert len(fc) > 100 and np.array_equal(fg, fc)
     np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-10)
     np.testing.assert_allclose(ig, ic, rtol=0, atol=1e-10)
+
+
+def _texture_on(dev, dtype):
+    """A bumpy grid textured from three views on ``dev`` in ``dtype``: the
+    view costs with both occlusion methods, the MRF labels, the rendered page
+    and both seam leveling solves."""
+    import numpy as np
+    from multiview_tpu_torch.geometry.camera import CameraParams
+    from multiview_tpu_torch.texture import texturing as TT
+    from multiview_tpu_torch.utils import synthetic as syn
+    verts, faces = syn.terrain_mesh(lo=(-1.0, -0.8), hi=(1.0, 0.8), step=0.1)
+    poses = np.stack([syn.look_at_pose(np.array(p), np.zeros(3)) for p in
+                      ((0.1, 0.05, 2.0), (0.9, 0.3, 1.6), (-0.8, -0.5, 1.8))])
+    cam = CameraParams.create((160, 120), 150.0, (80.0, 60.0), (0.02, -0.01, 0.0, 0.0),
+                              dtype=dtype, device=dev)
+    yy, xx = np.mgrid[0:120, 0:160] / 30.0
+    imgs = [np.stack([0.5 + 0.3 * np.sin(xx + k) * np.cos(yy - c) for c in range(3)], -1)
+            .astype(np.float32) for k in range(3)]
+    v = torch.as_tensor(verts, dtype=dtype, device=dev)
+    f = torch.as_tensor(faces, device=dev).long()
+    p = torch.as_tensor(poses, dtype=dtype, device=dev)
+    usable = {m: TT.view_costs(v, f, p, occlusion_method=m)[1].cpu() for m in ("exact", "grid")}
+    cost, ok = TT.view_costs(v, f, p)
+    nbr = TT.face_neighbors(faces, TT.face_adjacency(faces))
+    best, vis = TT.mrf_view_selection(cost, ok, nbr)
+    best, vis = best.cpu().numpy(), vis.cpu().numpy()
+    atlas = TT.build_atlas(verts, faces, pixel_size=0.02)
+    adjacency = TT.face_adjacency(faces)
+    face_col = np.random.default_rng(0).uniform(0.3, 0.7, (len(faces), 3)) + 0.1 * best[:, None]
+    gains, info = TT.global_seam_leveling(face_col, best, adjacency, return_info=True,
+                                          device=dev)
+    vg = TT.vertex_gains_from_faces(len(verts), faces, gains)
+    page = TT.render_atlas(atlas, verts, faces, best, vis, imgs, [cam] * 3, p, vertex_gain=vg)
+    leveled = TT.local_seam_leveling(page, atlas, verts, faces, best, vis, adjacency, device=dev)
+    return dict(usable=usable, best=best, vis=vis, gains=gains, info=info, page=page,
+                leveled=leveled)
+
+
+@pytest.mark.cuda
+def test_texturing_on_the_card_follows_the_cpu(cuda_device):
+    """Float32 on the card against float64 on the CPU: occlusion masks and
+    labels agree on at least 99% of their entries, global gains to 1e-4 with
+    sweep counts within one block, pages to 2e-3 where the labels agree."""
+    import numpy as np
+    gpu = _texture_on(cuda_device, torch.float32)
+    cpu = _texture_on(torch.device("cpu"), torch.float64)
+    for m in ("exact", "grid"):
+        assert float((gpu["usable"][m] == cpu["usable"][m]).double().mean()) > 0.99, m
+    assert (gpu["best"] == cpu["best"]).mean() > 0.99 and np.array_equal(gpu["vis"], cpu["vis"])
+    assert abs(gpu["info"]["iterations"] - cpu["info"]["iterations"]) <= 64
+    np.testing.assert_allclose(gpu["gains"], cpu["gains"], rtol=0, atol=1e-4)
+    assert gpu["page"].shape == cpu["page"].shape and gpu["page"].max() > 0.5
+    for key in ("page", "leveled"):
+        diff = np.abs(gpu[key] - cpu[key])
+        assert np.median(diff[cpu["page"] > 0]) < 2e-3, key

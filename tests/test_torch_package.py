@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "geometry.rpc_fit", "geometry.registration", "io.depth_io", "io.ply",
                 "tools.fit_rpc_tool", "dense.stereo", "dense.pc_filter", "dense.tsdf",
                 "dense.marching", "utils.undistort", "tools.fuse_mesh", "tools.undistort_tool",
-                "io.match_file", "calib.registration", "calib.pose_storage", "geometry.plane"):
+                "io.match_file", "calib.registration", "calib.pose_storage", "geometry.plane",
+                "texture.texturing", "texture.mesh_project", "tools.texture_mesh"):
         assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
 
 
@@ -204,3 +205,50 @@ def test_ransacs_and_retrieval_run_where_their_tensors_are():
         text = (ROOT / "multiview_tpu_torch" / mod).read_text()
         assert not re.search(r"device\s*=\s*[\"']cpu", text), mod
         assert ".cpu()" not in text.replace("(g @ g.T).cpu()", ""), mod
+
+
+def _texture_entry_points(ws, device):
+    """The texture slice's entry points that compute on a device of their
+    choosing, at a tiny size; ``device`` None means "name no device"."""
+    import numpy as np
+    from multiview_tpu_torch.__main__ import main as torch_main
+    from multiview_tpu_torch.texture import texturing as TT
+
+    kw = {} if device is None else {"device": device}
+    flags = [] if device is None else ["--device", device]
+    verts = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0.0]])
+    faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    atlas = TT.build_atlas(verts, faces, pixel_size=0.1)
+    page = np.full((atlas.size[1], atlas.size[0], 3), 0.5, np.float32)
+    adjacency = TT.face_adjacency(faces)
+    return {
+        "texture": lambda: torch_main([
+            "texture", "--rig_config", str(ws / "rig_config.txt"), "--camera_poses",
+            str(ws / "cameras.txt"), "--images", str(ws / "images"), "--mesh",
+            str(ws / "terrain.ply"), "--out_dir", str(ws / "tex"), "--pixel_size", "0.1"]
+            + flags),
+        "global_seam_leveling": lambda: TT.global_seam_leveling(
+            np.array([0.2, 0.6]), np.array([0, 1]), adjacency, **kw),
+        "local_seam_leveling": lambda: TT.local_seam_leveling(
+            page, atlas, verts, faces, np.array([0, 1]), np.array([True, True]), adjacency,
+            **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["texture", "global_seam_leveling", "local_seam_leveling"])
+def test_texture_entry_points_never_choose_the_cpu_by_themselves(tmp_path, monkeypatch, name):
+    """The ``texture`` tool and the seam leveling solves run on the CPU when
+    it is named, and without a card raise the error that names the remedy
+    when it is not. The other texturing functions compute where their
+    tensors or cameras are."""
+    import torch
+    from multiview_tpu_torch.utils import synthetic as syn
+    syn.build_rig_workspace(tmp_path, 2, (32, 24), 28.0)
+    syn.write_terrain_mesh(tmp_path / "terrain.ply", lo=(-1.0, -1.0), hi=(2.0, 1.0), step=0.5)
+    assert sorted(_texture_entry_points(tmp_path, "cpu")) == sorted(
+        ["texture", "global_seam_leveling", "local_seam_leveling"])
+    out = _texture_entry_points(tmp_path, "cpu")[name]()
+    assert out == 0 if name == "texture" else out is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        _texture_entry_points(tmp_path, None)[name]()

@@ -50,6 +50,18 @@ def test_knn_mean_distance_matches_jax():
                                rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("n", [3, 8, 9])
+def test_knn_mean_distance_of_k_or_fewer_neighbours_matches_jax(n):
+    """With k or fewer other points the reference's padding rows at 1e15 are
+    the missing neighbours (a mean near 1e15); relative 1e-12."""
+    pts = _cloud(1)[:n]
+    got = TPF.knn_mean_distance(torch.as_tensor(pts), k=8).numpy()
+    ref = np.asarray(JPF.knn_mean_distance(jnp.asarray(pts), k=8))
+    assert got.shape == (n,) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
+    assert (got > 1e14).all() == (n <= 8)
+
+
 @pytest.mark.parametrize("gate", [0.0, 2.2])
 def test_pc_filter_keeps_what_the_reference_rule_keeps(gate):
     pts = _cloud(1)
