@@ -14,13 +14,15 @@ printing a result):
    started together, and the track builder's host library
    (native/mv_native.cpp) with g++;
 1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
-   D = 64 and 128, the FMA kernel for any other D) against ``knn2_plain``,
+   D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
+   FP32 oracle, for wider D) against ``knn2_plain``,
    against ``knn2_split_plain`` and against the FMA kernel, at the main path's
    shape (8 pairs of 4096x4096x128), at 10000x10000x128, on a ragged
    1000x1037 case with planted exact duplicates and near-ties, at D = 64 and
    at D = 96 (ragged, and the shape of phase 2b); median times over distinct
    inputs of the kernel, the FMA kernel, the plain version and the product
-   ``torch.matmul`` alone, beside the operation bound;
+   ``torch.matmul`` alone, beside the operation bound; the FMA kernel held
+   to the plain version at every shape;
 2. the main path without the depth camera: a two-sensor rig workspace
    (1280x960, focal 1120 px, 12 reference + 11 radtan frames with a 0.13 s
    clock offset; the frames are rendered once, in worker processes, for this
@@ -29,12 +31,14 @@ printing a result):
    track count, the cost decrease, the recovered rig transform (1 deg /
    0.05 m) and the output files;
 2b. the odd-width path: ``match_pairs_batched`` over five images of 1000
-   planted features with 96-wide descriptors, through the FMA kernel; checks
-   the launch count and the planted correspondences;
+   planted features with 96-wide descriptors, through the tensor-core kernel
+   (zero-padded to 128); checks the launch count and the planted
+   correspondences;
 3. Schur-LM bundle adjustment at the bench's size (cube scene 160 images x
    20x20 points per face, about 384k observations, float32): finite,
    decreasing cost and LM iterations per second;
-4. the main path with the depth camera: the same workspace plus haz_cam (11
+4. the main path with the depth camera, ``--sharded`` (on one card it shards
+   nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
    rig_config.txt is off the truth by a scale of 1.03 and a rotation of one
    degree; ``calibrate`` with ``--depth_tri_weight 25 --float_scale
@@ -54,8 +58,9 @@ printing a result):
    dense back end on a small cube scene;
 6. ``python -m multiview_tpu_torch sfm-init`` in process on the three-sensor
    workspace of phase 4 (34 images, 4096 features, 3 overlaps, 90 iterations
-   of the refinement BA), GLOBAL, on the card: stage times, images, view-graph edges, tracks, triangulated tracks,
-   matcher launches counted from 0, every view registered, and the
+   of the refinement BA), GLOBAL, on the card: stage times, images,
+   view-graph edges, tracks, triangulated tracks, matcher launches counted
+   from 0, every view registered, and the
    trajectory against the truth after a similarity alignment (ATE RMSE and
    mean rotation error under the bars below); then the two-view stage alone
    (``view_graph_from_matches`` on the correspondences of that run) on the
@@ -103,15 +108,29 @@ printing a result):
 8c. ``calibrate --mesh --out_texture_dir`` on the two-sensor workspace (one
    pass of 5 iterations, a terrain mesh of 0.2 m cells): one OBJ/MTL/PNG
    triple per image, each PNG the image the run held, faces kept for every
-   camera, the projection step's seconds, the matcher's launches.
+   camera, the projection step's seconds, the matcher's launches;
+9. sharding (``multiview_tpu_torch/parallel``), on the one card: 9a phase
+   3's solve with its observations in 4 shards on cuda:0 (and over every
+   card where there are several) against the unsharded solve, both walls and
+   LM it/s, under the float32 bars below; 9b ``calibrate`` with the depth
+   camera through ``run(args, mesh)`` with a 4-shard mesh, held to phase 4's
+   bars, the sharding line printed; 9c the front end on phase 4's 34 images
+   in 4 shards: keypoints, descriptors, match sets and tracks bit for bit the
+   unsharded path's, the sharded ``detect_match_features``'s launches; 9d two
+   processes (this script with ``--phase9d-worker``) of 2 shards each joined
+   by gloo on CUDA tensors: the ranks bit for bit equal, a gather across
+   them whole, both within 9a's bars of the unsharded solve; then NCCL at
+   world size 1 with 4 shards; 9e three of phase 7's clouds fused into 4 X
+   slabs against the whole grid (1e-5) and the same mesh.
 
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
-over phases 2, 2c, 4, 4b, 6, 6b, 6c and 8c, each counted from 0 and each
-required to be positive; ``launches_by_path`` has them all; the texture path
-of phases 8-8b launches no kernel), its time, its plain version's, the
+over phases 2, 2b, 2c, 4, 4b, 6, 6b, 6c, 8c, 9b and 9c, each counted from 0
+and each required to be positive; ``launches_by_path`` has them all; the
+texture path of phases 8-8b launches no kernel; the FMA kernel, the FP32
+oracle, is launched by no path), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
-that path's shape), the card's name and power limit, and
+the main path's chunk), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -126,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -225,6 +245,17 @@ LABEL_AGREEMENT_MIN = 0.98
 # phase 8c: calibrate --out_texture_dir with a coarse terrain mesh (0.2 m
 # cells: 4000 triangles) on the two-sensor workspace, one short pass
 OUT_TEXTURE_MESH_STEP = 0.2
+# phase 9: shards on the one card; the reduced cube of the two-process run
+# (images, points per face side); the float32 bars of a sharded solve against
+# the unsharded one (initial cost: 1e-6 relative). Measured on an H100 at 4
+# shards (phase 9a, two calls): final cost 3.62e-7 and 4.52e-6 relative,
+# cameras 2.07e-4 and 1.96e-4 (the focal of 600 px has a float32 step of
+# 6e-5; the poses float with a free gauge, and index_add_ sums in no fixed
+# order on the card, unsharded too); the bars leave a factor of about 10. A
+# family counted twice would move the cost by a factor, not 1e-4
+SHARDS = 4
+MP_CUBE = (40, 10)
+SHARDED_COST_RTOL, SHARDED_CAM_ATOL = 1e-4, 2e-3
 
 
 class Tee(io.TextIOBase):
@@ -341,10 +372,13 @@ def phase1(torch, mm, device, card):
         if launched != ((1, 0) if name == "knn2_wgmma" else (0, 1)):
             raise AssertionError(f"phase 1 {label}: D={D} must launch {name} once, counted "
                                  f"(tensor-core, FMA) = {launched}")
-        err = compare(torch, mm, label, "knn2_plain", got, mm.knn2_plain(q, t))
+        plain = mm.knn2_plain(q, t)
+        err = compare(torch, mm, label, "knn2_plain", got, plain)
+        fma = mm.knn2_cuda_fma(q, t)
+        fma_err = compare(torch, mm, label + " (FMA kernel)", "knn2_plain", fma, plain)
         if name == "knn2_wgmma":
             compare(torch, mm, label, "knn2_split_plain", got, mm.knn2_split_plain(q, t))
-            compare(torch, mm, label, "the FMA kernel", got, mm.knn2_cuda_fma(q, t))
+            compare(torch, mm, label, "the FMA kernel", got, fma)
         flop = 2.0 * P * N * M * D
         nbytes = 4.0 * P * (N + M) * D + 12.0 * P * N
         bound_ms = max(flop / TF32_PEAK, nbytes / MEM_PEAK) * 1e3
@@ -365,7 +399,7 @@ def phase1(torch, mm, device, card):
                 raise AssertionError("exact duplicate: lowest index and second == best expected")
         out[label] = {"ms": times["kernel"], "fma_ms": times["fma"], "plain_ms": times["plain"],
                       "library_ms": times["product"], "bound_ms": bound_ms, "bound_by": bound_by,
-                      "max_abs_err": err}
+                      "max_abs_err": err, "fma_max_abs_err": fma_err}
     return out
 
 
@@ -399,15 +433,26 @@ def render_workspaces(workdir: Path):
 
 
 def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool = True,
-                  passes: int = 2):
+                  passes: int = 2, mesh=None):
     """``calibrate`` in process on a rendered workspace, with the launch
     counts set to 0 just before and read just after. Returns what the checks
     read: launches, wall time, the parsed log, the written rig config. The BA
     cost must decrease over the run and rise in no pass; with ``every_pass``
     it must decrease in each of the ``passes`` passes (two unless ``extra``
-    sets --calibrator_num_passes)."""
+    sets --calibrator_num_passes). With ``mesh`` the tool runs through
+    ``run(args, mesh)``, the library entry that takes a shard mesh."""
+    import argparse
+
     from multiview_tpu_torch.__main__ import main as cli_main
     from multiview_tpu_torch.io import rig_config as rc
+    from multiview_tpu_torch.tools import calibrate as cal_tool
+
+    def cli(argv):
+        if mesh is None:
+            return cli_main(argv)
+        parser = argparse.ArgumentParser()
+        cal_tool.add_args(parser)
+        return cal_tool.run(parser.parse_args(argv[1:]), mesh=mesh)
 
     argv = ["calibrate", "--rig_config", str(ws / "rig_config.txt"),
             "--camera_poses", str(ws / "cameras.txt"), "--images", str(ws / "images"),
@@ -419,7 +464,7 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        ret = cli_main(argv)
+        ret = cli(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, fma_launches = mm.WGMMA_LAUNCHES, mm.FMA_LAUNCHES
@@ -522,17 +567,18 @@ def depth_alignment(torch, calib: Path, ws: Path, sample: int = 37):
     return len(r), float(np.median(r)), float(np.percentile(r, 95))
 
 
-def phase4(torch, mm, card, workdir: Path, rig_true):
-    """``calibrate`` with the depth camera: depth rows against the
-    triangulated points, depth_to_image and its scale floated from a guess
-    that is off the truth."""
+def calibrate_with_depth(torch, mm, card, tag, workdir: Path, out: Path, rig_true, extra,
+                         mesh=None):
+    """``calibrate`` with the depth camera on the three-sensor workspace and
+    phase 4's checks; returns the run."""
     import numpy as np
     from multiview_tpu_torch.geometry import pose as P
 
-    ws, out = workdir / "ws3", workdir / "calib3"
-    run = run_calibrate(torch, mm, "phase 4", ws, out, [
+    ws = workdir / "ws3"
+    label = tag.replace(" ", "")
+    run = run_calibrate(torch, mm, tag, ws, out, [
         "--depth_tri_weight", "25.0", "--float_scale",
-        "--depth_to_image_transforms_to_float", "haz_cam", "--save_nvm"])
+        "--depth_to_image_transforms_to_float", "haz_cam", "--save_nvm"] + extra, mesh=mesh)
     errs = rig_errors(torch, run, rig_true, ("sci_cam", "haz_cam"))
     d2i = np.asarray(next(s for s in run["rig"].sensors if s.name == "haz_cam").depth_to_image)
     scale = float(np.linalg.det(d2i[:3, :3]) ** (1.0 / 3.0))
@@ -540,7 +586,7 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     rot_deg = float(np.degrees(np.linalg.norm(P.quat_log(rot).numpy())))
     n_pts, med, p95 = depth_alignment(torch, out, ws)
     st = run["stages"]
-    print(f"[phase4] calibrate with the depth camera: wall {run['wall']:.2f} s; front end "
+    print(f"[{label}] calibrate with the depth camera: wall {run['wall']:.2f} s; front end "
           f"{st['frontend_tracks']:.2f} s; BA {st['optimize_rig']:.2f} s; read+scan "
           f"{st['read+scan']:.2f} s; assemble {st['assemble']:.2f} s; tracks {run['tracks']}; "
           f"pixel rows {run['pixel_rows']} of {run['points']} points; depth rows "
@@ -550,18 +596,32 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
           f"{rot_deg:.4f} deg off the truth; depth alignment over {n_pts} cloud points: "
           f"median {med:.5f} m, 95th percentile {p95:.5f} m [{card}]", flush=True)
     for line in run["passes"]:
-        print(f"[phase4] {line}", flush=True)
+        print(f"[{label}] {line}", flush=True)
     if run["depth_rows"] <= 0:
-        raise AssertionError("phase 4: no depth measurement was attached")
+        raise AssertionError(f"{tag}: no depth measurement was attached")
     # measured on an H100: 0.12% and 0.007 deg off; the bars leave a factor of four
     if not (abs(scale - 1.0) < 0.005 and rot_deg < 0.1):
-        raise AssertionError(f"phase 4: depth_to_image not recovered: scale {scale}, "
+        raise AssertionError(f"{tag}: depth_to_image not recovered: scale {scale}, "
                              f"{rot_deg} deg")
     if not med < 0.005:                              # measured: 0.8 mm
-        raise AssertionError(f"phase 4: depth clouds {med} m (median) off the terrain")
+        raise AssertionError(f"{tag}: depth clouds {med} m (median) off the terrain")
     for f in ("rig_config.txt", "cameras.txt", "cameras.nvm"):
         if not (out / f).is_file():
             raise AssertionError(f"missing output {f}")
+    return run
+
+
+def phase4(torch, mm, card, workdir: Path, rig_true):
+    """``calibrate --sharded`` with the depth camera: depth rows against the
+    triangulated points, depth_to_image and its scale floated from a guess
+    that is off the truth. On one card ``--sharded`` shards nothing, as the
+    reference's does on one chip."""
+    run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
+                               rig_true, ["--sharded"])
+    sharded = "Sharded observations" in run["text"]
+    if sharded != (torch.cuda.device_count() > 1):
+        raise AssertionError(f"phase 4: --sharded on {torch.cuda.device_count()} card(s) "
+                             f"printed the sharding line: {sharded}")
     return run["launches"]
 
 
@@ -654,8 +714,9 @@ def phase4b(torch, mm, device, card, workdir: Path, rig_true):
 
 
 def phase2b(torch, mm, device, card):
-    """Descriptors of a width the tensor-core kernel is not built for, through
-    the front end's batched matcher: planted correspondences must come back."""
+    """Descriptors of a width the tensor-core kernel is not built for (96,
+    zero-padded to 128 on their way to it), through the front end's batched
+    matcher: planted correspondences must come back."""
     from multiview_tpu_torch.sfm import features as feat
     from multiview_tpu_torch.sfm import pipeline as fe
 
@@ -681,7 +742,7 @@ def phase2b(torch, mm, device, card):
     matches = fe.match_pairs_batched(kps, descs, pair_ids, fe.FrontendConfig())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, wgmma_launches = mm.FMA_LAUNCHES, mm.WGMMA_LAUNCHES
+    launches, fma_launches = mm.WGMMA_LAUNCHES, mm.FMA_LAUNCHES
     found = 0
     for (i, j), (xi, xj) in matches.items():
         off = xj - xi - (j - i) * shift.cpu().numpy()
@@ -689,27 +750,26 @@ def phase2b(torch, mm, device, card):
             raise AssertionError(f"phase 2b pair {(i, j)}: a match off the planted shift")
         found += len(xi)
     print(f"[phase2b] {len(pair_ids)} pairs of {k}x{k}x{d} through match_pairs_batched in "
-          f"{wall * 1e3:.1f} ms: {found} of {len(pair_ids) * k} planted matches; FMA kernel "
-          f"launches {launches} (tensor-core {wgmma_launches}) [{card}]", flush=True)
-    if launches <= 0 or wgmma_launches != 0:
-        raise AssertionError(f"D = {d} must launch the FMA kernel and only it: counted "
-                             f"{launches} and {wgmma_launches} (tensor-core)")
+          f"{wall * 1e3:.1f} ms: {found} of {len(pair_ids) * k} planted matches; tensor-core "
+          f"kernel launches {launches} (FMA {fma_launches}) [{card}]", flush=True)
+    if launches <= 0 or fma_launches != 0:
+        raise AssertionError(f"D = {d} must launch the tensor-core kernel and only it: counted "
+                             f"{launches} and {fma_launches} (FMA)")
     if found < 0.95 * len(pair_ids) * k:
         raise AssertionError(f"phase 2b: only {found} of {len(pair_ids) * k} planted matches")
     return launches
 
 
-def phase3(torch, card):
-    """Schur LM at the bench's size, float32 on the card."""
+def ba_problem(torch, dev, n_images: int, n_per_face: int):
+    """Phase 3's bundle adjustment (cube scene, float32, poses and the
+    intrinsics floating, 10 LM x 30 CG): (scene, start state, solver)."""
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.solver import schur
     from multiview_tpu_torch.utils import synthetic as syn
 
-    dev = torch.device("cuda", 0)
-    scene = syn.make_cube_scene(n_images=160, n_per_face=20,
+    scene = syn.make_cube_scene(n_images=n_images, n_per_face=n_per_face,
                                 dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), pix_noise=0.5,
                                 dtype=torch.float32, device=dev)
-    n_obs = sum(len(o) for o in scene.observations.pixels)
     state0 = syn.perturb_state(scene.true_state, pose_rot=0.01, pose_trans=0.02,
                                point_sigma=0.02)
     cam_mask = prob.build_mask(
@@ -718,6 +778,15 @@ def phase3(torch, card):
     solver = schur.make_schur_solver(state0, scene.observations, scene.models,
                                      prob.BAOptions(no_rig=True), cam_mask,
                                      max_iterations=10, cg_iterations=30, cg_tolerance=0.1)
+    return scene, state0, solver
+
+
+def phase3(torch, card):
+    """Schur LM at the bench's size, float32 on the card."""
+    from multiview_tpu_torch.calib import problem as prob
+
+    scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
+    n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
     res = solver(cam0, state0.points)
     torch.cuda.synchronize()
@@ -1499,6 +1568,277 @@ def phase8c(torch, mm, card, workdir: Path):
     return run["launches"]
 
 
+def solve_gap(ref, got):
+    """(initial cost, final cost) relative gaps and the largest camera-vector
+    difference of two solves."""
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    return (rel(got.initial_cost, ref.initial_cost), rel(got.cost, ref.cost),
+            float((got.cam.to(ref.cam.device) - ref.cam).abs().max()))
+
+
+def hold_gap(tag, gap):
+    """Phase 9's bars on a sharded solve against the unsharded one."""
+    if not (gap[0] <= 1e-6 and gap[1] <= SHARDED_COST_RTOL and gap[2] <= SHARDED_CAM_ATOL):
+        raise AssertionError(f"{tag}: the sharded solve is off the unsharded one: initial "
+                             f"cost {gap[0]:.3g}, final cost {gap[1]:.3g} (bar "
+                             f"{SHARDED_COST_RTOL}), cameras {gap[2]:.3g} (bar "
+                             f"{SHARDED_CAM_ATOL})")
+
+
+def phase9a(torch, card):
+    """Phase 3's solve with its observations sharded 4 ways on cuda:0 (and
+    over every card where there are several) against the unsharded solve."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda", 0)
+    scene, state0, solver = ba_problem(torch, dev, 160, 20)
+    cam0 = prob.pack_state(state0, include_points=False)
+
+    def timed(obs):
+        solver(cam0, state0.points, obs)                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver(cam0, state0.points, obs)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    ref, wall1 = timed(None)
+    meshes = [("4 shards on cuda:0", sh.make_mesh([dev] * SHARDS))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards",
+                       sh.make_mesh([torch.device("cuda", i)
+                                     for i in range(torch.cuda.device_count())])))
+    out = {"wall_unsharded": wall1}
+    for what, mesh in meshes:
+        got, wall = timed(sh.shard_observations(scene.observations, mesh))
+        gap = solve_gap(ref, got)
+        print(f"[phase9a] cube 160x20, 10 LM x 30 CG, float32: unsharded wall {wall1:.4f} s "
+              f"({ref.iterations / wall1:.3f} LM it/s, {ref.iterations} LM, "
+              f"{int(ref.cg_iters_total)} CG); sharded over {what}: wall {wall:.4f} s "
+              f"({got.iterations / wall:.3f} LM it/s, {got.iterations} LM, "
+              f"{int(got.cg_iters_total)} CG); cost {float(ref.initial_cost):.7g} -> "
+              f"{float(ref.cost):.7g} unsharded, {float(got.initial_cost):.7g} -> "
+              f"{float(got.cost):.7g} sharded; relative gaps initial {gap[0]:.3g}, final "
+              f"{gap[1]:.3g}; cameras max |diff| {gap[2]:.3g} [{card}]", flush=True)
+        hold_gap(f"phase 9a ({what})", gap)
+        out.setdefault("wall_sharded", wall)
+        out.setdefault("gap", gap)
+    return out
+
+
+def phase9b(torch, mm, card, workdir: Path, rig_true):
+    """``calibrate`` with the depth camera through ``run(args, mesh)`` with a
+    4-shard mesh on cuda:0, held to phase 4's bars."""
+    from multiview_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.make_mesh([torch.device("cuda", 0)] * SHARDS)
+    run = calibrate_with_depth(torch, mm, card, "phase 9b", workdir, workdir / "calib9b",
+                               rig_true, [], mesh=mesh)
+    line = f"Sharded observations over {SHARDS} devices (1 process(es))"
+    if line not in run["text"]:
+        raise AssertionError(f"phase 9b: calibrate did not print '{line}'")
+    return run["launches"]
+
+
+def phase9c(torch, mm, card, workdir: Path):
+    """The front end on phase 4's 34 images sharded 4 ways on cuda:0:
+    keypoints, descriptors, match sets and tracks bit for bit the unsharded
+    path's; the sharded ``detect_match_features`` launches counted."""
+    import numpy as np
+    from multiview_tpu_torch.parallel import sharding as sh
+    from multiview_tpu_torch.sfm import pipeline as fe
+    from multiview_tpu_torch.tools import common
+
+    dev = torch.device("cuda", 0)
+    recs = common.scan_image_dir(workdir / "ws3" / "images", ["nav_cam", "sci_cam", "haz_cam"])
+    images = [r.payload for rs in recs for r in rs]
+    n = len(images)
+    cfg = fe.FrontendConfig(max_features=4096, num_overlaps=3)
+    pair_ids = [(i, j) for i in range(n) for j in range(i + 1, min(i + 4, n))]
+    mesh = sh.make_mesh([dev] * SHARDS)
+    kps1, descs1 = fe.detect_all(images, cfg, device=dev)
+    raw1 = fe.match_pairs_batched(kps1, descs1, pair_ids, cfg)
+    kps4, descs4 = fe.detect_all(images, cfg, mesh=mesh)
+    raw4 = fe.match_pairs_batched(kps4, descs4, pair_ids, cfg, mesh=mesh)
+    same_feat = all(torch.equal(a, b) for k1, k4 in zip(kps1, kps4) for a, b in zip(k1, k4)) \
+        and all(torch.equal(a, b) for a, b in zip(descs1, descs4))
+    same_match = list(raw1) == list(raw4) and all(
+        np.array_equal(a, b) for k in raw1 for a, b in zip(raw1[k], raw4[k]))
+    walls, launches, tracks = {}, {}, {}
+    for what, kw in (("unsharded", {"device": dev}), ("sharded", {"mesh": mesh})):
+        mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracks[what] = fe.detect_match_features(images, cfg, **kw)
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        launches[what] = (mm.WGMMA_LAUNCHES, mm.FMA_LAUNCHES)
+    same_tracks = tracks["sharded"].tracks == tracks["unsharded"].tracks
+    print(f"[phase9c] front end on {n} images of 1280x960 ({len(pair_ids)} pairs, 4096 "
+          f"features), {SHARDS} shards on cuda:0: keypoints and descriptors equal {same_feat}; "
+          f"match sets equal {same_match} ({sum(len(v[0]) for v in raw4.values())} matches); "
+          f"tracks equal {same_tracks} ({len(tracks['sharded'].tracks)}); "
+          f"detect_match_features wall unsharded {walls['unsharded']:.3f} s, sharded "
+          f"{walls['sharded']:.3f} s; (tensor-core, FMA) launches unsharded "
+          f"{launches['unsharded']}, sharded {launches['sharded']} [{card}]", flush=True)
+    if not (same_feat and same_match and same_tracks):
+        raise AssertionError("phase 9c: the sharded front end differs from the unsharded one")
+    if launches["sharded"][0] <= 0 or launches["sharded"][1] != 0:
+        raise AssertionError(f"phase 9c: launches {launches['sharded']}")
+    return launches["sharded"][0]
+
+
+def phase9e(torch, card, workdir: Path):
+    """Three of phase 7's stereo clouds fused into a grid of 4 X slabs on
+    cuda:0 against the whole grid, as fuse-mesh fuses them."""
+    import numpy as np
+    from multiview_tpu_torch.dense import marching, tsdf
+    from multiview_tpu_torch.geometry import pose as P
+    from multiview_tpu_torch.io import depth_io
+    from multiview_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda", 0)
+    files = sorted((workdir / "fused").glob("*/stereo/*/run-PC-filter.pcd"))[:3]
+    clouds = [(depth_io.read_pcd(f)[0], np.loadtxt(f.parent / "run_cam2world.txt"))
+              for f in files]
+    voxel = float(FUSE_FLAGS[FUSE_FLAGS.index("--voxel_size") + 1])
+    allc = np.concatenate([xyz @ c2w[:3, :3].T + c2w[:3, 3] for xyz, c2w in clouds])
+    lo = np.percentile(allc, 2, axis=0) - 2 * voxel
+    hi = np.percentile(allc, 98, axis=0) + 2 * voxel
+    dims = tuple(int(d) for d in np.minimum(np.ceil((hi - lo) / voxel).astype(int) + 1, 320))
+    grid = tsdf.make_grid(dims, origin=lo, voxel_size=voxel, device=dev)
+    mesh = sh.make_mesh([dev] * SHARDS)
+
+    def fuse(g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pts, c2w in clouds:
+            vres = max(64, int(np.sqrt(len(pts)) * 2))
+            g = tsdf.integrate_point_cloud(
+                g, torch.as_tensor(pts, dtype=torch.float32, device=dev),
+                P.matrix_to_pose(torch.as_tensor(c2w)), focal=(vres * 0.8, vres * 0.8),
+                image_size=(vres, (vres * 3) // 4), max_range=3.0)
+        torch.cuda.synchronize()
+        return g, time.perf_counter() - t0
+
+    whole, wall1 = fuse(grid)
+    sharded, wall4 = fuse(sh.shard_tsdf_grid(grid, mesh))
+    back = sharded.gather()
+    err = max(float((back.tsdf - whole.tsdf).abs().max()),
+              float((back.weight - whole.weight).abs().max()))
+    m1, m4 = marching.extract_mesh(whole), marching.extract_mesh(sharded)
+    same_mesh = all(np.array_equal(a, b) for a, b in zip(m1, m4))
+    print(f"[phase9e] {len(clouds)} stereo clouds of phase 7 into a {dims} grid: whole "
+          f"{wall1 * 1e3:.1f} ms, {SHARDS} X slabs of {sharded.blocks[0].shape} on cuda:0 "
+          f"{wall4 * 1e3:.1f} ms; max |diff| {err:.3g} (bar 1e-5); voxels hit "
+          f"{int((whole.weight > 0).sum())}; meshes equal {same_mesh} ({len(m1[0])} vertices) "
+          f"[{card}]", flush=True)
+    if not (err <= 1e-5 and same_mesh and float(whole.weight.sum()) > 0):
+        raise AssertionError(f"phase 9e: the slab-sharded grid is off the whole one: {err}")
+
+
+def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One of phase 9d's two ranks on cuda:0: a gloo group, 2 shards a rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
+
+    if not pdist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo"):
+        raise AssertionError("phase 9d: the worker joined no group")
+    dev = torch.device("cuda", 0)
+    mesh = sh.make_mesh([dev] * 2, group=dist.group.WORLD)
+    scene, state0, solver = ba_problem(torch, dev, *MP_CUBE)
+    obs = sh.shard_observations(scene.observations, mesh)
+    res = solver(prob.pack_state(state0, include_points=False), state0.points, obs)
+    # the gloo collectives take the CUDA tensors as they are: the solve's
+    # all-reduces, and the all-gather of the calibrator's bookkeeping
+    whole = sh.gathered(obs.pixels[0])
+    gathered = all(torch.equal(getattr(whole, f), getattr(scene.observations.pixels[0], f))
+                   for f in ("pix", "point_idx", "mask"))
+    torch.cuda.synchronize()
+    np.savez(out, cam=res.cam.cpu().numpy(), points=res.points.cpu().numpy(),
+             cost=float(res.cost), initial_cost=float(res.initial_cost),
+             iterations=res.iterations, cg=int(res.cg_iters_total), lam=float(res.lam),
+             size=mesh.size, gathered=gathered, device=str(res.cam.device))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase9d(torch, card, workdir: Path):
+    """Two processes on the one card, 2 shards each, joined by gloo: both
+    ranks bit for bit equal, and within phase 9a's bars of the one-process
+    unsharded solve; then NCCL at world size 1 with 4 shards."""
+    import numpy as np
+    import socket
+    import torch.distributed as dist
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    port = free_port()
+    outs = [workdir / f"rank{r}.npz" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-u", str(ROOT / "chip_smoke.py"),
+                               "--phase9d-worker", str(r), "2", str(port), str(outs[r])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 9d: a rank failed:\n{log[-3000:]}")
+    r0, r1 = (dict(np.load(o)) for o in outs)
+    same = all(np.array_equal(r0[k], r1[k]) for k in r0)
+
+    dev = torch.device("cuda", 0)
+    scene, state0, solver = ba_problem(torch, dev, *MP_CUBE)
+    cam0 = prob.pack_state(state0, include_points=False)
+    ref = solver(cam0, state0.points)
+
+    gap = solve_gap(ref, types.SimpleNamespace(
+        cam=torch.as_tensor(r0["cam"], device=dev), cost=r0["cost"],
+        initial_cost=r0["initial_cost"]))
+    pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        backend = dist.get_backend()
+        mesh = sh.make_mesh([dev] * SHARDS, group=dist.group.WORLD)
+        nccl = solver(cam0, state0.points, sh.shard_observations(scene.observations, mesh))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    gap_nccl = solve_gap(ref, nccl)
+    n_obs = sum(len(o) for o in scene.observations.pixels)
+    print(f"[phase9d] cube {MP_CUBE[0]}x{MP_CUBE[1]} ({n_obs} observations), 2 processes x 2 "
+          f"shards on cuda:0 over gloo: {int(r0['size'])} shards, wall {wall:.2f} s with "
+          f"start-up; ranks bit for bit equal {same} ({int(r0['iterations'])} LM, "
+          f"{int(r0['cg'])} CG, results on {r0['device']}); gloo all-reduce and all-gather "
+          f"of CUDA tensors: the gathered rows whole {bool(r0['gathered'])}; against one "
+          f"process unsharded: gaps initial {gap[0]:.3g}, final {gap[1]:.3g}, cameras "
+          f"{gap[2]:.3g}; {backend} at world size 1 with {SHARDS} shards: gaps "
+          f"{gap_nccl[0]:.3g}, {gap_nccl[1]:.3g}, {gap_nccl[2]:.3g} [{card}]", flush=True)
+    if not (same and bool(r0["gathered"])):
+        raise AssertionError("phase 9d: the two ranks differ, or a gather lost rows")
+    hold_gap("phase 9d (gloo, 2 ranks)", gap)
+    hold_gap("phase 9d (nccl, world size 1)", gap_nccl)
+
+
 def main() -> int:
     if not (ROOT / "multiview_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
@@ -1507,6 +1847,9 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this script only runs on the GPU")
+    if sys.argv[1:2] == ["--phase9d-worker"]:
+        rank, world, port, out = sys.argv[2:6]
+        return phase9d_worker(int(rank), int(world), int(port), out)
     from multiview_tpu_torch.sfm import matching as mm
     from multiview_tpu_torch.utils import cuda_build
 
@@ -1551,19 +1894,32 @@ def main() -> int:
         phase8(torch, card, Path(tmp))
         phase8b(torch, dev, card, Path(tmp))
         paths["phase8c"] = phase8c(torch, mm, card, Path(tmp))
-    fma_launches = phase2b(torch, mm, dev, card)
+        t9 = time.perf_counter()
+        paths["phase9b"] = phase9b(torch, mm, card, Path(tmp), rig_true)
+        paths["phase9c"] = phase9c(torch, mm, card, Path(tmp))
+        phase9e(torch, card, Path(tmp))
+        phase9d(torch, card, Path(tmp))
+        t9 = time.perf_counter() - t9
+    paths["phase2b"] = phase2b(torch, mm, dev, card)
     phase3(torch, card)
     phase5(torch, dev, card)
+    t0 = time.perf_counter()
+    phase9a(torch, card)
+    print(f"[phase9] {t9 + time.perf_counter() - t0:.1f} s in all", flush=True)
 
     print(f"[done] total {time.perf_counter() - t_start:.1f} s", flush=True)
     replaces = "multiview_tpu/sfm/matching.py:118"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    chunk = p1["main_path_8x4096"]
     print(json.dumps({"kernels": [
         {"name": "knn2_wgmma", "route": "cuda", "source": WGMMA_SOURCE, "replaces": replaces,
          "launches": sum(paths.values()), "launches_by_path": paths,
-         **{k: p1["main_path_8x4096"][k] for k in keys}},
+         **{k: chunk[k] for k in keys}},
+        # the FP32 oracle and the kernel for D > 128: no path launches it
         {"name": "knn2_top2", "route": "cuda", "source": FMA_SOURCE, "replaces": replaces,
-         "launches": fma_launches, **{k: p1["odd_path_d96"][k] for k in keys}}]}))
+         "launches": 0, "on_path": False,
+         **{k: chunk[k] for k in keys if k not in ("ms", "max_abs_err")},
+         "ms": chunk["fma_ms"], "max_abs_err": chunk["fma_max_abs_err"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,16 @@ descriptor distance + top-2 matcher, is a pair of hand-written CUDA kernels
 for Hopper (``csrc/knn2_wgmma.cu`` for 64- and 128-wide descriptors,
 ``csrc/knn2.cu`` for any other width), built with nvcc at first use.
 
-Ported: the ``calibrate`` path (rig BA with depth and mesh constraints, the
-dense LM and the RPC refit, ``fit-rpc``, SIFT and SURF features, out-of-core
-matching, match files, registration to control points), the ``sfm-init``
-path (two-view geometry, global and incremental SfM, retrieval pair
-selection) and the dense path (``undistort``, ``fuse-mesh``: plane-sweep
-stereo, the cloud filter, TSDF fusion, marching tetrahedra). Not ported yet:
-texturing with its tool, and sharding over several cards.
+Ported: everything the JAX package does. The ``calibrate`` path (rig BA
+with depth and mesh constraints, the dense LM and the RPC refit,
+``fit-rpc``, SIFT and SURF features, out-of-core matching, match files,
+registration to control points), the ``sfm-init`` path (two-view geometry,
+global and incremental SfM, retrieval pair selection), the dense path
+(``undistort``, ``fuse-mesh``: plane-sweep stereo, the cloud filter, TSDF
+fusion, marching tetrahedra), texturing (``texture``, ``calibrate
+--out_texture_dir``) and sharding (``parallel/``: the row-sharded Schur BA
+behind ``calibrate --sharded``, the sharded front end, TSDF slabs,
+multi-process start-up over ``torch.distributed``).
 
 Numerics: on CUDA the port computes in float32 with TF32 disabled for
 both matmuls and cuDNN convolutions (TF32 keeps about three decimal

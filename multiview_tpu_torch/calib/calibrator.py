@@ -12,6 +12,11 @@ reference program's loop, rig_calibrator.cc:1550-1990):
 Outlier state is a monotone boolean mask on the observation tensors
 (inliers never return, rig_calibrator.cc:1528-1532); a depth row dies with
 its pixel feature. Each pass can be checkpointed and a run resumed.
+
+Observations sharded over a mesh (``parallel/sharding.py``) stay sharded
+through every pass: the host-side bookkeeping below gathers each sharded
+pixel family without its padding, and puts mask updates back onto the same
+shards (the JAX package's ``_host_mask`` / ``_resharded_like``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from multiview_tpu_torch.calib import checkpoint as ckpt_mod
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.geometry import distortion as dist_mod
 from multiview_tpu_torch.geometry import triangulation as tri_mod
+from multiview_tpu_torch.parallel import sharding as sh
 from multiview_tpu_torch.solver import schur as schur_mod
 from multiview_tpu_torch.solver.lm import levenberg_marquardt
 from multiview_tpu_torch.utils.padding import group_ranks
@@ -57,7 +63,8 @@ class TrackTable:
 
 def build_track_table(observations: prob.Observations, num_points: int) -> TrackTable:
     """Group global observation rows by point id into a padded table (host)."""
-    pid = np.concatenate([o.point_idx.cpu().numpy() for o in observations.pixels])
+    pid = np.concatenate([o.point_idx.cpu().numpy()
+                          for o in sh.gathered_pixels(observations)])
     rows, spid, rank = group_ranks(pid)             # global rows, ascending per point
     track_obs = np.full((num_points, max(1, int(rank.max(initial=-1)) + 1)), -1, np.int64)
     track_obs[spid, rank] = rows
@@ -70,7 +77,8 @@ def build_track_table(observations: prob.Observations, num_points: int) -> Track
 
 
 def _global_w2c(state: prob.RigState, observations: prob.Observations):
-    return torch.cat([prob.world_to_cam_rows(state, obs) for obs in observations.pixels])
+    return torch.cat([prob.world_to_cam_rows(state, obs)
+                      for obs in sh.gathered_pixels(observations)])
 
 
 def _global_undist_pix(state: prob.RigState, observations: prob.Observations,
@@ -78,7 +86,7 @@ def _global_undist_pix(state: prob.RigState, observations: prob.Observations,
     """Measured pixels DISTORTED -> UNDISTORTED_C under the current
     intrinsics (multiViewTriangulation's per-ray prep)."""
     parts = []
-    for obs in observations.pixels:
+    for obs in sh.gathered_pixels(observations):
         s = obs.sensor
         focal2 = torch.stack([state.focal[s], state.focal[s]])
         parts.append(dist_mod.undistort_centered(
@@ -88,12 +96,12 @@ def _global_undist_pix(state: prob.RigState, observations: prob.Observations,
 
 
 def _global_mask(observations: prob.Observations) -> torch.Tensor:
-    return torch.cat([obs.mask for obs in observations.pixels])
+    return torch.cat([obs.mask for obs in sh.gathered_pixels(observations)])
 
 
 def _global_focal(state: prob.RigState, observations: prob.Observations):
     return torch.cat([state.focal[obs.sensor].expand(len(obs))
-                      for obs in observations.pixels])
+                      for obs in sh.gathered_pixels(observations)])
 
 
 def _scatter_mask_updates(observations: prob.Observations,
@@ -106,14 +114,16 @@ def _scatter_mask_updates(observations: prob.Observations,
     :1620-1621). Here each DepthObs row's mask is ANDed with the surviving
     pixel mask at its ``pix_row``; rows without that bookkeeping die when
     their whole track has no surviving pixel inlier, and a row whose point
-    id is negative or beyond every indexed point reads dead."""
+    id is negative or beyond every indexed point reads dead. Sharded pixel
+    families keep their shards."""
     new_global_mask = np.asarray(new_global_mask, bool)
+    pixels = sh.gathered_pixels(observations)
     out = []
     off = 0
-    for obs in observations.pixels:
+    for obs, whole in zip(observations.pixels, pixels):
         n = len(obs)
-        upd = torch.as_tensor(new_global_mask[off:off + n], device=obs.mask.device)
-        out.append(dataclasses.replace(obs, mask=obs.mask & upd))
+        upd = torch.as_tensor(new_global_mask[off:off + n], device=whole.mask.device)
+        out.append(sh.with_mask(obs, whole.mask & upd))
         off += n
 
     new_depths = []
@@ -126,10 +136,10 @@ def _scatter_mask_updates(observations: prob.Observations,
                 # sized over BOTH pixel and depth point ids
                 npts = max(1, 1 + max(
                     int(o.point_idx.max()) if len(o) else -1
-                    for o in observations.pixels + observations.depths))
+                    for o in pixels + observations.depths))
                 alive_pid = np.zeros(npts, bool)
                 o2 = 0
-                for o in observations.pixels:
+                for o in pixels:
                     pidx = o.point_idx.cpu().numpy()
                     alive_pid[pidx[new_global_mask[o2:o2 + len(o)]]] = True
                     o2 += len(o)
@@ -171,7 +181,8 @@ def flag_outliers(state: prob.RigState, observations: prob.Observations,
     feature), in that order (flagOutliersByTriAngleAndReprojErr,
     rig_calibrator.cc:1045-1154)."""
     dev = state.device
-    n_obs = sum(len(o) for o in observations.pixels)
+    pixels = sh.gathered_pixels(observations)
+    n_obs = sum(len(o) for o in pixels)
     track_of_obs = np.full(n_obs, -1, np.int64)
     flat_idx = table.track_obs.ravel()
     flat_pid = np.repeat(np.arange(table.num_points), table.max_views)
@@ -190,7 +201,7 @@ def flag_outliers(state: prob.RigState, observations: prob.Observations,
     mask_after_angle = mask & ~angle_kill
     errs = torch.cat([torch.linalg.norm(
         prob.pixel_residuals(state, obs, models[obs.sensor], opts, robust=False), dim=-1)
-        for obs in observations.pixels])
+        for obs in pixels])
     new_mask = mask_after_angle & (errs <= max_reprojection_error)
     counts = torch.stack([mask.sum(), mask_after_angle.sum(), new_mask.sum()]).cpu().numpy()
     n_before, n_after_angle, n_after = (int(c) for c in counts)
@@ -225,7 +236,7 @@ def residual_stats(state: prob.RigState, observations: prob.Observations,
     def add(name, vals, mask):
         merged.setdefault(name, []).append((torch.abs(vals).reshape(-1), mask.reshape(-1)))
 
-    for obs in observations.pixels:
+    for obs in sh.gathered_pixels(observations):
         r = prob.pixel_residuals(state, obs, models[obs.sensor], opts, robust=False)
         add(f"{sensor_names[obs.sensor]}_pix_x", r[:, 0], obs.mask)
         add(f"{sensor_names[obs.sensor]}_pix_y", r[:, 1], obs.mask)
@@ -280,7 +291,7 @@ class SchurSolverCache:
     models, options, iteration budgets, free mask and bounds), so repeated
     ``optimize_rig`` calls on one structure reuse one built solver;
     observations stay runtime arguments, so a cached solver sees every mask
-    update."""
+    update; sharded observations pass through as they are."""
 
     def __init__(self):
         self._solvers: Dict[tuple, object] = {}
@@ -417,7 +428,7 @@ def optimize_rig(
     entry_sensors = None
     if opts.no_rig and float_spec.cam_pose_sensors is not None:
         entry_sensors = np.zeros(state.world_to_ref.shape[0], np.int64)
-        for ob in observations.pixels:
+        for ob in sh.gathered_pixels(observations):
             entry_sensors[ob.beg_idx.cpu().numpy()] = ob.sensor
     mask_vec = prob.build_mask(state, float_spec, no_rig=opts.no_rig,
                                entry_sensors=entry_sensors, models=models)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from multiview_tpu_torch.calib import problem as prob
+from multiview_tpu_torch.parallel import sharding as sh
 
 
 def save_checkpoint(ckpt_dir, state: prob.RigState, observations: prob.Observations,
@@ -31,7 +32,7 @@ def save_checkpoint(ckpt_dir, state: prob.RigState, observations: prob.Observati
     dist = arrays.pop("dist")
     arrays.update({f"dist_{i}": d for i, d in enumerate(dist)})
     np.savez(ckpt_dir / f"state_{pass_index}.npz", **arrays)
-    masks = {f"pix_{o.sensor}": o.mask.cpu().numpy() for o in observations.pixels}
+    masks = {f"pix_{o.sensor}": o.mask.cpu().numpy() for o in sh.gathered_pixels(observations)}
     masks.update({f"depth_{o.sensor}": o.mask.cpu().numpy() for o in observations.depths})
     np.savez(ckpt_dir / f"masks_{pass_index}.npz", **masks)
     (ckpt_dir / "latest.json").write_text(json.dumps({"pass": pass_index}))
@@ -48,7 +49,7 @@ def load_checkpoint(ckpt_dir, template_state: prob.RigState,
                     observations: prob.Observations, pass_index: Optional[int] = None
                     ) -> Tuple[prob.RigState, prob.Observations, int]:
     """Restore (state, observations-with-masks, pass_index) onto the
-    template's device and dtype."""
+    template's device and dtype; sharded pixel families keep their shards."""
     ckpt_dir = Path(ckpt_dir).resolve()
     if pass_index is None:
         pass_index = latest_pass(ckpt_dir)
@@ -64,9 +65,8 @@ def load_checkpoint(ckpt_dir, template_state: prob.RigState,
 
     with np.load(ckpt_dir / f"masks_{pass_index}.npz") as m:
         def masked(kind, obs_list):
-            return tuple(dataclasses.replace(
-                o, mask=torch.as_tensor(m[f"{kind}_{o.sensor}"], device=o.mask.device))
-                for o in obs_list)
+            return tuple(sh.with_mask(o, torch.as_tensor(m[f"{kind}_{o.sensor}"]))
+                         for o in obs_list)
         obs = dataclasses.replace(observations, pixels=masked("pix", observations.pixels),
                                   depths=masked("depth", observations.depths))
     return state, obs, pass_index

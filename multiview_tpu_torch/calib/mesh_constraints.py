@@ -17,6 +17,7 @@ import torch
 from multiview_tpu_torch.calib import calibrator as cal
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.geometry import pose as pose_mod
+from multiview_tpu_torch.parallel import sharding as sh
 from multiview_tpu_torch.texture import raycast
 
 
@@ -50,7 +51,7 @@ def mesh_intersections(state: prob.RigState, observations: prob.Observations,
     obs_xyz = torch.where(hit[:, None], pts, nan)
 
     # per-track mean over hits: no hit -> 0/0 = NaN
-    pid = torch.cat([o.point_idx for o in observations.pixels])
+    pid = torch.cat([o.point_idx for o in sh.gathered_pixels(observations)])
     hitf = hit.to(pts.dtype)
     sums = torch.zeros_like(state.points).index_add_(0, pid, pts * hitf[:, None])
     counts = torch.zeros_like(state.points[:, 0]).index_add_(0, pid, hitf)

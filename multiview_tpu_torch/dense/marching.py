@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from multiview_tpu_torch.dense.tsdf import TsdfGrid
+from multiview_tpu_torch.dense.tsdf import ShardedTsdfGrid
 
 # cube corner offsets (x,y,z)
 _CORNERS = np.array([
@@ -55,11 +55,14 @@ _T[6] = [[0, 5, 4], [0, 1, 5]]
 _TRI_TABLE = _T
 
 
-def extract_mesh(grid: TsdfGrid, min_weight: float = 1e-6
+def extract_mesh(grid, min_weight: float = 1e-6
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """TSDF -> triangle mesh: (vertices [M,3] world coordinates, faces [F,3]
     int32, vertex intensity [M]) as numpy. Cells touching an unobserved voxel
-    (weight < min_weight) are skipped."""
+    (weight < min_weight) are skipped. A ``ShardedTsdfGrid`` is gathered
+    first (its zero-weight padding emits nothing)."""
+    if isinstance(grid, ShardedTsdfGrid):
+        grid = grid.gather()
     tsdf = grid.tsdf
     dev, dtype = tsdf.device, tsdf.dtype
     X, Y, Z = tsdf.shape

@@ -7,6 +7,11 @@ rasterized into a virtual depth image by a scatter-min z-buffer
 (``scatter_reduce_`` with "amin"), whose holes are filled from their 3x3
 neighbours (``torch.roll``, which wraps across the image border as the
 reference's ``jnp.roll`` does).
+
+A grid split into blocks over a shard mesh (``ShardedTsdfGrid``, made by
+``parallel/sharding.py::shard_tsdf_grid``) integrates block by block, each
+on its own device from the replicated depth image, with no communication:
+every voxel's update reads only the image and the voxel.
 """
 
 from __future__ import annotations
@@ -52,6 +57,54 @@ class TsdfGrid:
                         float(voxel_size), float(truncation))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedTsdfGrid:
+    """A TsdfGrid split into blocks over a shard mesh: X slabs on a 1-D mesh,
+    X x Y blocks on a 2-D one. ``blocks`` are this process's blocks, each a
+    TsdfGrid on its shard's device that keeps the whole grid's origin;
+    ``starts`` holds the (x, y) index of the first voxel of every block of
+    the mesh, in shard order, and ``first`` the shard index of this
+    process's first block. ``shape`` is the padded grid's, ``extent`` the
+    (X, Y) of the grid before padding: voxels beyond it keep zero weight
+    through every integration, so they never reach a mesh."""
+
+    blocks: Tuple[TsdfGrid, ...]
+    starts: Tuple[Tuple[int, int], ...]
+    first: int
+    shape: Tuple[int, int, int]
+    extent: Tuple[int, int]
+    mesh: object
+
+    @property
+    def local_starts(self):
+        return self.starts[self.first:self.first + len(self.blocks)]
+
+    @property
+    def voxel_size(self) -> float:
+        return self.blocks[0].voxel_size
+
+    @property
+    def truncation(self) -> float:
+        return self.blocks[0].truncation
+
+    @property
+    def origin(self) -> torch.Tensor:
+        return self.blocks[0].origin
+
+    def gather(self) -> TsdfGrid:
+        """The whole grid on the mesh's lead device, without the padding."""
+        lead = self.mesh.lead
+        bx, by = self.blocks[0].shape[:2]
+        whole = {}
+        for name in ("tsdf", "weight", "intensity"):
+            parts = self.mesh.gather_blocks([getattr(b, name) for b in self.blocks])
+            out = torch.zeros(self.shape, dtype=parts[0].dtype, device=lead)
+            for (x0, y0), part in zip(self.starts, parts):
+                out[x0:x0 + bx, y0:y0 + by] = part
+            whole[name] = out[:self.extent[0], :self.extent[1]]
+        return dataclasses.replace(self.blocks[0], origin=self.origin.to(lead), **whole)
+
+
 def make_grid(shape: Tuple[int, int, int], origin, voxel_size: float,
               truncation: Optional[float] = None, dtype=torch.float32,
               device=None) -> TsdfGrid:
@@ -65,10 +118,14 @@ def make_grid(shape: Tuple[int, int, int], origin, voxel_size: float,
                     voxel_size=float(voxel_size), truncation=float(truncation))
 
 
-def _axis_centres(grid: TsdfGrid, axis: int):
+def _axis_centres(grid: TsdfGrid, axis: int, start: int = 0):
+    """Voxel centres along ``axis`` of a grid (or of a block whose first
+    voxel has index ``start`` in the whole grid: the same arithmetic, so a
+    block's centres are the whole grid's bits)."""
     n = grid.shape[axis]
     dt, dev = grid.tsdf.dtype, grid.tsdf.device
-    return grid.origin[axis] + (torch.arange(n, dtype=dt, device=dev) + 0.5) * grid.voxel_size
+    idx = torch.arange(start, start + n, dtype=dt, device=dev)
+    return grid.origin[axis] + (idx + 0.5) * grid.voxel_size
 
 
 def voxel_centers(grid: TsdfGrid) -> torch.Tensor:
@@ -79,16 +136,35 @@ def voxel_centers(grid: TsdfGrid) -> torch.Tensor:
     return grid.origin + (idx + 0.5) * grid.voxel_size
 
 
-def integrate_depth_image(grid: TsdfGrid, depth: torch.Tensor, focal, center,
+def integrate_depth_image(grid, depth: torch.Tensor, focal, center,
                           cam_to_world_pose, max_range: float = 10.0,
                           max_weight: float = 100.0,
-                          intensity_img: Optional[torch.Tensor] = None) -> TsdfGrid:
+                          intensity_img: Optional[torch.Tensor] = None):
     """Projective TSDF update from one depth image.
 
     depth: [H,W] metric depth along +z (0 or inf = invalid); focal [2],
     center [2] pinhole intrinsics; cam_to_world_pose [7]. Voxels behind the
     surface beyond the truncation band are untouched; in front, the signed
-    distance clamps to +truncation (free-space carving)."""
+    distance clamps to +truncation (free-space carving). A
+    ``ShardedTsdfGrid`` is updated block by block on the blocks' devices and
+    stays sharded."""
+    if isinstance(grid, ShardedTsdfGrid):
+        blocks = []
+        for block, (x0, y0) in zip(grid.blocks, grid.local_starts):
+            dev = block.tsdf.device
+            blocks.append(_integrate(
+                block, depth.to(dev), focal, center, cam_to_world_pose, max_range, max_weight,
+                None if intensity_img is None else intensity_img.to(dev), (x0, y0), grid.extent))
+        return dataclasses.replace(grid, blocks=tuple(blocks))
+    return _integrate(grid, depth, focal, center, cam_to_world_pose, max_range, max_weight,
+                      intensity_img, (0, 0))
+
+
+def _integrate(grid: TsdfGrid, depth, focal, center, cam_to_world_pose, max_range,
+               max_weight, intensity_img, start: Tuple[int, int],
+               extent: Optional[Tuple[int, int]] = None) -> TsdfGrid:
+    """The update of a grid, or of a block whose first voxel is ``start`` in
+    a grid of which only the first ``extent`` (X, Y) voxels are real."""
     H, W = depth.shape
     dtype, dev = grid.tsdf.dtype, grid.tsdf.device
 
@@ -99,8 +175,8 @@ def integrate_depth_image(grid: TsdfGrid, depth: torch.Tensor, focal, center,
     w2c = pose_mod.pose_inverse(vec(cam_to_world_pose))
     R = pose_mod.quat_to_matrix(pose_mod.pose_q(w2c))
     t = pose_mod.pose_t(w2c)
-    xw = _axis_centres(grid, 0)[:, None, None]
-    yw = _axis_centres(grid, 1)[None, :, None]
+    xw = _axis_centres(grid, 0, start[0])[:, None, None]
+    yw = _axis_centres(grid, 1, start[1])[None, :, None]
     zw = _axis_centres(grid, 2)[None, None, :]
 
     def cam_coord(i):
@@ -121,6 +197,12 @@ def integrate_depth_image(grid: TsdfGrid, depth: torch.Tensor, focal, center,
     sdf = d_meas - z
     trunc = grid.truncation
     update = in_img & valid_meas & (sdf > -trunc)
+    if extent is not None:
+        nx, ny = grid.shape[:2]
+        update = update & (torch.arange(start[0], start[0] + nx, device=dev) < extent[0]
+                           )[:, None, None]
+        update = update & (torch.arange(start[1], start[1] + ny, device=dev) < extent[1]
+                           )[None, :, None]
     sdf = torch.clamp(sdf, -trunc, trunc) / trunc
 
     w_new = update.to(dtype)
@@ -188,17 +270,19 @@ def rasterize_cloud_to_depth(points_cam: torch.Tensor, focal, center,
     return depth, inten_img
 
 
-def integrate_point_cloud(grid: TsdfGrid, points_cam: torch.Tensor, cam_to_world_pose,
+def integrate_point_cloud(grid, points_cam: torch.Tensor, cam_to_world_pose,
                           focal=(300.0, 300.0), center=None,
                           image_size: Tuple[int, int] = (640, 480),
                           intensities: Optional[torch.Tensor] = None,
-                          max_range: float = 10.0) -> TsdfGrid:
+                          max_range: float = 10.0):
     """Integrate an unstructured camera-frame cloud (the voxblox_index.txt
     path): rasterize it into a virtual pinhole depth image, then run the
-    projective update."""
+    projective update (block by block for a ``ShardedTsdfGrid``, whose lead
+    block's device rasterizes)."""
     if center is None:
         center = (image_size[0] / 2.0, image_size[1] / 2.0)
-    points_cam = points_cam.to(device=grid.tsdf.device, dtype=grid.tsdf.dtype)
+    ref = grid.blocks[0] if isinstance(grid, ShardedTsdfGrid) else grid
+    points_cam = points_cam.to(device=ref.tsdf.device, dtype=ref.tsdf.dtype)
     depth, inten = rasterize_cloud_to_depth(points_cam, focal, center, image_size,
                                             intensities)
     return integrate_depth_image(grid, depth, focal, center, cam_to_world_pose,

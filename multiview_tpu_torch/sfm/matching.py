@@ -8,15 +8,17 @@ memory. Here that kernel has two hand-written CUDA counterparts for Hopper:
 
 - ``csrc/knn2_wgmma.cu`` (``knn2_cuda_wgmma``): the products on the tensor
   cores as split TF32 (3xTF32, FP32 accuracy), tiles loaded asynchronously;
-  descriptor widths 64 and 128.
+  descriptor widths 64 and 128, and every narrower width zero-padded to the
+  next of them (zeros change no product and no norm).
 - ``csrc/knn2.cu`` (``knn2_cuda_fma``): FP32 FMA on the CUDA cores; every
-  width, and the FP32 oracle on the card.
+  width, the FP32 oracle on the card, and the kernel for D > 128, which no
+  path of the port reaches.
 
 Dispatch (``knn2``) is a rule on where the tensor lies and on its shape,
 never on a timing or on a failure: a tensor on the CPU goes to the plain
 PyTorch version (``knn2_plain``, same formula); a CUDA tensor goes to
-``knn2_cuda``, which launches the tensor-core kernel when D is 64 or 128
-and the FMA kernel for any other D, or raises. ``knn2_split_plain`` is the
+``knn2_cuda``, which launches the tensor-core kernel when D <= 128 (padded
+to 64 or 128) and the FMA kernel for any wider D, or raises. ``knn2_split_plain`` is the
 plain version of the tensor-core kernel's arithmetic. Every function takes
 one pair ([N,D] x [M,D]) or a batch of pairs ([P,N,D] x [P,M,D]).
 """
@@ -99,9 +101,14 @@ def knn2_split_plain(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
 
 def kernel_for(dim: int) -> str:
     """The CUDA kernel ``knn2_cuda`` launches for descriptors of width
-    ``dim``: the tensor-core kernel for the widths it is built for, the FMA
-    kernel for any other."""
-    return "knn2_wgmma" if dim in WGMMA_DIMS else "knn2_fma"
+    ``dim``: the tensor-core kernel up to 128 (widths other than 64 and 128
+    zero-padded to the next of them, ``wgmma_width``), the FMA kernel above."""
+    return "knn2_wgmma" if dim <= WGMMA_DIMS[-1] else "knn2_fma"
+
+
+def wgmma_width(dim: int) -> int:
+    """The width the tensor-core kernel runs descriptors of width ``dim`` at."""
+    return next(w for w in WGMMA_DIMS if dim <= w)
 
 
 def split_factor(blocks: int, tiles: int, sms: int) -> int:
@@ -249,13 +256,19 @@ def knn2_cuda_wgmma(query: torch.Tensor, train: torch.Tensor,
 
 def knn2_cuda(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
     """Exact 2-NN on the card. The kernel follows from the shape alone:
-    float32 contiguous CUDA tensors with D in (64, 128) go to the tensor-core
-    kernel, any other D to the FMA kernel (``kernel_for``). Anything else
-    raises, as does a build or a launch that fails: nothing here gives way
-    to another path."""
-    if kernel_for(query.shape[-1]) == "knn2_wgmma":
-        return knn2_cuda_wgmma(query, train)
-    return knn2_cuda_fma(query, train)
+    float32 contiguous CUDA tensors with D <= 128 go to the tensor-core
+    kernel, zero-padded to D = 64 or 128 where they are narrower, any wider
+    D to the FMA kernel (``kernel_for``). Anything else raises, as does a
+    build or a launch that fails: nothing here gives way to another path."""
+    _check_pairs("knn2_cuda", query, train)
+    d = query.shape[-1]
+    if kernel_for(d) == "knn2_fma":
+        return knn2_cuda_fma(query, train)
+    width = wgmma_width(d)
+    if width != d:
+        query = torch.nn.functional.pad(query, (0, width - d))
+        train = torch.nn.functional.pad(train, (0, width - d))
+    return knn2_cuda_wgmma(query, train)
 
 
 def knn2(query: torch.Tensor, train: torch.Tensor) -> MatchResult:

@@ -17,7 +17,13 @@ Pairs come from the temporal ``num_overlaps`` scheme or, with
 image are written to disk as they are detected and read back through an LRU
 cache (``FeatureStore``).
 
-Not ported yet: the sharded (mesh) path.
+With a shard mesh (``parallel/sharding.py::ShardMesh``), detection chunks
+and match-pair chunks go to the mesh's devices in turn, one round of chunks
+queued on every device before any result is read back; each device runs the
+code of the unsharded path on the same chunks, and the results come back in
+image and pair order, bit for bit the unsharded ones (RANSAC is seeded per
+pair). Each chunk's matcher launch goes through ``knn2``, so on the card
+every shard chunk launches the matcher kernel once.
 """
 
 from __future__ import annotations
@@ -139,19 +145,29 @@ class FeatureStore:
         return FeatureStore._View(self, 1)
 
 
+def _mesh_devices(mesh, device) -> Tuple[torch.device, list]:
+    """(device of the results, devices that take the chunks in turn)."""
+    if mesh is None:
+        device = resolve_device(device)
+        return device, [device]
+    return mesh.lead, list(mesh.devices)
+
+
 def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8,
-               device=None, store: Optional[FeatureStore] = None):
+               device=None, store: Optional[FeatureStore] = None, mesh=None):
     """Detect + describe every image on ``device`` (the first CUDA card when
     None; pass ``"cpu"`` for the CPU). Returns (keypoints list, descriptor
     list) of device tensors; with ``store``, each image's features go to the
-    store as they come and the store's views are returned.
+    store as they come and the store's views are returned. With ``mesh`` the
+    chunks go to the mesh's devices in turn and the features come back to
+    its lead device.
 
     Same-shape images are detected as one batch per ``chunk``; an image of
     a batch that comes back under the adaptive floor (``max_features//10``
     survivors) is re-run alone with a 256x lower starting threshold, as the
     reference's batched path does. A lone image of its shape is detected
     alone with no such retry (the reference's per-image path)."""
-    device = resolve_device(device)
+    device, devices = _mesh_devices(mesh, device)
     n = len(images)
     kps: list = [None] * n
     descs: list = [None] * n
@@ -159,6 +175,8 @@ def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8
     groups: Dict[Tuple[int, ...], list] = {}
     for i, img in enumerate(images):
         groups.setdefault(np.asarray(img).shape, []).append(i)
+    jobs = [(len(ids) > 1, ids[c0:c0 + chunk]) for ids in groups.values()
+            for c0 in range(0, len(ids), chunk)]
 
     def run(stack, threshold):
         return feat_mod.detect_and_describe(
@@ -166,20 +184,25 @@ def detect_all(images: Sequence[np.ndarray], cfg: FrontendConfig, chunk: int = 8
             threshold, cfg.edge_threshold, cfg.feature_detector,
             min_features=min_features)
 
-    for ids in groups.values():
-        for c0 in range(0, len(ids), chunk):
-            sel = ids[c0:c0 + chunk]
+    for r0 in range(0, len(jobs), len(devices)):
+        # one round: a chunk queued on every device, then the results read
+        queued = []
+        for (retry, sel), dev in zip(jobs[r0:r0 + len(devices)], devices):
             stack = torch.as_tensor(
-                np.stack([np.asarray(images[i], np.float32) for i in sel]), device=device)
-            outs = run(stack, cfg.detect_threshold)
+                np.stack([np.asarray(images[i], np.float32) for i in sel]), device=dev)
+            queued.append((retry, sel, stack, run(stack, cfg.detect_threshold)))
+        for retry, sel, stack, outs in queued:
             counts = torch.stack([kp.valid.sum() for kp, _ in outs]).cpu().numpy()
             for row, i in enumerate(sel):
-                if len(ids) > 1 and counts[row] < min_features:
+                if retry and counts[row] < min_features:
                     outs[row] = run(stack[row:row + 1], cfg.detect_threshold * 0.25 ** 4)[0]
+                kp, desc = outs[row]
+                if kp.xy.device != device:
+                    kp, desc = feat_mod.Keypoints(*(t.to(device) for t in kp)), desc.to(device)
                 if store is not None:
-                    store.put(i, *outs[row])
+                    store.put(i, kp, desc)
                 else:
-                    kps[i], descs[i] = outs[row]
+                    kps[i], descs[i] = kp, desc
     if store is not None:
         return store.kps, store.descs
     return kps, descs
@@ -201,40 +224,57 @@ def match_pair(kp_i, d_i, kp_j, d_j, cfg: FrontendConfig, seed: int = 0):
     return p1[inl].cpu().numpy(), p2[inl].cpu().numpy()
 
 
+def _match_chunk(kps, descs, sel, cfg: FrontendConfig, num_hypotheses: int, dev):
+    """Matcher + ratio test + RANSAC of one chunk of pairs on ``dev`` (None:
+    where the features are). Returns device tensors (inliers [P,K], match
+    targets [P,K])."""
+    def stack(ts):
+        t = torch.stack(ts)
+        return t if dev is None else t.to(dev)
+
+    di = stack([descs[i] for i, _ in sel])
+    dj = stack([descs[j] for _, j in sel])
+    xyi = stack([kps[i].xy for i, _ in sel])
+    xyj = stack([kps[j].xy for _, j in sel])
+    vi = stack([kps[i].valid for i, _ in sel])
+    vj = stack([kps[j].valid for _, j in sel])
+    pairs, keep = match_mod.match_descriptors(di, dj, ratio=cfg.ratio)
+    tgt = torch.clamp_min(pairs[..., 1].long(), 0)
+    keep = keep & vi & torch.gather(vj, 1, tgt)
+    dst = torch.gather(xyj, 1, tgt[..., None].expand(-1, -1, 2))
+    samples = torch.stack([
+        ransac_mod.sample_hypotheses(keep[r], num_hypotheses, i * 1000 + j)
+        for r, (i, j) in enumerate(sel)])
+    res = ransac_mod.ransac_affine2d(xyi, dst, valid=keep,
+                                     threshold=cfg.ransac_threshold, samples=samples)
+    return res.inliers, tgt
+
+
 def match_pairs_batched(kps, descs, pair_ids, cfg: FrontendConfig, chunk: int = 8,
-                        num_hypotheses: int = 512):
+                        num_hypotheses: int = 512, mesh=None):
     """Descriptor match + ratio test + affine RANSAC for many pairs, ``chunk``
     pairs at a time: one matcher launch over the stacked [P,K,D] descriptors
     and one batched RANSAC over the padded [P,K] match sets (validity masks
     end to end, one device->host copy per chunk). Hypotheses of pair (i, j)
-    are seeded with i*1000+j. Returns {(i, j): (xy_i [M,2], xy_j [M,2])}."""
+    are seeded with i*1000+j. With ``mesh`` the chunks go to the mesh's
+    devices in turn, a round queued on every device before any is read.
+    Returns {(i, j): (xy_i [M,2], xy_j [M,2])} in pair order."""
+    devices = [None] if mesh is None else list(mesh.devices)
+    chunks = [pair_ids[c0:c0 + chunk] for c0 in range(0, len(pair_ids), chunk)]
     out = {}
     xy_host: Dict[int, np.ndarray] = {}
-    for c0 in range(0, len(pair_ids), chunk):
-        sel = pair_ids[c0:c0 + chunk]
-        di = torch.stack([descs[i] for i, _ in sel])
-        dj = torch.stack([descs[j] for _, j in sel])
-        xyi = torch.stack([kps[i].xy for i, _ in sel])
-        xyj = torch.stack([kps[j].xy for _, j in sel])
-        vi = torch.stack([kps[i].valid for i, _ in sel])
-        vj = torch.stack([kps[j].valid for _, j in sel])
-        pairs, keep = match_mod.match_descriptors(di, dj, ratio=cfg.ratio)
-        tgt = torch.clamp_min(pairs[..., 1].long(), 0)
-        keep = keep & vi & torch.gather(vj, 1, tgt)
-        dst = torch.gather(xyj, 1, tgt[..., None].expand(-1, -1, 2))
-        samples = torch.stack([
-            ransac_mod.sample_hypotheses(keep[r], num_hypotheses, i * 1000 + j)
-            for r, (i, j) in enumerate(sel)])
-        res = ransac_mod.ransac_affine2d(xyi, dst, valid=keep,
-                                         threshold=cfg.ransac_threshold, samples=samples)
-        inl = res.inliers.cpu().numpy()
-        tgt_np = tgt.cpu().numpy()
-        for i in {im for p in sel for im in p}:
-            if i not in xy_host:
-                xy_host[i] = kps[i].xy.cpu().numpy()
-        for row, (i, j) in enumerate(sel):
-            m = inl[row]
-            out[(i, j)] = (xy_host[i][m], xy_host[j][tgt_np[row][m]])
+    for r0 in range(0, len(chunks), len(devices)):
+        queued = [(sel, _match_chunk(kps, descs, sel, cfg, num_hypotheses, dev))
+                  for sel, dev in zip(chunks[r0:r0 + len(devices)], devices)]
+        for sel, (inl, tgt) in queued:
+            inl = inl.cpu().numpy()
+            tgt_np = tgt.cpu().numpy()
+            for i in {im for p in sel for im in p}:
+                if i not in xy_host:
+                    xy_host[i] = kps[i].xy.cpu().numpy()
+            for row, (i, j) in enumerate(sel):
+                m = inl[row]
+                out[(i, j)] = (xy_host[i][m], xy_host[j][tgt_np[row][m]])
     return out
 
 
@@ -271,11 +311,14 @@ def detect_match_features(images: Sequence[np.ndarray],
                           cam_params: Optional[Sequence[cam_mod.CameraParams]] = None,
                           world_to_cam: Optional[np.ndarray] = None,
                           cams_of_image: Optional[Sequence[int]] = None,
-                          device=None) -> tracks_mod.TrackSet:
+                          device=None, mesh=None) -> tracks_mod.TrackSet:
     """Full front end: images -> TrackSet, on ``device`` (the first CUDA card
     when None; pass ``"cpu"`` for the CPU). With cam_params/world_to_cam
-    given, applies the camera-guided reprojection filter per pair."""
-    device = resolve_device(device)
+    given, applies the camera-guided reprojection filter per pair. With
+    ``mesh`` the detection and match chunks shard over its devices (the
+    batched matcher then runs on the CPU too, as the reference's sharded
+    path does)."""
+    device, _ = _mesh_devices(mesh, device)
     store = None
     if cfg.match_out_of_core:
         workdir = cfg.matching_working_directory
@@ -285,7 +328,7 @@ def detect_match_features(images: Sequence[np.ndarray],
             print(f"match_out_of_core: no matching_working_directory set, "
                   f"spilling features to {workdir}")
         store = FeatureStore(workdir, cfg.matching_max_num_images_in_cache, device)
-    kps, descs = detect_all(images, cfg, device=device, store=store)
+    kps, descs = detect_all(images, cfg, device=device, store=store, mesh=mesh)
     n = len(images)
     if cfg.retrieval_neighbors > 0:
         from multiview_tpu_torch.sfm import retrieval
@@ -295,11 +338,11 @@ def detect_match_features(images: Sequence[np.ndarray],
     else:
         pair_ids = [(i, j) for i in range(n)
                     for j in range(i + 1, min(i + 1 + cfg.num_overlaps, n))]
-    if device.type == "cpu":
+    if device.type == "cpu" and mesh is None:
         raw = {(i, j): match_pair(kps[i], descs[i], kps[j], descs[j], cfg,
                                   seed=i * 1000 + j) for i, j in pair_ids}
     else:
-        raw = match_pairs_batched(kps, descs, pair_ids, cfg)
+        raw = match_pairs_batched(kps, descs, pair_ids, cfg, mesh=mesh)
     pair_matches: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = {}
     for (i, j), (xi, xj) in raw.items():
         if cfg.cam_filter_reproj_px is not None and cam_params is not None:

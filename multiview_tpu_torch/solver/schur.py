@@ -24,6 +24,17 @@ once per iteration for its stop test. Every residual family of the problem
 is supported: pixel reprojection, depth against the triangulated point,
 depth against the mesh (camera side only: it touches no point) and xyz
 priors (point side only).
+
+Observations sharded over a ``parallel.sharding.ShardMesh`` (pixel
+families in row shards, the rest whole) solve with the same loop: row-space
+work (block Jacobians, ``J x``, the CG's ``u``) stays on each shard, camera-
+and point-space vectors are replicated on the lead device, and the sums of
+row partials (``J^T u`` per pose and per point, Hpp, the Jacobi diagonal,
+the SCHUR_JACOBI blocks after the summed Hpp, the row-space dots of the
+costs and of the model reduction) go through ``ShardMesh.sum``. Dots of
+replicated vectors are taken once; the whole families count on the lead
+shard of rank 0 only; so every LM and CG decision is the same on every
+shard and rank.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.geometry import pose as pose_mod
+from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
 
 
 class CamLayout(NamedTuple):
@@ -260,14 +272,14 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         preconditioner = "jacobi" if cg_tolerance >= 0.01 else "schur_jacobi"
     use_block_precond = preconditioner == "schur_jacobi"
 
-    def const_cols(s: int) -> torch.Tensor:
+    def const_cols(s: int, dev) -> torch.Tensor:
         d = int(template.dist[s].numel())
         cols = np.concatenate([
             layout.ref_to_cam + s * 7 + np.arange(7),
             [layout.offsets + s], [layout.focal + s],
             layout.ctr + s * 2 + np.arange(2),
             layout.dist[s] + np.arange(d)]).astype(np.int64)
-        return torch.as_tensor(cols, device=device)
+        return torch.as_tensor(cols, device=dev)
 
     def depth_const_cols(s: int) -> torch.Tensor:
         nd = int(template.depth_to_image.shape[1])
@@ -278,16 +290,38 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             [layout.dscale + s]]).astype(np.int64)
         return torch.as_tensor(cols, device=device)
 
-    def families(obs: prob.Observations) -> List[_Family]:
-        fams = [_Family("pix", o, o.point_idx, o.beg_idx, o.end_idx, const_cols(o.sensor))
-                for o in obs.pixels]
-        fams += [_Family("depth_mesh" if mesh else "depth_tri", o,
-                         None if mesh else o.point_idx, o.beg_idx, o.end_idx,
-                         depth_const_cols(o.sensor))
-                 for o, mesh in prob.depth_families(obs, opts)]
-        fams += [_Family("prior", p, p.point_idx, weight=w, th=th)
-                 for p, w, th in prob.static_priors(obs, opts)]
-        return fams
+    def pixel_family(o: prob.PixelObs, dev) -> _Family:
+        return _Family("pix", o, o.point_idx, o.beg_idx, o.end_idx, const_cols(o.sensor, dev))
+
+    def shard_families(obs: prob.Observations) -> Tuple[ShardMesh, List[List[_Family]]]:
+        """The mesh of the observations (one shard on the template's device
+        when no family is sharded) and the families of each local shard.
+        Sharded pixel families put one family on every shard; the whole
+        families (unsharded pixels, depth rows, priors) go to the lead shard
+        of rank 0 only, so the sums over shards and ranks count them once."""
+        meshes = {id(o.mesh): o.mesh for o in obs.pixels if isinstance(o, ShardedPixelObs)}
+        if len(meshes) > 1:
+            raise ValueError("the sharded pixel families lie on different meshes")
+        mesh = next(iter(meshes.values())) if meshes else ShardMesh((device,))
+        if mesh.lead != device:
+            raise ValueError(f"the observations are sharded from {mesh.lead}, the state "
+                             f"is on {device}: replicate the state onto the mesh")
+        shards: List[List[_Family]] = [[] for _ in mesh.devices]
+        whole = mesh.rank == 0
+        for o in obs.pixels:
+            if isinstance(o, ShardedPixelObs):
+                for fams, so, dev in zip(shards, o.shards, mesh.devices):
+                    fams.append(pixel_family(so, dev))
+            elif whole:
+                shards[0].append(pixel_family(o, device))
+        if whole:
+            shards[0] += [_Family("depth_mesh" if mesh_v else "depth_tri", o,
+                                  None if mesh_v else o.point_idx, o.beg_idx, o.end_idx,
+                                  depth_const_cols(o.sensor))
+                          for o, mesh_v in prob.depth_families(obs, opts)]
+            shards[0] += [_Family("prior", p, p.point_idx, weight=w, th=th)
+                          for p, w, th in prob.static_priors(obs, opts)]
+        return mesh, shards
 
     def unpack(cam_vec, points):
         st = prob.unpack_state(cam_vec, template, include_points=False)
@@ -306,29 +340,46 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         cam_free = (torch.as_tensor(np.asarray(cam_mask_rt, np.float64), dtype=dtype,
                                     device=device)
                     if cam_mask_rt is not None else cam_free_default)
-        fams = families(obs)
+        mesh, shards = shard_families(obs)
         with torch.no_grad():
-            return _solve(cam0, points0, fams, cam_free)
+            return _solve(cam0, points0, mesh, shards, cam_free)
 
-    def _solve(cam0, points0, fams: List[_Family], cam_free) -> SchurLMResult:
+    def _solve(cam0, points0, mesh: ShardMesh, shards: List[List[_Family]],
+               cam_free) -> SchurLMResult:
+        """The LM loop. Row-space quantities (Jacobian blocks, residuals,
+        ``u``) are lists with one entry per local shard, on its device;
+        camera- and point-space vectors are replicated on the lead device,
+        and every sum of row-space partials goes through ``mesh.sum``. Dots
+        of replicated vectors are taken once, never summed over shards."""
         free_pose = cam_free[:num_ref * 7].reshape(num_ref, 7)
+        devs = mesh.devices
+
+        def on(x, s):
+            """A replicated tensor on shard ``s``'s device (itself when there)."""
+            return None if x is None else x.to(devs[s])
+
+        def cat(parts, s):
+            return torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=devs[s])
 
         def blocks_at(cam_vec, points):
-            """Per-family (j_cam | None, j_pt | None) and the flat residual."""
-            st = unpack(cam_vec, points)
-            jc, jp, res = [], [], []
-            for f in fams:
-                if f.kind == "pix":
-                    a, b, r = pixel_row_blocks(st, f.obs, models[f.obs.sensor], opts)
-                elif f.kind != "prior":
-                    a, b, r = depth_row_blocks(st, f.obs, opts, f.kind == "depth_mesh")
-                else:
-                    a = None
-                    b, r = prior_row_blocks(st, f.obs, f.weight, f.th)
-                jc.append(a)
-                jp.append(b)
-                res.append(r.reshape(-1))
-            return jc, jp, torch.cat(res)
+            """Per shard: per-family (j_cam | None, j_pt | None) and the flat residual."""
+            out = []
+            for s, fams in enumerate(shards):
+                st = unpack(on(cam_vec, s), on(points, s))
+                jc, jp, res = [], [], []
+                for f in fams:
+                    if f.kind == "pix":
+                        a, b, r = pixel_row_blocks(st, f.obs, models[f.obs.sensor], opts)
+                    elif f.kind != "prior":
+                        a, b, r = depth_row_blocks(st, f.obs, opts, f.kind == "depth_mesh")
+                    else:
+                        a = None
+                        b, r = prior_row_blocks(st, f.obs, f.weight, f.th)
+                    jc.append(a)
+                    jp.append(b)
+                    res.append(r.reshape(-1))
+                out.append((jc, jp, cat(res, s)))
+            return [o[:2] for o in out], [o[2] for o in out]
 
         def split(u, jc, jp):
             """Flat residual-space vector -> per-family [n,k] blocks."""
@@ -346,11 +397,11 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             return torch.cat([wref[f.beg_idx], wref[f.end_idx],
                               xc[f.const_cols].expand(n, -1)], dim=-1)
 
-        def reduce_cols(contribs):
-            """[(family, [N,B])] -> [C]: index_add_ per pose for the pose
-            columns, plain sums for the per-sensor constant columns."""
-            gc = torch.zeros(layout.total, dtype=dtype, device=device)
-            gpose = torch.zeros((num_ref, 7), dtype=dtype, device=device)
+        def reduce_cols(contribs, dev):
+            """[(family, [N,B])] -> [C] on ``dev``: index_add_ per pose for the
+            pose columns, plain sums for the per-sensor constant columns."""
+            gc = torch.zeros(layout.total, dtype=dtype, device=dev)
+            gpose = torch.zeros((num_ref, 7), dtype=dtype, device=dev)
             for f, c in contribs:
                 gpose.index_add_(0, f.beg_idx, c[:, :7])
                 gpose.index_add_(0, f.end_idx, c[:, 7:14])
@@ -358,40 +409,58 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             gc[:num_ref * 7] += gpose.reshape(-1)
             return gc
 
-        def Jmv(jc, jp, xc, xp):
-            """J @ (xc, xp); None skips that side."""
-            parts = []
-            for f, a, b in zip(fams, jc, jp):
-                u = None
-                if a is not None and xc is not None:
-                    u = torch.einsum("nkb,nb->nk", a, gather_cols(f, xc))
-                if b is not None and xp is not None:
-                    up = torch.einsum("nkj,nj->nk", b, xp[f.point_idx])
-                    u = up if u is None else u + up
-                if u is None:
-                    u = torch.zeros((b if a is None else a).shape[:2], dtype=dtype,
-                                    device=device)
-                parts.append(u.reshape(-1))
-            return torch.cat(parts)
+        def Jmv(J, xc, xp):
+            """J @ (xc, xp) per shard; None skips that side."""
+            out = []
+            for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
+                xcs, xps = on(xc, s), on(xp, s)
+                parts = []
+                for f, a, b in zip(fams, jc, jp):
+                    u = None
+                    if a is not None and xcs is not None:
+                        u = torch.einsum("nkb,nb->nk", a, gather_cols(f, xcs))
+                    if b is not None and xps is not None:
+                        up = torch.einsum("nkj,nj->nk", b, xps[f.point_idx])
+                        u = up if u is None else u + up
+                    if u is None:
+                        u = torch.zeros((b if a is None else a).shape[:2], dtype=dtype,
+                                        device=devs[s])
+                    parts.append(u.reshape(-1))
+                out.append(cat(parts, s))
+            return out
 
-        def JTmv_c(jc, jp, u):
-            contribs = [(f, torch.einsum("nkb,nk->nb", a, ub))
-                        for f, a, ub in zip(fams, jc, split(u, jc, jp)) if a is not None]
-            return reduce_cols(contribs)
+        def JTmv_c(J, u):
+            partials = []
+            for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u)):
+                contribs = [(f, torch.einsum("nkb,nk->nb", a, ub))
+                            for f, a, ub in zip(fams, jc, split(us, jc, jp)) if a is not None]
+                partials.append(reduce_cols(contribs, devs[s]))
+            return mesh.sum(partials)
 
-        def JTmv_p(jc, jp, u):
-            gp = torch.zeros((num_points, 3), dtype=dtype, device=device)
-            for f, b, ub in zip(fams, jp, split(u, jc, jp)):
-                if b is not None:
-                    gp.index_add_(0, f.point_idx, torch.einsum("nkj,nk->nj", b, ub))
-            return gp
+        def JTmv_p(J, u):
+            partials = []
+            for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u)):
+                gp = torch.zeros((num_points, 3), dtype=dtype, device=devs[s])
+                for f, b, ub in zip(fams, jp, split(us, jc, jp)):
+                    if b is not None:
+                        gp.index_add_(0, f.point_idx, torch.einsum("nkj,nk->nj", b, ub))
+                partials.append(gp)
+            return mesh.sum(partials)
 
         def dot(a, b):
+            """Dot of replicated (camera- or point-space) vectors."""
             return torch.sum(a * b)
 
-        jc, jp, r = blocks_at(cam0, points0)
+        def rdot(a, b):
+            """Dot of row-space vectors: per-shard partials summed over the mesh."""
+            return mesh.sum([torch.sum(x * y) for x, y in zip(a, b)])
+
+        def rsub(a, b):
+            return [x - y for x, y in zip(a, b)]
+
+        J, r = blocks_at(cam0, points0)
         cam, points = cam0, points0
-        cost = 0.5 * dot(r, r)
+        cost = 0.5 * rdot(r, r)
         c0 = cost
         lam = torch.as_tensor(lam0, dtype=dtype, device=device)
         nu = torch.as_tensor(2.0, dtype=dtype, device=device)
@@ -399,16 +468,21 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         iterations = 0
 
         for _ in range(max_iterations):
-            g_c = JTmv_c(jc, jp, r) * cam_free
-            g_p = JTmv_p(jc, jp, r)
+            g_c = JTmv_c(J, r) * cam_free
+            g_p = JTmv_p(J, r)
 
-            hpp = torch.zeros((num_points, 3, 3), dtype=dtype, device=device)
-            for f, b in zip(fams, jp):
-                if b is not None:
-                    hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
-            cam_diag = reduce_cols([(f, torch.sum(a * a, dim=1))
-                                    for f, a in zip(fams, jc) if a is not None])
-            cam_diag = torch.clamp(cam_diag, 1e-12, 1e32)
+            hpp_parts, diag_parts = [], []
+            for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
+                hpp = torch.zeros((num_points, 3, 3), dtype=dtype, device=devs[s])
+                for f, b in zip(fams, jp):
+                    if b is not None:
+                        hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
+                hpp_parts.append(hpp)
+                diag_parts.append(reduce_cols([(f, torch.sum(a * a, dim=1))
+                                               for f, a in zip(fams, jc) if a is not None],
+                                              devs[s]))
+            hpp = mesh.sum(hpp_parts)
+            cam_diag = torch.clamp(mesh.sum(diag_parts), 1e-12, 1e32)
             pt_diag = torch.clamp(torch.diagonal(hpp, dim1=-2, dim2=-1), 1e-12, 1e32)
             hpp_inv = inv3x3_spd(hpp + torch.diag_embed(lam * pt_diag))
 
@@ -420,20 +494,27 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
             if use_block_precond:
                 # SCHUR_JACOBI: exact-per-row 7x7 pose blocks of
-                # S = B - E Hpp^-1 E^T; non-pose parameters stay scalar
-                blocks = torch.zeros((num_ref, 7, 7), dtype=dtype, device=device)
-                for f, a, b in zip(fams, jc, jp):
-                    if a is None:
-                        continue
-                    for sl, idx in ((slice(0, 7), f.beg_idx), (slice(7, 14), f.end_idx)):
-                        jb = a[:, :, sl] * free_pose[idx][:, None, :]       # [N,k,7]
-                        bb = torch.einsum("nki,nkj->nij", jb, jb)
-                        if b is not None:
-                            E = torch.einsum("nki,nkm->nim", jb, b)         # [N,7,3]
-                            bb = bb - torch.einsum("nim,nmq,njq->nij", E,
-                                                   hpp_inv[f.point_idx], E)
-                        blocks.index_add_(0, idx, bb)
-                blocks = blocks + torch.diag_embed(dc[:num_ref * 7].reshape(num_ref, 7))
+                # S = B - E Hpp^-1 E^T; non-pose parameters stay scalar. A
+                # second round over the shards: each row's E Hpp^-1 E^T reads
+                # the summed Hpp
+                block_parts = []
+                for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
+                    fp, hi = on(free_pose, s), on(hpp_inv, s)
+                    blocks = torch.zeros((num_ref, 7, 7), dtype=dtype, device=devs[s])
+                    for f, a, b in zip(fams, jc, jp):
+                        if a is None:
+                            continue
+                        for sl, idx in ((slice(0, 7), f.beg_idx), (slice(7, 14), f.end_idx)):
+                            jb = a[:, :, sl] * fp[idx][:, None, :]              # [N,k,7]
+                            bb = torch.einsum("nki,nkj->nij", jb, jb)
+                            if b is not None:
+                                E = torch.einsum("nki,nkm->nim", jb, b)         # [N,7,3]
+                                bb = bb - torch.einsum("nim,nmq,njq->nij", E,
+                                                       hi[f.point_idx], E)
+                            blocks.index_add_(0, idx, bb)
+                    block_parts.append(blocks)
+                blocks = mesh.sum(block_parts) + torch.diag_embed(
+                    dc[:num_ref * 7].reshape(num_ref, 7))
                 pose_prec_inv = torch.linalg.inv(blocks)
                 rest_precond = precond[num_ref * 7:]
 
@@ -446,13 +527,13 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     return precond * v
 
             def schur_mv(x):
-                u = Jmv(jc, jp, x * cam_free, None)
-                w = solve3(JTmv_p(jc, jp, u))
-                z = Jmv(jc, jp, None, w)
-                return JTmv_c(jc, jp, u - z) * cam_free + dc * x
+                u = Jmv(J, x * cam_free, None)
+                w = solve3(JTmv_p(J, u))
+                z = Jmv(J, None, w)
+                return JTmv_c(J, rsub(u, z)) * cam_free + dc * x
 
             # rhs = -(g_c - E Hpp^-1 g_p)
-            gc0 = JTmv_c(jc, jp, Jmv(jc, jp, None, solve3(g_p)))
+            gc0 = JTmv_c(J, Jmv(J, None, solve3(g_p)))
             rhs = -(g_c - gc0 * cam_free)
 
             # PCG, fixed budget, convergence as a mask
@@ -485,21 +566,21 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             dc_step = x
 
             # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
-            u = Jmv(jc, jp, dc_step * cam_free, None)
-            dp = solve3(-g_p - JTmv_p(jc, jp, u))
+            u = Jmv(J, dc_step * cam_free, None)
+            dp = solve3(-g_p - JTmv_p(J, u))
 
             cam_new = project(cam + dc_step * cam_free)
             pts_new = points + dp
-            jc_t, jp_t, r_t = blocks_at(cam_new, pts_new)
-            new_cost = 0.5 * dot(r_t, r_t)
+            J_t, r_t = blocks_at(cam_new, pts_new)
+            new_cost = 0.5 * rdot(r_t, r_t)
 
             # exact model reduction: -g.d - 0.5|Jd|^2 - 0.5 lam d'Dd
             step_c = cam_new - cam
             if lower is None and upper is None:
-                Jd = u + Jmv(jc, jp, None, dp)
+                Jd = [a + b for a, b in zip(u, Jmv(J, None, dp))]
             else:
-                Jd = Jmv(jc, jp, step_c, dp)
-            pred = -(dot(step_c, g_c) + dot(dp, g_p)) - 0.5 * dot(Jd, Jd) \
+                Jd = Jmv(J, step_c, dp)
+            pred = -(dot(step_c, g_c) + dot(dp, g_p)) - 0.5 * rdot(Jd, Jd) \
                 - 0.5 * lam * (dot(cam_diag * step_c, step_c) + dot(pt_diag * dp, dp))
             good = (new_cost < cost) & torch.isfinite(new_cost)
             rho = (cost - new_cost) / torch.clamp_min(torch.abs(pred), 1e-30)
@@ -512,9 +593,12 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             cam = torch.where(good, cam_new, cam)
             points = torch.where(good, pts_new, points)
             cost = torch.where(good, new_cost, cost)
-            jc = [None if a is None else torch.where(good, a, a0) for a, a0 in zip(jc_t, jc)]
-            jp = [None if b is None else torch.where(good, b, b0) for b, b0 in zip(jp_t, jp)]
-            r = torch.where(good, r_t, r)
+            J = [([None if a is None else torch.where(on(good, s), a, a0)
+                   for a, a0 in zip(jc_t, jc)],
+                  [None if b is None else torch.where(on(good, s), b, b0)
+                   for b, b0 in zip(jp_t, jp)])
+                 for s, ((jc_t, jp_t), (jc, jp)) in enumerate(zip(J_t, J))]
+            r = [torch.where(on(good, s), a, a0) for s, (a, a0) in enumerate(zip(r_t, r))]
             lam = lam_new
             cg_total = cg_total + cg_k
             iterations += 1

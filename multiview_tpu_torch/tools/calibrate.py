@@ -7,8 +7,9 @@ voxblox layout and world-frame depth clouds, and with ``--out_texture_dir``
 one textured OBJ per image, the mesh projected into it).
 
 Runs on the first CUDA card (float32) and raises when there is none;
-``--device cpu`` asks for the CPU (float64). ``--sharded``, the one flag of a
-part not ported yet, raises NotImplementedError.
+``--device cpu`` asks for the CPU (float64). ``--sharded`` shards the
+observations over this host's cards (``parallel/sharding.py``), and under a
+``torch.distributed`` launch each process over its own cards.
 """
 
 from __future__ import annotations
@@ -76,7 +77,10 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--no_nvm_matches", action="store_true")
     p.add_argument("--max_features", type=int, default=1000)
     add_sift_args(p)
-    p.add_argument("--sharded", action="store_true", help="not ported yet")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the observation tensors over this host's devices (a "
+                        "ShardMesh) -- the distributed Schur BA path; under "
+                        "torch.distributed each host process shards over its own cards")
     p.add_argument("--num_opt_threads", type=int, default=16,
                    help="accepted for reference parity")
     p.add_argument("--num_match_threads", type=int, default=8,
@@ -97,11 +101,6 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="print per-phase wall times per pass")
-
-
-_NOT_PORTED = (
-    ("sharded", bool, "--sharded"),
-)
 
 
 def _parse_camera_names(spec_str: str, sensor_names) -> set:
@@ -140,7 +139,10 @@ def _parse_intrinsics_to_float(spec_str: str, sensor_names):
     return per
 
 
-def run(args):
+def run(args, mesh=None):
+    """The tool on parsed ``args``. ``mesh`` (a ``parallel.sharding.ShardMesh``
+    whose lead device is the ``--device``) shards the observations over it,
+    as ``--sharded`` does over this host's cards."""
     import dataclasses
 
     from multiview_tpu_torch.calib import assemble, calibrator as cal, rig_init
@@ -152,9 +154,6 @@ def run(args):
     from multiview_tpu_torch.utils import images as img_utils
     from multiview_tpu_torch.utils.device import resolve_device, working_dtype
 
-    for name, bad, what in _NOT_PORTED:
-        if bad(getattr(args, name)):
-            raise NotImplementedError(f"calibrate: {what} is not ported yet")
     if args.registration and not (args.hugin_file and args.xyz_file):
         raise SystemExit("--registration needs --hugin_file and --xyz_file")
     if args.out_texture_dir and not args.mesh:
@@ -311,6 +310,24 @@ def run(args):
                                          dtype=dtype, device=device)
         print(f"Loaded mesh with {len(mesh_tri_verts)} triangles for constraints")
 
+    if args.sharded or mesh is not None:
+        from multiview_tpu_torch.parallel import distributed as pdist
+        from multiview_tpu_torch.parallel import sharding as sh
+        if mesh is None:
+            # the calibrator's host-side outlier bookkeeping reads every
+            # observation back each pass, so with several processes each
+            # shards over its own cards only (the solver alone can take a
+            # mesh across processes at the library level)
+            mesh = (sh.make_mesh(pdist.local_devices(device)) if pdist.initialize()
+                    else pdist.global_mesh(device=device))
+        if mesh.lead != device:
+            raise SystemExit(f"calibrate: the mesh starts at {mesh.lead}, --device is {device}")
+        if mesh.size > 1:
+            observations = sh.shard_observations(observations, mesh)
+            state = sh.replicate(state, mesh)
+            print(f"Sharded observations over {mesh.size} devices "
+                  f"({pdist.process_count()} process(es))")
+
     bounds = np.stack([min_off, max_off], axis=1) if args.float_timestamp_offsets else None
     models = tuple(s.model for s in rig.sensors)
     _tk("pre_optimize")
@@ -465,8 +482,10 @@ def _merge_tracksets(a, b):
 def _inlier_lookup(cams, trackset, observations):
     """{(pid, cid): inlier} from the per-sensor masks, whose rows follow the
     tracks in build order."""
+    from multiview_tpu_torch.parallel.sharding import gathered_pixels
+
     counters = {obs.sensor: 0 for obs in observations.pixels}
-    masks = {obs.sensor: obs.mask.cpu().numpy() for obs in observations.pixels}
+    masks = {obs.sensor: obs.mask.cpu().numpy() for obs in gathered_pixels(observations)}
     inlier = {}
     for pid, track in enumerate(trackset.tracks):
         for cid, fid in track.items():

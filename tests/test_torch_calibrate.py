@@ -67,17 +67,24 @@ def test_calibrate_cli_matches_jax(workspace, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--out_texture_dir", "tex"]])
-def test_unported_flags_raise(workspace, tmp_path, flag):
-    """``--sharded`` is the one flag still refused. ``--out_texture_dir`` is
-    ported: without ``--mesh``, and without ``--images``, it stops with the
-    reference's messages (multiview_tpu/tools/calibrate.py:418-421), before
-    any work."""
+def test_unported_flags_raise(workspace, tmp_path, capsys, flag):
+    """No flag of the reference is refused any more (the name is the one
+    this test had while some were). ``--sharded`` runs: on one CPU device
+    it shards nothing, prints no sharding line, and recovers the rig
+    within the truth bar of test_cli_tools.py (1 deg, 0.05 m).
+    ``--out_texture_dir`` without ``--mesh``, and without ``--images``,
+    stops with the reference's messages
+    (multiview_tpu/tools/calibrate.py:418-421), before any work."""
     argv = ["calibrate", "--rig_config", str(workspace / "rig_config.txt"),
             "--camera_poses", str(workspace / "cameras.txt"),
             "--out_dir", str(tmp_path / "out")] + ARGS + CPU + flag
     if flag[0] == "--sharded":
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            torch_main(argv)
+        assert torch_main(argv + ["--images", str(workspace / "images")]) == 0
+        text = capsys.readouterr().out
+        assert "Built" in text and "Sharded observations" not in text
+        rig = rc.read_rig_config(tmp_path / "out" / "rig_config.txt")
+        rot, trans = rig_error(rig.sensors[1].ref_to_sensor)
+        assert rot < 1.0 and trans < 0.05, (rot, trans)
         return
     with pytest.raises(SystemExit, match="--out_texture_dir needs --mesh"):
         torch_main(argv)

@@ -302,3 +302,34 @@ def test_texturing_on_the_card_follows_the_cpu(cuda_device):
     for key in ("page", "leveled"):
         diff = np.abs(gpu[key] - cpu[key])
         assert np.median(diff[cpu["page"] > 0]) < 2e-3, key
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_cuda_shards(cuda_device):
+    """The Schur-LM with its observations sharded 4 ways on the card against
+    the unsharded solve, float32: initial cost rtol 1e-6, final cost rtol
+    1e-4, cameras atol 1e-3 (the cube's focal of 600 px has a float32 step of
+    6e-5, and the poses float with a free gauge); the LM count equal."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.parallel import sharding as sh
+    from multiview_tpu_torch.solver import schur
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_cube_scene(n_images=16, n_per_face=5, pix_noise=0.3,
+                                dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), dtype=torch.float32,
+                                device=cuda_device)
+    state0 = syn.perturb_state(scene.true_state)
+    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
+                           include_points=False)
+    solver = schur.make_schur_solver(state0, scene.observations, scene.models,
+                                     prob.BAOptions(no_rig=True), mask, max_iterations=6,
+                                     cg_iterations=30)
+    cam0 = prob.pack_state(state0, include_points=False)
+    ref = solver(cam0, state0.points)
+    obs = sh.shard_observations(scene.observations, sh.make_mesh([cuda_device] * 4))
+    assert all(s.pix.device == cuda_device for s in obs.pixels[0].shards)
+    got = solver(cam0, state0.points, obs)
+    assert got.iterations == ref.iterations and got.cam.device == cuda_device
+    torch.testing.assert_close(got.initial_cost, ref.initial_cost, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-4, atol=0)
+    torch.testing.assert_close(got.cam, ref.cam, rtol=0, atol=1e-3)

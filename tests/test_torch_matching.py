@@ -96,10 +96,33 @@ def test_cpu_tensors_use_plain_version_and_kernel_wrapper_checks_inputs():
 
 
 @pytest.mark.parametrize("dim,kernel", [(128, "knn2_wgmma"), (64, "knn2_wgmma"),
-                                        (96, "knn2_fma"), (32, "knn2_fma"),
+                                        (96, "knn2_wgmma"), (32, "knn2_wgmma"),
                                         (256, "knn2_fma")])
 def test_dispatch_rule_follows_the_descriptor_width(dim, kernel):
+    """Up to 128 the tensor-core kernel, at the next of its widths (96 runs
+    at 128 and 32 at 64, zero-padded); wider descriptors the FMA kernel."""
     assert tm.kernel_for(dim) == kernel
+    if kernel == "knn2_wgmma":
+        assert tm.wgmma_width(dim) == (64 if dim <= 64 else 128)
+
+
+@pytest.mark.parametrize("dim", [32, 96])
+def test_zero_padding_to_the_tensor_core_width_keeps_the_matches(dim):
+    """What ``knn2_cuda`` hands the tensor-core kernel for a narrow width,
+    the descriptors zero-padded to 64 or 128, gives the unpadded matches:
+    the same best indices, distances within float32 summation order, in the
+    kernel's split-TF32 arithmetic as in the plain formula."""
+    rng = np.random.default_rng(dim)
+    q = torch.as_tensor(_descs(rng, 200, dim))
+    t = torch.as_tensor(_descs(rng, 300, dim))
+    width = tm.wgmma_width(dim)
+    pad = (0, width - dim)
+    for fn in (tm.knn2_plain, tm.knn2_split_plain):
+        ref = fn(q, t)
+        got = fn(torch.nn.functional.pad(q, pad), torch.nn.functional.pad(t, pad))
+        assert torch.equal(got.best_idx, ref.best_idx)
+        torch.testing.assert_close(got.best_dist, ref.best_dist, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got.second_dist, ref.second_dist, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dim", [96, 128])

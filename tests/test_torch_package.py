@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "tools.fit_rpc_tool", "dense.stereo", "dense.pc_filter", "dense.tsdf",
                 "dense.marching", "utils.undistort", "tools.fuse_mesh", "tools.undistort_tool",
                 "io.match_file", "calib.registration", "calib.pose_storage", "geometry.plane",
-                "texture.texturing", "texture.mesh_project", "tools.texture_mesh"):
+                "texture.texturing", "texture.mesh_project", "tools.texture_mesh",
+                "parallel.sharding", "parallel.distributed", "parallel.dryrun"):
         assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
 
 

@@ -97,7 +97,8 @@ def test_detect_match_features_takes_its_pairs_from_retrieval(monkeypatch):
     kps = [feat.Keypoints(torch.as_tensor(rng.uniform(0, 100, (K, 2)).astype(np.float32)),
                           torch.ones(K), torch.ones(K), torch.zeros(K), torch.as_tensor(v))
            for v in valids]
-    monkeypatch.setattr(TPl, "detect_all", lambda images, cfg, device=None, store=None: (
+    monkeypatch.setattr(TPl, "detect_all", lambda images, cfg, device=None, store=None,
+                        mesh=None: (
         kps, [torch.as_tensor(d) for d in descs]))
     seen = []
     monkeypatch.setattr(TPl, "match_pair", lambda ki, di, kj, dj, cfg, seed=0: (
