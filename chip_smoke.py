@@ -35,8 +35,18 @@ printing a result):
    (zero-padded to 128); checks the launch count and the planted
    correspondences;
 3. Schur-LM bundle adjustment at the bench's size (cube scene 160 images x
-   20x20 points per face, about 384k observations, float32): finite,
-   decreasing cost and LM iterations per second;
+   20x20 points per face, about 384k observations, float32, 10 LM x 30 CG
+   at cg_tolerance 0.1): finite, decreasing cost, LM iterations per second,
+   the CG count and the matvecs run (CG stops at the reference's test: at
+   most CG_CHECK_EVERY - 1 matvecs past it per LM iteration); then the same
+   solver with ``debug_force_cg=30`` (the whole budget, every step taken):
+   its rate and final cost;
+3b. the four linear solvers of ``make_schur_solver`` on phase 3's problem
+   and settings (``cg_blocks``, matrix-free ``cg``, ``cg_dense_j``,
+   ``dense_schur``): LM it/s, LM and CG counts, matvecs, peak memory and
+   final cost; the two other CG modes held to ``cg_blocks`` and
+   ``dense_schur`` (an exact solve) to the forced-budget solve of phase 3,
+   both within 1e-4 relative (phase 9a's float32 bar);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -255,6 +265,8 @@ OUT_TEXTURE_MESH_STEP = 0.2
 # family counted twice would move the cost by a factor, not 1e-4
 SHARDS = 4
 MP_CUBE = (40, 10)
+# phase 3's solver settings (those of bench.py)
+BA_SETTINGS = dict(max_iterations=10, cg_iterations=30, cg_tolerance=0.1)
 SHARDED_COST_RTOL, SHARDED_CAM_ATOL = 1e-4, 2e-3
 
 
@@ -432,6 +444,35 @@ def render_workspaces(workdir: Path):
     return rig_true
 
 
+@contextlib.contextmanager
+def ba_counts():
+    """Records (LM iterations, CG iterations, matvecs run) of every Schur
+    solve that ``optimize_rig`` runs inside the block: the calibrator's
+    passes, sfm-init's refinement BAs."""
+    from multiview_tpu_torch.calib import calibrator
+
+    original = calibrator.optimize_rig
+    seen = []
+
+    def recording(*args, **kw):
+        result = original(*args, **kw)
+        seen.extend((r.iterations, int(r.cg_iters_total), r.matvecs)
+                    for r in result.lm_results)
+        return result
+
+    calibrator.optimize_rig = recording
+    try:
+        yield seen
+    finally:
+        calibrator.optimize_rig = original
+
+
+def ba_summary(seen):
+    lm, cg, mv = (sum(x[i] for x in seen) for i in range(3))
+    return (f"BA solves (LM, CG, matvecs) {seen}: {lm} LM iterations, {cg} CG iterations, "
+            f"{mv} matvecs run")
+
+
 def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool = True,
                   passes: int = 2, mesh=None):
     """``calibrate`` in process on a rendered workspace, with the launch
@@ -463,7 +504,7 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
     mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    with ba_counts() as ba, contextlib.redirect_stdout(tee):
         ret = cli(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -474,7 +515,7 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
     nobs = re.search(r"Assembled (\d+) pixel observations of (\d+) points", text)
     depth = re.search(r"Attached (\d+) depth measurements", text)
     run = {
-        "launches": launches, "wall": wall, "text": text,
+        "launches": launches, "wall": wall, "text": text, "ba": ba,
         "costs": [(float(a), float(b)) for a, b in re.findall(
             r"BA pass \d+: cost (\S+) -> (\S+)", text)],
         "stages": {k: float(v) for k, v in re.findall(r"\[profile\] cli (\S+): (\S+)s", text)},
@@ -594,7 +635,8 @@ def calibrate_with_depth(torch, mm, card, tag, workdir: Path, out: Path, rig_tru
           f"{run['launches']} (FMA kernel 0); rig error (deg, m) {errs}; depth_to_image of "
           f"haz_cam from scale {D2I_GUESS_SCALE} / 1.006 deg to scale {scale:.5f} / "
           f"{rot_deg:.4f} deg off the truth; depth alignment over {n_pts} cloud points: "
-          f"median {med:.5f} m, 95th percentile {p95:.5f} m [{card}]", flush=True)
+          f"median {med:.5f} m, 95th percentile {p95:.5f} m; {ba_summary(run['ba'])} "
+          f"[{card}]", flush=True)
     for line in run["passes"]:
         print(f"[{label}] {line}", flush=True)
     if run["depth_rows"] <= 0:
@@ -762,7 +804,8 @@ def phase2b(torch, mm, device, card):
 
 def ba_problem(torch, dev, n_images: int, n_per_face: int):
     """Phase 3's bundle adjustment (cube scene, float32, poses and the
-    intrinsics floating, 10 LM x 30 CG): (scene, start state, solver)."""
+    intrinsics floating, 10 LM x 30 CG): (scene, start state, solver(**kw)),
+    the last building the solver with ``kw`` added to phase 3's settings."""
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.solver import schur
     from multiview_tpu_torch.utils import synthetic as syn
@@ -775,36 +818,93 @@ def ba_problem(torch, dev, n_images: int, n_per_face: int):
     cam_mask = prob.build_mask(
         state0, prob.FloatSpec(cam_poses=True, focal=(0,), optical_center=(0,),
                                distortion=(0,)), no_rig=True, include_points=False)
-    solver = schur.make_schur_solver(state0, scene.observations, scene.models,
-                                     prob.BAOptions(no_rig=True), cam_mask,
-                                     max_iterations=10, cg_iterations=30, cg_tolerance=0.1)
+
+    def solver(**kw):
+        return schur.make_schur_solver(state0, scene.observations, scene.models,
+                                       prob.BAOptions(no_rig=True), cam_mask,
+                                       **{**BA_SETTINGS, **kw})
     return scene, state0, solver
 
 
+def timed_solves(torch, solver, cam0, points0, reps: int = 3):
+    """A warm solve, then ``reps`` timed ones: (the last result, the fastest
+    wall time, every wall time, peak device memory in GiB)."""
+    solver(cam0, points0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = solver(cam0, points0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return res, min(times), times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def ba_line(res, wall):
+    return (f"cost {float(res.initial_cost):.7g} -> {float(res.cost):.7g} in {res.iterations} "
+            f"LM iterations ({int(res.cg_iters_total)} CG, {res.matvecs} matvecs run), "
+            f"{res.iterations / wall:.3f} LM iterations/s")
+
+
+def rel_gap(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
 def phase3(torch, card):
-    """Schur LM at the bench's size, float32 on the card."""
+    """Schur LM at the bench's size, float32 on the card: the early-stopped
+    CG, then the whole budget forced. Returns the problem and both solves for
+    phase 3b."""
     from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import schur
 
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    res = solver(cam0, state0.points)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = solver(cam0, state0.points)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
+    forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
+                                              state0.points)
     c0, c1 = float(res.initial_cost), float(res.cost)
-    rate = res.iterations / min(times)
-    print(f"[phase3] cube 160x20: {n_obs} observations, cost {c0:.6g} -> {c1:.6g} in "
-          f"{res.iterations} LM iterations ({int(res.cg_iters_total)} CG), solve times "
-          f"{[round(t, 4) for t in times]} s, {rate:.3f} LM iterations/s [{card}]",
-          flush=True)
+    slack = (schur.CG_CHECK_EVERY - 1) * res.iterations
+    print(f"[phase3] cube 160x20: {n_obs} observations; CG stopped at cg_tolerance "
+          f"{BA_SETTINGS['cg_tolerance']} (checked on the host every "
+          f"{schur.CG_CHECK_EVERY} iterations): {ba_line(res, wall)}, solve times "
+          f"{[round(t, 4) for t in times]} s; debug_force_cg=30 (the whole budget): "
+          f"{ba_line(forced, wall_f)}, solve times {[round(t, 4) for t in times_f]} s; "
+          f"early stop / forced rate {wall_f / wall:.3f}x; final costs "
+          f"{c1:.7g} / {float(forced.cost):.7g} [{card}]", flush=True)
     if not (c1 == c1 and c1 < c0):
         raise AssertionError(f"phase 3 cost not finite and decreasing: {c0} -> {c1}")
-    return rate
+    if not res.matvecs <= int(res.cg_iters_total) + slack:
+        raise AssertionError(f"phase 3: {res.matvecs} matvecs run for {int(res.cg_iters_total)} "
+                             f"CG iterations in {res.iterations} LM iterations")
+    if not (forced.matvecs == int(forced.cg_iters_total) == 30 * forced.iterations):
+        raise AssertionError(f"phase 3: debug_force_cg=30 ran {forced.matvecs} matvecs")
+    return {"problem": (scene, state0, solver), "res": res, "forced": forced}
+
+
+def phase3b(torch, card, p3):
+    """The four linear solvers on phase 3's problem and settings."""
+    from multiview_tpu_torch.calib import problem as prob
+
+    scene, state0, solver = p3["problem"]
+    cam0 = prob.pack_state(state0, include_points=False)
+    for mode in ("cg_blocks", "cg", "cg_dense_j", "dense_schur"):
+        res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
+                                              state0.points, reps=2)
+        # dense_schur solves each step exactly: its trajectory is the one of
+        # CG run to the whole budget, not of CG stopped at cg_tolerance 0.1
+        ref = p3["forced"] if mode == "dense_schur" else p3["res"]
+        gap = rel_gap(res.cost, ref.cost)
+        print(f"[phase3b] {mode}: {ba_line(res, wall)}, solve times "
+              f"{[round(t, 4) for t in times]} s, peak {peak:.2f} GiB; final cost "
+              f"{gap:.3g} relative from {'the forced-budget' if mode == 'dense_schur' else 'the'}"
+              f" cg_blocks solve [{card}]", flush=True)
+        if not (gap <= SHARDED_COST_RTOL and float(res.cost) < float(res.initial_cost)):
+            raise AssertionError(f"phase 3b: {mode} ends at {float(res.cost)}, {gap:.3g} "
+                                 f"relative from cg_blocks (bar {SHARDED_COST_RTOL})")
+        if mode == "dense_schur" and not (res.matvecs == 0 == int(res.cg_iters_total)):
+            raise AssertionError("phase 3b: dense_schur ran CG")
 
 
 def phase5(torch, device, card):
@@ -876,7 +976,7 @@ def run_sfm_init(torch, mm, tag, ws: Path, out: Path, extra, spy=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(tee):
+        with ba_counts() as ba, contextlib.redirect_stdout(tee):
             ret = cli_main(argv)
     finally:
         global_sfm.view_graph_from_matches = original
@@ -893,7 +993,7 @@ def run_sfm_init(torch, mm, tag, ws: Path, out: Path, extra, spy=None):
     tri = re.search(r"Triangulated (\d+)/(\d+) tracks", text)
     data = nvm_io.read_nvm(out / "cameras.nvm")
     run = {
-        "launches": launches, "wall": wall,
+        "launches": launches, "wall": wall, "ba": ba,
         "stages": {k: float(v) for k, v in re.findall(r"\[sfm-init\] (.+): (\S+) s", text)},
         "global": {k: float(v) for k, v in re.findall(r"\[global-sfm\] (\S+): (\S+) s", text)},
         "images": int(re.search(r"Found (\d+) images", text).group(1)),
@@ -999,7 +1099,7 @@ def phase6(torch, mm, card, workdir: Path):
     run = run_sfm_init(torch, mm, "phase 6", workdir / "ws3", workdir / "sfm3",
                        ["--num_ba_iterations", str(SFM_BA_ITERATIONS)], spy=spy)
     print(f"[phase6] sfm-init GLOBAL, {SFM_BA_ITERATIONS} iterations of the refinement BA: "
-          f"{sfm_summary(run)} [{card}]", flush=True)
+          f"{sfm_summary(run)}; {ba_summary(run['ba'])} [{card}]", flush=True)
     two_view_stage_times(torch, card, spy, workdir / "ws3")
     return run
 
@@ -1571,10 +1671,7 @@ def phase8c(torch, mm, card, workdir: Path):
 def solve_gap(ref, got):
     """(initial cost, final cost) relative gaps and the largest camera-vector
     difference of two solves."""
-    def rel(a, b):
-        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-
-    return (rel(got.initial_cost, ref.initial_cost), rel(got.cost, ref.cost),
+    return (rel_gap(got.initial_cost, ref.initial_cost), rel_gap(got.cost, ref.cost),
             float((got.cam.to(ref.cam.device) - ref.cam).abs().max()))
 
 
@@ -1594,7 +1691,8 @@ def phase9a(torch, card):
     from multiview_tpu_torch.parallel import sharding as sh
 
     dev = torch.device("cuda", 0)
-    scene, state0, solver = ba_problem(torch, dev, 160, 20)
+    scene, state0, make = ba_problem(torch, dev, 160, 20)
+    solver = make()
     cam0 = prob.pack_state(state0, include_points=False)
 
     def timed(obs):
@@ -1752,7 +1850,8 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
         raise AssertionError("phase 9d: the worker joined no group")
     dev = torch.device("cuda", 0)
     mesh = sh.make_mesh([dev] * 2, group=dist.group.WORLD)
-    scene, state0, solver = ba_problem(torch, dev, *MP_CUBE)
+    scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
+    solver = make()
     obs = sh.shard_observations(scene.observations, mesh)
     res = solver(prob.pack_state(state0, include_points=False), state0.points, obs)
     # the gloo collectives take the CUDA tensors as they are: the solve's
@@ -1808,7 +1907,8 @@ def phase9d(torch, card, workdir: Path):
     same = all(np.array_equal(r0[k], r1[k]) for k in r0)
 
     dev = torch.device("cuda", 0)
-    scene, state0, solver = ba_problem(torch, dev, *MP_CUBE)
+    scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
+    solver = make()
     cam0 = prob.pack_state(state0, include_points=False)
     ref = solver(cam0, state0.points)
 
@@ -1901,7 +2001,7 @@ def main() -> int:
         phase9d(torch, card, Path(tmp))
         t9 = time.perf_counter() - t9
     paths["phase2b"] = phase2b(torch, mm, dev, card)
-    phase3(torch, card)
+    phase3b(torch, card, phase3(torch, card))
     phase5(torch, dev, card)
     t0 = time.perf_counter()
     phase9a(torch, card)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -173,6 +173,36 @@ def retriangulate(state: prob.RigState, observations: prob.Observations,
     return xyz, ok
 
 
+def flag_outliers_by_exclusion_dist(observations: prob.Observations,
+                                    crop_sizes: Dict[int, Tuple[int, int]],
+                                    image_sizes: Dict[int, Tuple[int, int]]
+                                    ) -> prob.Observations:
+    """Image-border / crop-window gate (flagOutlierByExclusionDist,
+    rig_calibrator.cc:1003-1039): a pixel observation stays an inlier only
+    inside its sensor's crop window centred on the image. Computed where the
+    observations are."""
+    out = []
+    for obs in observations.pixels:
+        whole = sh.gathered(obs)
+        half_size = whole.pix.new_tensor(image_sizes[obs.sensor]) / 2.0
+        half_crop = whole.pix.new_tensor(crop_sizes[obs.sensor]) / 2.0
+        good = torch.all(torch.abs(whole.pix - half_size) <= half_crop, dim=-1)
+        out.append(sh.with_mask(obs, whole.mask & good))
+    return dataclasses.replace(observations, pixels=tuple(out))
+
+
+def reprojection_errors(state: prob.RigState, observations: prob.Observations,
+                        models: Sequence[str], opts: prob.BAOptions) -> torch.Tensor:
+    """Raw (non-robust) per-observation reprojection error norms, global order."""
+    return _reprojection_errors(state, sh.gathered_pixels(observations), models, opts)
+
+
+def _reprojection_errors(state, pixels, models, opts) -> torch.Tensor:
+    return torch.cat([torch.linalg.norm(
+        prob.pixel_residuals(state, obs, models[obs.sensor], opts, robust=False), dim=-1)
+        for obs in pixels])
+
+
 def flag_outliers(state: prob.RigState, observations: prob.Observations,
                   models: Sequence[str], table: TrackTable, opts: prob.BAOptions,
                   min_triangulation_angle: float, max_reprojection_error: float,
@@ -199,9 +229,7 @@ def flag_outliers(state: prob.RigState, observations: prob.Observations,
     bad_track = angles < min_triangulation_angle
     angle_kill = bad_track[torch.clamp_min(track_of_obs, 0)] & (track_of_obs >= 0)
     mask_after_angle = mask & ~angle_kill
-    errs = torch.cat([torch.linalg.norm(
-        prob.pixel_residuals(state, obs, models[obs.sensor], opts, robust=False), dim=-1)
-        for obs in pixels])
+    errs = _reprojection_errors(state, pixels, models, opts)
     new_mask = mask_after_angle & (errs <= max_reprojection_error)
     counts = torch.stack([mask.sum(), mask_after_angle.sum(), new_mask.sum()]).cpu().numpy()
     n_before, n_after_angle, n_after = (int(c) for c in counts)

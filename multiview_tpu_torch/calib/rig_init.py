@@ -1,8 +1,10 @@
 """Rig initialization and rig-based pose computation. Port of
 ``multiview_tpu/calib/rig_init.py`` (rig_calibrator.cc:792-867,1190-1265):
 
+- bracketed interpolation of one world->ref pose (calc_interp_world_to_ref);
 - world->cam for every entry from rig transforms + bracketed interpolation
-  (calc_world_to_cam_using_rig);
+  (calc_world_to_cam_using_rig), or each entry's own pose without a rig
+  (calc_world_to_cam_no_rig);
 - initial rig transforms as the per-entry median of
   world_to_cam * interp(world_to_ref)^-1, renormalized to a rotation
   (calc_rig_using_word_to_cam).
@@ -25,6 +27,18 @@ def _f64(x):
     return torch.as_tensor(np.asarray(x, np.float64))
 
 
+def interp_world_to_ref_np(world_to_ref: np.ndarray, ref_timestamps: np.ndarray,
+                           beg_idx: int, end_idx: int, offset: float,
+                           cam_timestamp: float) -> np.ndarray:
+    """Bracketed interpolation of one world->ref pose (7,) on the host, with
+    the semantics of calc_interp_world_to_ref (rig_calibrator.cc:322-353)."""
+    w2r = np.asarray(world_to_ref)
+    dt_bracket = float(ref_timestamps[end_idx] - ref_timestamps[beg_idx])
+    dt_cam = float(cam_timestamp - ref_timestamps[beg_idx])
+    return pose_mod.interp_world_to_ref(_f64(w2r[beg_idx]), _f64(w2r[end_idx]), _f64(dt_cam),
+                                        _f64(dt_bracket), _f64(offset)).numpy()
+
+
 def calc_world_to_cam_using_rig(cams: Sequence[CameraEntry],
                                 world_to_ref: np.ndarray,
                                 ref_timestamps: np.ndarray,
@@ -43,6 +57,13 @@ def calc_world_to_cam_using_rig(cams: Sequence[CameraEntry],
         _f64(ts - ref_ts[beg_i]), _f64(ref_ts[end_i] - ref_ts[beg_i]),
         _f64(np.asarray(ref_to_cam_timestamp_offsets)[sensor]))
     return out.numpy()
+
+
+def calc_world_to_cam_no_rig(cams: Sequence[CameraEntry],
+                             world_to_cam_vec: np.ndarray) -> np.ndarray:
+    """The no-rig passthrough (calc_world_to_cam_no_rig,
+    rig_calibrator.cc:857-867): each entry's own world->cam pose."""
+    return np.asarray(world_to_cam_vec)
 
 
 def calc_rig_using_world_to_cam(num_sensors: int,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from multiview_tpu_torch.geometry import distortion as dist_mod
@@ -172,3 +173,16 @@ class CameraParams:
                        torch.ones(undist_c.shape[:-1] + (1,), dtype=self.dtype,
                                   device=self.device)], dim=-1)
         return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def undistortion_remap_grid(cam: CameraParams, scale: float = 1.0) -> np.ndarray:
+    """Dense remap table: for every UNDISTORTED pixel the DISTORTED pixel it
+    samples, [int(H_u * scale), int(W_u * scale), 2] in (x, y) order
+    (``GenerateRemapMaps``, camera_params.cc:361-371). Computed where the
+    camera's tensors are, in their dtype, and returned to the host."""
+    w = int(cam.undistorted_size[0] * scale)
+    h = int(cam.undistorted_size[1] * scale)
+    xs = torch.arange(w, dtype=cam.dtype, device=cam.device)
+    ys = torch.arange(h, dtype=cam.dtype, device=cam.device)
+    grid = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), dim=-1)
+    return (cam.convert(grid / scale, UNDISTORTED, DISTORTED) * scale).cpu().numpy()

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from multiview_tpu_torch.utils.device import resolve_device
+
 
 def _tiny(dtype):
     return torch.finfo(dtype).tiny
@@ -29,6 +31,12 @@ def _as(x, like):
 # ----------------------------------------------------------------------------
 # Quaternions (xyzw layout)
 # ----------------------------------------------------------------------------
+
+
+def quat_identity(dtype=torch.float32, device=None):
+    """The identity quaternion [0, 0, 0, 1] on ``device`` (None: the first
+    CUDA card, an error when there is none)."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=resolve_device(device))
 
 
 def quat_normalize(q):
@@ -319,3 +327,20 @@ def quat_exp(rvec):
                     torch.sin(half) / torch.clamp_min(angle, 1e-30))
     w = torch.cos(half)
     return torch.cat([rvec * k, w], dim=-1)
+
+
+def quat_mean(qs, weights=None, iters: int = 4):
+    """Karcher-style mean of unit quaternions [N,4] by iterated log/exp
+    averaging in the tangent space of the running mean (the rig
+    initializer's rotation average in the reference package), where ``qs``
+    are."""
+    qs = quat_normalize(qs)
+    if weights is None:
+        weights = torch.ones(qs.shape[:-1], dtype=qs.dtype, device=qs.device)
+    wsum = torch.sum(weights) + _tiny(qs.dtype)
+    mean = quat_normalize(torch.sum(qs * weights[..., None], dim=0))
+    for _ in range(iters):
+        tang = quat_log(quat_mul(quat_conj(mean), qs))
+        avg = torch.sum(tang * weights[..., None], dim=0) / wsum
+        mean = quat_normalize(quat_mul(mean, quat_exp(avg)))
+    return mean

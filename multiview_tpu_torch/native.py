@@ -14,7 +14,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -52,10 +52,20 @@ def load():
             np.ctypeslib.ndpointer(np.float64, flags="C"),
             np.ctypeslib.ndpointer(np.int64, flags="C"),
             np.ctypeslib.ndpointer(np.float64, flags="C")]
+        lib.mv_read_files.argtypes = [
+            ctypes.c_int64, ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.int64, flags="C"),
+            np.ctypeslib.ndpointer(np.int64, flags="C"),
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
         _lib = lib
     except (OSError, subprocess.CalledProcessError):
         _lib = None
     return _lib
+
+
+def available() -> bool:
+    """Whether the native library built and loaded."""
+    return load() is not None
 
 
 def union_find_roots(n_nodes: int, edges: np.ndarray) -> np.ndarray:
@@ -108,3 +118,28 @@ def dedup_keypoints_array(xy: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             uniq.append(xy[i])
         ids[i] = seen[key]
     return ids, (np.stack(uniq) if uniq else np.zeros((0, 2)))
+
+
+def read_files(paths: List[str], num_threads: int = 0) -> List[Optional[bytes]]:
+    """The bytes of many files, read concurrently by the native thread pool
+    (``num_threads`` 0: one per hardware thread); None for a file that
+    cannot be read."""
+    lib = load()
+    if lib is None:
+        out = []
+        for p in paths:
+            try:
+                out.append(Path(p).read_bytes())
+            except OSError:
+                out.append(None)
+        return out
+    n = len(paths)
+    blob = b"\0".join(str(p).encode() for p in paths) + b"\0"
+    sizes = np.empty(n, np.int64)
+    offsets = np.empty(n, np.int64)
+    lib.mv_read_files(n, blob, sizes, offsets, None, 0, num_threads)
+    buf = np.empty(int(sizes[sizes > 0].sum()), np.uint8)
+    lib.mv_read_files(n, blob, sizes, offsets, buf.ctypes.data_as(ctypes.c_void_p), buf.size,
+                      num_threads)
+    return [None if sizes[i] < 0 else bytes(buf[offsets[i]:offsets[i] + sizes[i]])
+            for i in range(n)]

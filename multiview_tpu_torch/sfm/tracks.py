@@ -17,6 +17,28 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 
+class UnionFind:
+    """Path-compressing union-find over dense int nodes (on the host; the
+    track builder itself merges through ``native.union_find_roots``)."""
+
+    def __init__(self, n: int):
+        self.parent = np.arange(n, dtype=np.int64)
+
+    def find(self, x: int) -> int:
+        root = x
+        p = self.parent
+        while p[root] != root:
+            root = p[root]
+        while p[x] != root:
+            p[x], x = root, p[x]
+        return root
+
+    def union(self, a: int, b: int):
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.parent[rb] = ra
+
+
 @dataclasses.dataclass
 class TrackSet:
     """Tracks over deduplicated keypoints.

@@ -1,4 +1,4 @@
-"""Shared helpers for the CLI tools: rig-config -> CameraParams, image
+"""Shared helpers for the CLI tools: rig-config <-> CameraParams, image
 directory scanning (``<images_dir>/<sensor_name>/<timestamp>.<ext>``),
 grayscale and colour loading. Port of ``multiview_tpu/tools/common.py``.
 
@@ -31,6 +31,23 @@ def cam_params_from_sensor(s: rc.SensorConfig, dtype=torch.float64,
         s.image_size, s.focal_length, s.optical_center, s.distortion,
         undistorted_size=s.undistorted_image_size,
         distorted_crop_size=s.distorted_crop_size, dtype=dtype, device=device)
+
+
+def sensor_from_cam_params(name: str, cam: CameraParams, ref_to_sensor=None,
+                           depth_to_image=None, timestamp_offset=0.0) -> rc.SensorConfig:
+    """The rig-config sensor of a camera's intrinsics (the inverse of
+    ``cam_params_from_sensor``); 4x4 transforms default to the identity."""
+    return rc.SensorConfig(
+        name=name,
+        focal_length=float(cam.mean_focal),
+        optical_center=cam.optical_offset.cpu().numpy(),
+        distortion=cam.dist_coeffs.cpu().numpy(),
+        image_size=cam.distorted_size,
+        distorted_crop_size=cam.distorted_crop_size,
+        undistorted_image_size=cam.undistorted_size,
+        ref_to_sensor=np.eye(4) if ref_to_sensor is None else ref_to_sensor,
+        depth_to_image=np.eye(4) if depth_to_image is None else depth_to_image,
+        timestamp_offset=timestamp_offset)
 
 
 def _read_image(path: Path) -> np.ndarray:

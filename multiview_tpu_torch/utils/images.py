@@ -1,4 +1,5 @@
-"""Image helpers: ``depth_value`` / ``depth_values_batch`` and
+"""Image helpers: ``depth_value`` / ``depth_values_batch``, the sRGB
+transfer and exposure helpers, ``pick_timestamps_in_bounds`` and
 ``adjust_image_size`` (copied from ``multiview_tpu/utils/images.py``),
 binary PGM (P5) and PPM (P6) read/write with numpy alone, the port's image
 formats on machines without imageio, and an 8-bit PNG writer in the
@@ -10,7 +11,7 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +54,66 @@ def depth_values_batch(depth_cloud: Optional[np.ndarray], dist_ips: np.ndarray
     xyz[inb] = depth_cloud[rows[inb], cols[inb]]
     valid = inb & ~np.all(xyz == 0.0, axis=-1)
     return xyz, valid
+
+
+_GAMMA = 2.2
+
+
+def srgb_gamma(x: np.ndarray) -> np.ndarray:
+    """sRGB forward transfer for x in [0,1] (``dense_map::gamma``,
+    dense_map_utils.cc:572-579): 12.92x below 0.0031308, else
+    1.055 x^(1/2.4) - 0.055."""
+    x = np.asarray(x, float)
+    return np.where(x <= 0.0031308, 12.92 * x,
+                    1.055 * np.power(np.maximum(x, 1e-12), 1.0 / 2.4) - 0.055)
+
+
+def srgb_inv_gamma(x: np.ndarray) -> np.ndarray:
+    """sRGB inverse transfer (``dense_map::inv_gamma``,
+    dense_map_utils.cc:581-587)."""
+    x = np.asarray(x, float)
+    return np.where(x <= 0.04045, x / 12.92,
+                    np.power(np.maximum((x + 0.055) / 1.055, 0.0), 2.4))
+
+
+def exposure_correction(max_iso_times_exposure: float, iso: float, exposure: float,
+                        image: np.ndarray) -> np.ndarray:
+    """Brightness normalization in linear light: undo the sRGB gamma, scale
+    by max_iso_times_exposure / (iso * exposure), re-apply the gamma
+    (``dense_map::exposureCorrection``, dense_map_utils.cc:590-615). image:
+    uint8, or float in [0,1]."""
+    scale = max_iso_times_exposure / iso / exposure
+    img = np.asarray(image, float)
+    was_u8 = image.dtype == np.uint8
+    if was_u8:
+        img = img / 255.0
+    out = srgb_gamma(srgb_inv_gamma(img) * scale)
+    if was_u8:
+        return np.clip(np.round(out * 255.0), 0.0, 255.0).astype(np.uint8)
+    return np.clip(out, 0.0, 1.0)
+
+
+def scale_image(max_iso_times_exposure: float, iso: float, exposure: float,
+                image: np.ndarray) -> np.ndarray:
+    """The cheap variant: one global multiply by scale^(1/gamma)
+    (scaleImage, dense_map_utils.cc:620-628)."""
+    scale = (max_iso_times_exposure / iso / exposure) ** (1.0 / _GAMMA)
+    img = np.asarray(image, float) * scale
+    if image.dtype == np.uint8:
+        return np.clip(np.round(img), 0, 255).astype(np.uint8)
+    return img
+
+
+def pick_timestamps_in_bounds(timestamps: Sequence[float], left_bound: float,
+                              right_bound: float, offset: float) -> List[float]:
+    """The timestamps (after +offset) closest to each bound within
+    [left_bound, right_bound) (pickTimestampsInBounds): one or two."""
+    inside = [t for t in timestamps if left_bound <= t + offset < right_bound]
+    if not inside:
+        return []
+    lo = min(inside, key=lambda t: abs(t + offset - left_bound))
+    hi = min(inside, key=lambda t: abs(t + offset - right_bound))
+    return [lo] if lo == hi else [lo, hi]
 
 
 def adjust_image_size(calib_size: Tuple[int, int], image: np.ndarray

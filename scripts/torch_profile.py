@@ -4,13 +4,16 @@
     python3 scripts/torch_profile.py [--n_ref 12] [--out profile_out] [--skip_ba] [--depth]
     python3 scripts/torch_profile.py --fuse [--n_ref 4]
     python3 scripts/torch_profile.py --texture [--n_ref 12]
+    python3 scripts/torch_profile.py --ba_only [--linear_solver cg_blocks cg_dense_j ...]
 
 Renders the two-sensor rig workspace of chip_smoke.py (with ``--depth`` the
 three-sensor one, calibrated with the depth camera's flags of phase 4; with
 ``--mesh`` too, the mesh families of phase 4b), then traces with
 torch.profiler (a) one ``calibrate`` run through the CLI entry point and
 (b) one Schur-LM solve at the bench's size (cube scene 160x20, ~384k
-observations, float32, 10 LM x 30 CG). For each it writes the CUDA kernel
+observations, float32, 10 LM x 30 CG: chip_smoke.py phase 3's problem), once
+for each ``--linear_solver`` mode (default ``cg_blocks``; ``--ba_only``
+traces the solves alone). For each it writes the CUDA kernel
 time table to ``<out>/profile_<name>.txt`` and prints wall time, summed
 device time and the device idle share (1 - device time / wall time; kernels
 on one stream, so they do not overlap).
@@ -80,19 +83,23 @@ def main() -> int:
                     help="trace fuse-mesh on the nav_cam pairs instead")
     ap.add_argument("--texture", action="store_true",
                     help="trace texture of the fused mesh of every pair instead")
+    ap.add_argument("--ba_only", action="store_true",
+                    help="trace the Schur-LM solves at 384k observations alone")
+    ap.add_argument("--linear_solver", nargs="+", default=["cg_blocks"],
+                    help="the solver modes of the traced Schur-LM solves")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile.py needs a CUDA device")
     from multiview_tpu_torch.__main__ import main as cli_main
-    from multiview_tpu_torch.calib import problem as prob
-    from multiview_tpu_torch.solver import schur
     from multiview_tpu_torch.utils import synthetic as syn
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.ba_only:
+        return trace_ba(torch, args.linear_solver, out_dir)
     with tempfile.TemporaryDirectory(prefix="mv_profile_") as tmp:
         ws = Path(tmp) / "ws"
         syn.build_rig_workspace(ws, args.n_ref, (1280, 960), 1120.0,
@@ -161,21 +168,24 @@ def main() -> int:
     if args.skip_ba:
         print(torch.cuda.get_device_name(0))
         return 0
-    dev = torch.device("cuda", 0)
-    scene = syn.make_cube_scene(n_images=160, n_per_face=20,
-                                dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), pix_noise=0.5,
-                                dtype=torch.float32, device=dev)
-    state0 = syn.perturb_state(scene.true_state, pose_rot=0.01, pose_trans=0.02,
-                               point_sigma=0.02)
-    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,),
-                                                  optical_center=(0,), distortion=(0,)),
-                           no_rig=True, include_points=False)
-    solver = schur.make_schur_solver(state0, scene.observations, scene.models,
-                                     prob.BAOptions(no_rig=True), mask, max_iterations=10,
-                                     cg_iterations=30, cg_tolerance=0.1)
+    return trace_ba(torch, args.linear_solver, out_dir)
+
+
+def trace_ba(torch, modes, out_dir: Path) -> int:
+    """Traces chip_smoke.py phase 3's solve once per linear-solver mode,
+    each after a warm-up solve."""
+    import chip_smoke as cs
+    from multiview_tpu_torch.calib import problem as prob
+
+    scene, state0, make = cs.ba_problem(torch, torch.device("cuda", 0), 160, 20)
     cam0 = prob.pack_state(state0, include_points=False)
-    solver(cam0, state0.points)
-    traced("ba_384k", lambda: solver(cam0, state0.points), out_dir)
+    for mode in modes:
+        solver = make(linear_solver=mode)
+        res = solver(cam0, state0.points)
+        print(f"[profile] ba_384k {mode}: {res.iterations} LM, {int(res.cg_iters_total)} CG, "
+              f"{res.matvecs} matvecs, cost {float(res.cost):.7g}", flush=True)
+        traced("ba_384k" if mode == "cg_blocks" else f"ba_384k_{mode}",
+               lambda: solver(cam0, state0.points), out_dir)
     print(torch.cuda.get_device_name(0))
     return 0
 

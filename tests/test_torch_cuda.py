@@ -74,8 +74,10 @@ def test_tensor_core_kernel_matches_plain_split_plain_and_fma_kernel(cuda_device
 
 @pytest.mark.cuda
 def test_other_widths_go_to_the_fma_kernel(cuda_device):
+    """Widths above 128 go to the FMA kernel (narrower ones are zero-padded
+    for the tensor-core kernel, ``sfm/matching.py::kernel_for``)."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
-    q, t = _unit(g, (2, 333, 96), cuda_device), _unit(g, (2, 517, 96), cuda_device)
+    q, t = _unit(g, (2, 333, 160), cuda_device), _unit(g, (2, 517, 160), cuda_device)
     before = (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES)
     got = tm.knn2(q, t)
     torch.cuda.synchronize()
@@ -333,3 +335,40 @@ def test_sharded_solve_on_cuda_shards(cuda_device):
     torch.testing.assert_close(got.initial_cost, ref.initial_cost, rtol=1e-6, atol=0)
     torch.testing.assert_close(got.cost, ref.cost, rtol=1e-4, atol=0)
     torch.testing.assert_close(got.cam, ref.cam, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cg_stops_early_on_the_card(cuda_device, monkeypatch):
+    """On cuda:0 CG stops at the reference's test: the matvecs run stay
+    within one check interval of the CG count per LM iteration, and the
+    masked loop run to the whole budget takes the same LM and CG counts to
+    the same result (within float32 rounding: ``index_add_`` sums in no
+    fixed order on the card)."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import schur
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_cube_scene(n_images=16, n_per_face=5, pix_noise=0.3,
+                                dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), dtype=torch.float32,
+                                device=cuda_device)
+    state0 = syn.perturb_state(scene.true_state)
+    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
+                           include_points=False)
+    cam0 = prob.pack_state(state0, include_points=False)
+
+    def solve():
+        return schur.make_schur_solver(state0, scene.observations, scene.models,
+                                       prob.BAOptions(no_rig=True), mask, max_iterations=6,
+                                       cg_iterations=40, cg_tolerance=0.1)(cam0, state0.points)
+
+    res = solve()
+    cg = int(res.cg_iters_total)
+    assert cg <= res.matvecs <= cg + (schur.CG_CHECK_EVERY - 1) * res.iterations
+    assert res.matvecs < 40 * res.iterations // 2
+    assert float(res.cost) < float(res.initial_cost)
+    monkeypatch.setattr(schur, "CG_CHECK_EVERY", 41)
+    full = solve()
+    assert full.matvecs == 40 * full.iterations and int(full.cg_iters_total) == cg
+    assert full.iterations == res.iterations
+    torch.testing.assert_close(full.cost, res.cost, rtol=1e-6, atol=0)
+    torch.testing.assert_close(full.cam, res.cam, rtol=0, atol=1e-4)

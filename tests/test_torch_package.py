@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "dense.marching", "utils.undistort", "tools.fuse_mesh", "tools.undistort_tool",
                 "io.match_file", "calib.registration", "calib.pose_storage", "geometry.plane",
                 "texture.texturing", "texture.mesh_project", "tools.texture_mesh",
-                "parallel.sharding", "parallel.distributed", "parallel.dryrun"):
+                "parallel.sharding", "parallel.distributed", "parallel.dryrun",
+                "utils.profiling"):
         assert (ROOT / "multiview_tpu_torch" / (new.replace(".", "/") + ".py")).is_file()
 
 
@@ -81,6 +82,7 @@ def _constructors(device):
     import numpy as np
     import torch
     from multiview_tpu_torch.calib import assemble, bracketing as br, problem as prob
+    from multiview_tpu_torch.geometry import pose
     from multiview_tpu_torch.geometry.camera import CameraParams
     from multiview_tpu_torch.io import rig_config as rc
     from multiview_tpu_torch.sfm.tracks import TrackSet
@@ -123,12 +125,13 @@ def _constructors(device):
         "CameraParams.create": lambda: CameraParams.create(
             (64, 48), 50.0, (32.0, 24.0), **kw).focal,
         "cam_params_from_sensor": lambda: common.cam_params_from_sensor(sensor, **kw).focal,
+        "quat_identity": lambda: pose.quat_identity(**kw),
     }
 
 
 _CONSTRUCTORS = ["from_numpy", "build_state", "build_observations", "build_depth_observations",
                  "make_cube_scene", "make_rig_scene", "add_depth_observations",
-                 "CameraParams.create", "cam_params_from_sensor"]
+                 "CameraParams.create", "cam_params_from_sensor", "quat_identity"]
 
 
 def test_constructor_list_is_complete():

@@ -69,6 +69,68 @@ def test_ransac_homography_and_decomposition_match_jax(seed):
         assert np.abs(np.asarray(a) - b.numpy()).max() < TOL
 
 
+def _homography_candidates(H):
+    """The 8 (R, unit t) of the Faugeras-Lustman decomposition of H, in
+    numpy: the candidate set both packages vote over (its order follows the
+    SVD's signs)."""
+    U, S, Vt = np.linalg.svd(H)
+    s = np.linalg.det(U) * np.linalg.det(Vt)
+    d1, d2, d3 = S
+    den = max(d1 * d1 - d3 * d3, 1e-12)
+    a1 = np.sqrt(max(d1 * d1 - d2 * d2, 0.0) / den)
+    a3 = np.sqrt(max(d2 * d2 - d3 * d3, 0.0) / den)
+    cross = np.sqrt(max((d1 * d1 - d2 * d2) * (d2 * d2 - d3 * d3), 0.0))
+    out = []
+    for e1, e3 in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+        st, c = e1 * e3 * cross / ((d1 + d3) * d2), (d2 * d2 + d1 * d3) / ((d1 + d3) * d2)
+        out.append((np.array([[c, 0, -st], [0, 1, 0], [st, 0, c]]),
+                    (d1 - d3) * np.array([e1 * a1, 0, -e3 * a3])))
+        sp, c = e1 * e3 * cross / (abs(d1 - d3) * d2), (d1 * d3 - d2 * d2) / (abs(d1 - d3) * d2)
+        out.append((np.array([[c, 0, sp], [0, -1, 0], [sp, 0, -c]]),
+                    (d1 + d3) * np.array([e1 * a1, 0, e3 * a3])))
+    return [(s * U @ Rp @ Vt, U @ tp / np.linalg.norm(U @ tp)) for Rp, tp in out]
+
+
+@pytest.mark.parametrize("seed,spread,n_valid", [(6, 1.0, 2), (1, 3.0, 1)],
+                         ids=["both_valid", "one_valid"])
+def test_homography_decomposition_on_planar_pairs(seed, spread, n_valid):
+    """The SVD-convention cases: on a planar pair seen over a narrow field
+    (every point in front of both cameras under both physical
+    decompositions) the cheirality vote ties, and which of the two each
+    package returns follows its SVD's signs (on the card another library's);
+    the port's must be one of the reference's two. Over a wide field one
+    decomposition is valid and the two packages return it."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-spread, spread, (120, 2)), np.full((120, 1), 2.0)], 1)
+    R = TP.quat_to_matrix(TP.quat_exp(torch.as_tensor(rng.normal(0, 0.1, 3)))).numpy()
+    t = rng.normal(0, 0.3, 3)
+    p2 = pts @ R.T + t
+    x1, x2 = pts[:, :2] / pts[:, 2:], p2[:, :2] / p2[:, 2:]
+    H = R + np.outer(t, [0.0, 0.0, 0.5])          # the plane z = 2 of the first camera
+    inl = np.ones(len(x1), bool)
+    cands = _homography_candidates(H)
+    counts = [int(JR._cheirality_count(jnp.asarray(Rc), jnp.asarray(tc), jnp.asarray(x1),
+                                       jnp.asarray(x2), jnp.asarray(inl))) for Rc, tc in cands]
+    valid = []
+    for (Rc, tc), c in zip(cands, counts):
+        if c == max(counts) == len(x1) and not any(
+                np.abs(Rc - a).max() < TOL and np.abs(tc - b).max() < TOL for a, b in valid):
+            valid.append((Rc, tc))
+    assert len(valid) == n_valid
+    Rj, tj, _ = JR.decompose_homography(jnp.asarray(H), jnp.asarray(x1), jnp.asarray(x2),
+                                        jnp.asarray(inl))
+    Rt, tt, _ = TR.decompose_homography(_t(H), _t(x1), _t(x2), _t(inl))
+
+    def which(Rx, tx):
+        return [i for i, (a, b) in enumerate(valid)
+                if np.abs(np.asarray(Rx) - a).max() < TOL and np.abs(np.asarray(tx) - b).max() < TOL]
+
+    assert len(which(Rj, tj)) == 1 and len(which(Rt, tt)) == 1
+    if n_valid == 1:
+        assert which(Rt, tt) == which(Rj, tj)
+        assert np.abs(Rt.numpy() - R).max() < TOL
+
+
 @pytest.mark.parametrize("planar", [False, True], ids=["dlt", "planar"])
 def test_ransac_pnp_matches_jax(planar):
     rng = np.random.default_rng(3)
