@@ -10,9 +10,9 @@ Phases (each raises on failure; the script then exits non-zero without
 printing a result):
 
 0. set-up: require CUDA, print versions and the card, build the two matcher
-   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu) for sm_90a, one nvcc each,
-   started together, and the track builder's host library
-   (native/mv_native.cpp) with g++;
+   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu) and the Schur matvec kernel
+   (csrc/schur_mv.cu) for sm_90a, one nvcc each, started together, and the
+   track builder's host library (native/mv_native.cpp) with g++;
 1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
    D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
    FP32 oracle, for wider D) against ``knn2_plain``,
@@ -47,6 +47,13 @@ printing a result):
    final cost; the two other CG modes held to ``cg_blocks`` and
    ``dense_schur`` (an exact solve) to the forced-budget solve of phase 3,
    both within 1e-4 relative (phase 9a's float32 bar);
+3c. the Schur matvec kernel (``solver/schur_matvec.py``, csrc/schur_mv.cu)
+   against its plain version on the first system of phase 3's solve (the
+   benchmark's cube, 384000 rows) and of phase 4's (three sensors and depth
+   rows): S x, the right-hand side and the back-substitution's products
+   within 1e-4 of max |plain| (float32); microseconds per matvec of the
+   kernel, the plain version, the plain version replayed from a CUDA graph,
+   the kernel from a graph, and the bound with its share;
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -138,6 +145,10 @@ printing a result):
    reprojection RMS under its bar) and its metric line. It launches no
    kernel of this repo.
 
+Every path that runs the BA (phases 2, 2c, 3, 3b's ``cg_blocks``, 4, 4b, 6,
+6b, 6c, 8c, 9a, 9b, 9d and 10) counts the Schur matvec kernel's launches from
+0 and must have launched it.
+
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
 over phases 2, 2b, 2c, 4, 4b, 6, 6b, 6c, 8c, 9b and 9c, each counted from 0
@@ -145,7 +156,9 @@ and each required to be positive; ``launches_by_path`` has them all; the
 texture path of phases 8-8b launches no kernel; the FMA kernel, the FP32
 oracle, is launched by no path), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
-the main path's chunk), the card's name and power limit, and
+the main path's chunk; the Schur matvec kernel with its launches per path
+and phase 3c's figures at the cube, ``library_ms`` null), the card's name and
+power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -273,6 +286,10 @@ MP_CUBE = (40, 10)
 # phase 3's solver settings (those of bench.py)
 BA_SETTINGS = dict(max_iterations=10, cg_iterations=30, cg_tolerance=0.1)
 SHARDED_COST_RTOL, SHARDED_CAM_ATOL = 1e-4, 2e-3
+# phase 3c: the Schur matvec kernel against its plain version, max |diff| over
+# max |plain| in float32 (atomics and index_add_ sum in different orders)
+SCHUR_RTOL = 1e-4
+SCHUR_SOURCE = "multiview_tpu_torch/csrc/schur_mv.cu"
 
 
 class Tee(io.TextIOBase):
@@ -296,6 +313,41 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+# launches of csrc/schur_mv.cu per path, each counted from 0 (schur_counted)
+SCHUR_PATHS = {}
+# the first SchurSystem (and its x) of a path's BA, caught for phase 3c
+SCHUR_SYSTEMS = {}
+
+
+@contextlib.contextmanager
+def schur_counted(tag):
+    """Sets the Schur matvec kernel's count to 0 just before a path and reads
+    it just after; the path must have launched the kernel."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    smv.LAUNCHES = 0
+    yield
+    SCHUR_PATHS[tag] = smv.LAUNCHES
+    if smv.LAUNCHES <= 0:
+        raise AssertionError(f"{tag}: the BA launched csrc/schur_mv.cu no time")
+
+
+@contextlib.contextmanager
+def first_schur_system(key):
+    """Keeps the first (system, x) the path hands ``schur_matvec``."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    original = smv.schur_matvec
+
+    def spy(system, x):
+        SCHUR_SYSTEMS.setdefault(key, (system, x))
+        return original(system, x)
+
+    smv.schur_matvec = spy
+    try:
+        yield
+    finally:
+        smv.schur_matvec = original
 
 
 def descriptors(gen, p, n, d, device):
@@ -487,7 +539,7 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
     mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with ba_counts() as ba, contextlib.redirect_stdout(tee):
+    with schur_counted(tag), ba_counts() as ba, contextlib.redirect_stdout(tee):
         ret = cli(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -641,8 +693,9 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     triangulated points, depth_to_image and its scale floated from a guess
     that is off the truth. On one card ``--sharded`` shards nothing, as the
     reference's does on one chip."""
-    run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
-                               rig_true, ["--sharded"])
+    with first_schur_system("rig"):
+        run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
+                                   rig_true, ["--sharded"])
     sharded = "Sharded observations" in run["text"]
     if sharded != (torch.cuda.device_count() > 1):
         raise AssertionError(f"phase 4: --sharded on {torch.cuda.device_count()} card(s) "
@@ -844,9 +897,10 @@ def phase3(torch, card):
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
-    forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
-                                              state0.points)
+    with schur_counted("phase 3"), first_schur_system("cube"):
+        res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
+        forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
+                                                  state0.points)
     c0, c1 = float(res.initial_cost), float(res.cost)
     slack = (schur.CG_CHECK_EVERY - 1) * res.iterations
     print(f"[phase3] cube 160x20: {n_obs} observations; CG stopped at cg_tolerance "
@@ -873,8 +927,9 @@ def phase3b(torch, card, p3):
     scene, state0, solver = p3["problem"]
     cam0 = prob.pack_state(state0, include_points=False)
     for mode in ("cg_blocks", "cg", "cg_dense_j", "dense_schur"):
-        res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
-                                              state0.points, reps=2)
+        with (schur_counted("phase 3b") if mode == "cg_blocks" else contextlib.nullcontext()):
+            res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
+                                                  state0.points, reps=2)
         # dense_schur solves each step exactly: its trajectory is the one of
         # CG run to the whole budget, not of CG stopped at cg_tolerance 0.1
         ref = p3["forced"] if mode == "dense_schur" else p3["res"]
@@ -888,6 +943,114 @@ def phase3b(torch, card, p3):
                                  f"relative from cg_blocks (bar {SHARDED_COST_RTOL})")
         if mode == "dense_schur" and not (res.matvecs == 0 == int(res.cg_iters_total)):
             raise AssertionError("phase 3b: dense_schur ran CG")
+
+
+def schur_bound(system):
+    """(bound ms, "bytes" | "operations") of one S x: every input read once
+    (the camera and point blocks of the families with a camera block, their
+    int64 indices, x, cam_free, dc, Hpp^-1), the output written once, over
+    the memory rate; its multiply-adds over the FP32 rate."""
+    item = system.cam_free.element_size()
+    nbytes = item * (4 * system.total + 9 * system.num_points)
+    flop = 18 * system.num_points + 3 * system.total
+    for fams, (jc, jp) in zip(system.shards, system.J):
+        for a, b in zip(jc, jp):
+            if a is None:
+                continue
+            n, k, B = a.shape
+            nbytes += item * a.numel() + 8 * (2 * n + B - 14)
+            flop += 4 * n * k * B
+            if b is not None:
+                nbytes += item * b.numel() + 8 * n
+                flop += 12 * n * k
+    t_bytes, t_ops = nbytes / MEM_PEAK, flop / FP32_CORES_PEAK
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def graphed(torch, fn):
+    """``fn`` captured in a CUDA graph (warmed on a side stream first):
+    returns the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def per_call_ms(torch, fn, reps: int = 50):
+    """Device time per call of ``reps`` calls back to back (CUDA events):
+    where the host enqueues slower than the card runs, the host's time."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def phase3c(torch, card):
+    """The Schur matvec kernel (csrc/schur_mv.cu) against its plain version
+    on the systems phases 3 and 4 handed it first: the benchmark's cube at
+    384000 rows, and calibrate's three sensors with depth rows. Times per
+    matvec: the kernel, the plain version, the plain version replayed from a
+    CUDA graph (the launch overhead a graph removes is not the kernel's
+    gain), the kernel from a graph (its device time alone), and the bound.
+    Returns the records by system."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+
+    out = {}
+    for label in ("cube", "rig"):
+        system, x = SCHUR_SYSTEMS[label]
+        x = x.clone()
+        fams = [(tuple(a.shape), b is not None) for a, b in zip(*system.J[0]) if a is not None]
+        got = smv.schur_matvec_cuda(system, x)
+        ref = smv.schur_matvec_plain(system, x)
+        g_p = torch.randn((system.num_points, 3), dtype=x.dtype, device=x.device)
+        rhs = (smv.schur_rhs_cuda(system, x, g_p), smv.schur_rhs_plain(system, x, g_p))
+        rows = (smv.row_products_cuda(system, x), smv.row_products_plain(system, x))
+        torch.cuda.synchronize()
+        errs = {"matvec": (got - ref, ref), "rhs": (rhs[0] - rhs[1], rhs[1]),
+                "u": (torch.cat(rows[0][0]) - torch.cat(rows[1][0]), torch.cat(rows[1][0])),
+                "J_p^T u": (rows[0][1] - rows[1][1], rows[1][1])}
+        rel = {k: float(d.abs().max()) / max(float(r.abs().max()), 1e-30)
+               for k, (d, r) in errs.items()}
+        err = float((got - ref).abs().max())
+        runs = [("kernel", lambda: smv.schur_matvec_cuda(system, x)),
+                ("plain", lambda: smv.schur_matvec_plain(system, x)),
+                ("plain_graph", graphed(torch, lambda: smv.schur_matvec_plain(system, x))),
+                ("kernel_graph", graphed(torch, lambda: smv.schur_matvec_cuda(system, x)))]
+        times = {}
+        for key, fn in runs + runs[::-1]:                # in turns, the better of two
+            ms = per_call_ms(torch, fn)
+            times[key] = min(times.get(key, ms), ms)
+        bound_ms, bound_by = schur_bound(system)
+        print(f"[phase3c] {label}: {system.mesh.size} shard(s), families with a camera block "
+              f"(shape, point block) {fams}, {system.num_points} points, {system.total} "
+              f"camera parameters, {x.dtype}: us per matvec kernel "
+              f"{times['kernel'] * 1e3:.1f}, plain {times['plain'] * 1e3:.1f}, plain from a "
+              f"CUDA graph {times['plain_graph'] * 1e3:.1f}, kernel from a CUDA graph "
+              f"{times['kernel_graph'] * 1e3:.1f}, bound {bound_ms * 1e3:.1f} by {bound_by} "
+              f"(share of bound {bound_ms / times['kernel']:.4f}; from a graph "
+              f"{bound_ms / times['kernel_graph']:.4f}); kernel against plain, max |diff| / "
+              f"max |plain|: {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} [{card}]",
+              flush=True)
+        if not all(v <= SCHUR_RTOL for v in rel.values()):
+            raise AssertionError(f"phase 3c {label}: the Schur kernel disagrees with its plain "
+                                 f"version: {rel} (bar {SCHUR_RTOL})")
+        out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                      "plain_graph_ms": times["plain_graph"],
+                      "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+    return out
 
 
 def phase5(torch, device, card):
@@ -960,7 +1123,7 @@ def run_sfm_init(torch, mm, tag, ws: Path, out: Path, extra, spy=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with ba_counts() as ba, contextlib.redirect_stdout(tee):
+        with schur_counted(tag), ba_counts() as ba, contextlib.redirect_stdout(tee):
             ret = cli_main(argv)
     finally:
         global_sfm.view_graph_from_matches = original
@@ -1120,7 +1283,7 @@ def calibrate_from_nvm(torch, mm, tag, ws: Path, nvm: Path, out: Path, passes: i
     mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    with schur_counted(tag), contextlib.redirect_stdout(tee):
         ret = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1695,7 +1858,8 @@ def phase9a(torch, card):
                                      for i in range(torch.cuda.device_count())])))
     out = {"wall_unsharded": wall1}
     for what, mesh in meshes:
-        got, wall = timed(sh.shard_observations(scene.observations, mesh))
+        with schur_counted(f"phase 9a ({what})"):
+            got, wall = timed(sh.shard_observations(scene.observations, mesh))
         gap = solve_gap(ref, got)
         print(f"[phase9a] cube 160x20, 10 LM x 30 CG, float32: unsharded wall {wall1:.4f} s "
               f"({ref.iterations / wall1:.3f} LM it/s, {ref.iterations} LM, "
@@ -1829,6 +1993,7 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
     import torch.distributed as dist
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
+    from multiview_tpu_torch.solver import schur_matvec as smv
 
     if not pdist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo"):
         raise AssertionError("phase 9d: the worker joined no group")
@@ -1847,7 +2012,8 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
     np.savez(out, cam=res.cam.cpu().numpy(), points=res.points.cpu().numpy(),
              cost=float(res.cost), initial_cost=float(res.initial_cost),
              iterations=res.iterations, cg=int(res.cg_iters_total), lam=float(res.lam),
-             size=mesh.size, gathered=gathered, device=str(res.cam.device))
+             size=mesh.size, gathered=gathered, device=str(res.cam.device),
+             schur_launches=smv.LAUNCHES)
     dist.destroy_process_group()
     return 0
 
@@ -1888,7 +2054,10 @@ def phase9d(torch, card, workdir: Path):
         if p.returncode != 0:
             raise AssertionError(f"phase 9d: a rank failed:\n{log[-3000:]}")
     r0, r1 = (dict(np.load(o)) for o in outs)
-    same = all(np.array_equal(r0[k], r1[k]) for k in r0)
+    SCHUR_PATHS["phase 9d (2 gloo ranks)"] = int(r0["schur_launches"] + r1["schur_launches"])
+    if not (r0["schur_launches"] > 0 and r1["schur_launches"] > 0):
+        raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu no time")
+    same = all(np.array_equal(r0[k], r1[k]) for k in r0 if k != "schur_launches")
 
     dev = torch.device("cuda", 0)
     scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
@@ -1903,7 +2072,8 @@ def phase9d(torch, card, workdir: Path):
     try:
         backend = dist.get_backend()
         mesh = sh.make_mesh([dev] * SHARDS, group=dist.group.WORLD)
-        nccl = solver(cam0, state0.points, sh.shard_observations(scene.observations, mesh))
+        with schur_counted("phase 9d (nccl)"):
+            nccl = solver(cam0, state0.points, sh.shard_observations(scene.observations, mesh))
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
@@ -1929,8 +2099,10 @@ def phase10(torch, card):
     from bench_torch.common import load_config, workloads
 
     cell = workloads()["ba_cube_384k"]
-    rec = ba_cube.run(load_config(cell), dict(cell, runs={"warm": 1, "timed": 1, "traced": 0}),
-                      seed=0, log=lambda s: print(f"[phase10] {s}", flush=True))
+    with schur_counted("phase 10"):
+        rec = ba_cube.run(load_config(cell), dict(cell, runs={"warm": 1, "timed": 1,
+                                                             "traced": 0}),
+                          seed=0, log=lambda s: print(f"[phase10] {s}", flush=True))
     keys = ("cell", "seed", "correct", "attempted", "failed", "failures", "metric", "value",
             "unit", "per_layer", "checks")
     print(f"[phase10] {json.dumps({k: rec[k] for k in keys})} [{card}]", flush=True)
@@ -1960,7 +2132,7 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()} [{card}]", flush=True)
     t0 = time.perf_counter()
-    sources = ["knn2_wgmma.cu", "knn2.cu"]
+    sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu"]
     cuda_build.build_libraries(sources)        # one nvcc each, started together
     print(f"[phase0] built csrc/{{{','.join(sources)}}} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2003,6 +2175,7 @@ def main() -> int:
         t9 = time.perf_counter() - t9
     paths["phase2b"] = phase2b(torch, mm, dev, card)
     phase3b(torch, card, phase3(torch, card))
+    p3c = phase3c(torch, card)
     phase5(torch, dev, card)
     t0 = time.perf_counter()
     phase9a(torch, card)
@@ -2021,7 +2194,14 @@ def main() -> int:
         {"name": "knn2_top2", "route": "cuda", "source": FMA_SOURCE, "replaces": replaces,
          "launches": 0, "on_path": False,
          **{k: chunk[k] for k in keys if k not in ("ms", "max_abs_err")},
-         "ms": chunk["fma_ms"], "max_abs_err": chunk["fma_max_abs_err"]}]}))
+         "ms": chunk["fma_ms"], "max_abs_err": chunk["fma_max_abs_err"]},
+        # no single PyTorch call computes S x: library_ms is null
+        {"name": "schur_mv", "route": "cuda", "source": SCHUR_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:1147 (schur_mv of cg_blocks, XLA code: "
+                     "no pallas_call)",
+         "launches": sum(SCHUR_PATHS.values()), "launches_by_path": SCHUR_PATHS,
+         **{k: p3c["cube"][k] for k in keys}, "plain_graph_ms": p3c["cube"]["plain_graph_ms"],
+         "kernel_graph_ms": p3c["cube"]["kernel_graph_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@ explicit per-row block Jacobians:
   copies of the parameters;
 - camera columns are gathered per row by the bracketing pose indices and
   reduced back with ``index_add_`` per pose (per-sensor constant columns
-  are plain sums); point sides are ``index_add_`` per point;
+  are plain sums); point sides are ``index_add_`` per point. The CG's Schur
+  matvec, its right-hand side and the back-substitution's product
+  (``solver/schur_matvec.py``) run the hand-written kernel
+  ``csrc/schur_mv.cu`` on the card and those gathers and sums on the CPU;
 - Hpp [P,3,3], the Jacobi diagonal and the 7x7 SCHUR_JACOBI pose blocks are
   assembled once per LM iteration, Hpp+lam*D inverted in closed form.
 
@@ -52,6 +55,7 @@ import torch
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.geometry import pose as pose_mod
 from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
+from multiview_tpu_torch.solver import schur_matvec as smv
 
 
 class CamLayout(NamedTuple):
@@ -283,7 +287,8 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
     ``linear_solver``, how each LM step solves the reduced camera system:
 
     - "cg_blocks": PCG whose matvecs are products with the per-row block
-      Jacobians (gathers by pose index and ``index_add_``);
+      Jacobians (on the card the kernel ``csrc/schur_mv.cu``, on the CPU
+      gathers by pose index and ``index_add_``);
     - "cg": PCG, matrix-free: the residual function is linearized at the
       current state once per LM iteration (``torch.func.vjp``) and every
       product with J or J^T (the gradient, the matvecs, the back-substitution,
@@ -434,34 +439,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 out.append((jc, jp, cat(res, s)))
             return [o[:2] for o in out], [o[2] for o in out]
 
-        def split(u, jc, jp):
-            """Flat residual-space vector -> per-family [n,k] blocks."""
-            out, off = [], 0
-            for a, b in zip(jc, jp):
-                n, k = (b if a is None else a).shape[:2]
-                out.append(u[off:off + n * k].reshape(n, k))
-                off += n * k
-            return out
-
-        def gather_cols(f: _Family, xc):
-            """Each row's camera sub-vector [N,B] (pose columns by index)."""
-            wref = xc[:num_ref * 7].reshape(num_ref, 7)
-            n = f.beg_idx.shape[0]
-            return torch.cat([wref[f.beg_idx], wref[f.end_idx],
-                              xc[f.const_cols].expand(n, -1)], dim=-1)
-
-        def reduce_cols(contribs, dev):
-            """[(family, [N,B])] -> [C] on ``dev``: index_add_ per pose for the
-            pose columns, plain sums for the per-sensor constant columns."""
-            gc = torch.zeros(layout.total, dtype=dtype, device=dev)
-            gpose = torch.zeros((num_ref, 7), dtype=dtype, device=dev)
-            for f, c in contribs:
-                gpose.index_add_(0, f.beg_idx, c[:, :7])
-                gpose.index_add_(0, f.end_idx, c[:, 7:14])
-                gc.index_add_(0, f.const_cols, c[:, 14:].sum(0))
-            gc[:num_ref * 7] += gpose.reshape(-1)
-            return gc
-
         def row_cols(f: _Family):
             """Each row's camera columns [N,B]: beg pose, end pose, constants."""
             seven = torch.arange(7, device=f.beg_idx.device)
@@ -487,51 +464,28 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         def Jmv(J, xc, xp, dense=None):
             """J @ (xc, xp) per shard; None skips that side. With ``dense``
             (``densify(J)``) the camera side multiplies the dense blocks."""
-            out = []
-            for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
-                xcs, xps = on(xc, s), on(xp, s)
-                parts = []
-                for i, (f, a, b) in enumerate(zip(fams, jc, jp)):
-                    u = None
-                    if a is not None and xcs is not None:
-                        u = ((dense[s][i] @ xcs) if dense is not None
-                             else torch.einsum("nkb,nb->nk", a, gather_cols(f, xcs)))
-                    if b is not None and xps is not None:
-                        up = torch.einsum("nkj,nj->nk", b, xps[f.point_idx])
-                        u = up if u is None else u + up
-                    if u is None:
-                        u = torch.zeros((b if a is None else a).shape[:2], dtype=dtype,
-                                        device=devs[s])
-                    parts.append(u.reshape(-1))
-                out.append(cat(parts, s))
-            return out
+            return [smv.shard_jmv(fams, jc, jp, on(xc, s), on(xp, s), num_ref, dtype, devs[s],
+                                  None if dense is None else dense[s])
+                    for s, (fams, (jc, jp)) in enumerate(zip(shards, J))]
 
         def JTmv_c(J, u, dense=None):
             partials = []
             for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u)):
-                blocks = split(us, jc, jp)
-                if dense is not None:
-                    gc = torch.zeros(layout.total, dtype=dtype, device=devs[s])
-                    for d, ub in zip(dense[s], blocks):
-                        if d is not None:
-                            # as [C, N*k] @ [N*k]: a transposed view, no copy of d
-                            gc = gc + d.reshape(-1, layout.total).t() @ ub.reshape(-1)
-                    partials.append(gc)
+                if dense is None:
+                    partials.append(smv.shard_jtmv_c(fams, jc, jp, us, num_ref, layout.total,
+                                                     dtype, devs[s]))
                     continue
-                contribs = [(f, torch.einsum("nkb,nk->nb", a, ub))
-                            for f, a, ub in zip(fams, jc, blocks) if a is not None]
-                partials.append(reduce_cols(contribs, devs[s]))
+                gc = torch.zeros(layout.total, dtype=dtype, device=devs[s])
+                for d, ub in zip(dense[s], smv.split_rows(us, jc, jp)):
+                    if d is not None:
+                        # as [C, N*k] @ [N*k]: a transposed view, no copy of d
+                        gc = gc + d.reshape(-1, layout.total).t() @ ub.reshape(-1)
+                partials.append(gc)
             return mesh.sum(partials)
 
         def JTmv_p(J, u):
-            partials = []
-            for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u)):
-                gp = torch.zeros((num_points, 3), dtype=dtype, device=devs[s])
-                for f, b, ub in zip(fams, jp, split(us, jc, jp)):
-                    if b is not None:
-                        gp.index_add_(0, f.point_idx, torch.einsum("nkj,nk->nj", b, ub))
-                partials.append(gp)
-            return mesh.sum(partials)
+            return mesh.sum([smv.shard_jtmv_p(fams, jc, jp, us, num_points, dtype, devs[s])
+                             for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u))])
 
         def dot(a, b):
             """Dot of replicated (camera- or point-space) vectors."""
@@ -653,16 +607,16 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     if b is not None:
                         hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
                 hpp_parts.append(hpp)
-                diag_parts.append(reduce_cols([(f, torch.sum(a * a, dim=1))
-                                               for f, a in zip(fams, jc) if a is not None],
-                                              devs[s]))
+                diag_parts.append(smv.reduce_cols([(f, torch.sum(a * a, dim=1))
+                                                   for f, a in zip(fams, jc) if a is not None],
+                                                  num_ref, layout.total, dtype, devs[s]))
             hpp = mesh.sum(hpp_parts)
             cam_diag = torch.clamp(mesh.sum(diag_parts), 1e-12, 1e32)
             pt_diag = torch.clamp(torch.diagonal(hpp, dim1=-2, dim2=-1), 1e-12, 1e32)
             hpp_inv = inv3x3_spd(hpp + torch.diag_embed(lam * pt_diag))
 
             def solve3(rhs):
-                return torch.einsum("pij,pj->pi", hpp_inv, rhs)
+                return smv.solve3(hpp_inv, rhs)
 
             dc = lam * cam_diag * cam_free + (1.0 - cam_free)
             precond = 1.0 / (cam_diag * cam_free + dc)
@@ -706,30 +660,46 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     def precond_apply(v):
                         return precond * v
 
-                # the CG's products: the camera side on dense blocks in
-                # "cg_dense_j"; the point side is the same in every mode
-                if linear_solver == "cg_dense_j":
-                    dense = densify(J)
-                    cg_Jx = functools.partial(Jmv, J, dense=dense)
-                    cg_JTc = functools.partial(JTmv_c, J, dense=dense)
+                if linear_solver == "cg_blocks":
+                    # S x, its right-hand side and the back-substitution's
+                    # product: csrc/schur_mv.cu on the card, plain on the CPU
+                    system = smv.SchurSystem(mesh, shards, J, cam_free, dc, hpp_inv, num_ref)
+
+                    def schur_mv(x):
+                        nonlocal matvecs
+                        matvecs += 1
+                        return smv.schur_matvec(system, x)
+
+                    rhs = smv.schur_rhs(system, g_c, g_p)
                 else:
-                    cg_Jx, cg_JTc = Jx, JTc
+                    # the camera side on dense blocks in "cg_dense_j", by
+                    # the linearization in "cg"; the point side is the row blocks'
+                    if linear_solver == "cg_dense_j":
+                        dense = densify(J)
+                        cg_Jx = functools.partial(Jmv, J, dense=dense)
+                        cg_JTc = functools.partial(JTmv_c, J, dense=dense)
+                    else:
+                        cg_Jx, cg_JTc = Jx, JTc
 
-                def schur_mv(x):
-                    nonlocal matvecs
-                    matvecs += 1
-                    u = cg_Jx(x * cam_free, None)
-                    w = solve3(JTp(u))
-                    z = cg_Jx(None, w)
-                    return cg_JTc(rsub(u, z)) * cam_free + dc * x
+                    def schur_mv(x):
+                        nonlocal matvecs
+                        matvecs += 1
+                        u = cg_Jx(x * cam_free, None)
+                        w = solve3(JTp(u))
+                        z = cg_Jx(None, w)
+                        return cg_JTc(rsub(u, z)) * cam_free + dc * x
 
-                # rhs = -(g_c - E Hpp^-1 g_p)
-                rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
+                    # rhs = -(g_c - E Hpp^-1 g_p)
+                    rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
                 dc_step, cg_k = pcg(schur_mv, precond_apply, rhs)
 
             # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
-            u = Jx(dc_step * cam_free, None)
-            dp = solve3(-g_p - JTp(u))
+            if linear_solver == "cg_blocks":
+                u, jtp_u = smv.row_products(system, dc_step)
+            else:
+                u = Jx(dc_step * cam_free, None)
+                jtp_u = JTp(u)
+            dp = solve3(-g_p - jtp_u)
 
             cam_new = project(cam + dc_step * cam_free)
             pts_new = points + dp

@@ -372,3 +372,159 @@ def test_cg_stops_early_on_the_card(cuda_device, monkeypatch):
     assert full.iterations == res.iterations
     torch.testing.assert_close(full.cost, res.cost, rtol=1e-6, atol=0)
     torch.testing.assert_close(full.cam, res.cam, rtol=0, atol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# The Schur complement matvec (csrc/schur_mv.cu) against its plain version on
+# the card: |kernel - plain| <= tol * max |plain| with tol 1e-4 in float32 and
+# 1e-10 in float64 (atomics and the plain path sum in different orders)
+# ----------------------------------------------------------------------------
+
+_SCHUR_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def _schur_system(dev, dtype, families, order, num_ref=40, num_points=300, shards=1, seed=0):
+    """A random SchurSystem: ``families`` as (rows, k, B, with point block),
+    rows grouped by pose ("grouped": sorted, runs of rows on one pose, as the
+    cube's) or in random order ("unsorted"); every family's constant columns
+    lie after the poses, the depth families' shared with the one before."""
+    import types
+    import numpy as np
+    from multiview_tpu_torch.parallel import sharding as sh
+    from multiview_tpu_torch.solver import schur_matvec as smv
+
+    g = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)    # noqa: E731
+    i = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)    # noqa: E731
+    next_col, prev = num_ref * 7, None
+    fams, jc, jp = [[] for _ in range(shards)], [[] for _ in range(shards)], \
+        [[] for _ in range(shards)]
+    for n, k, B, with_pt in families:
+        nc = B - 14
+        if prev is not None and prev == (k, nc):
+            cols = fams[0][-1].const_cols.cpu().numpy()
+        else:
+            cols = next_col + g.permutation(nc)
+            next_col += nc
+        prev = (k, nc)
+        beg = g.integers(0, num_ref, n)
+        if order == "grouped":
+            beg = np.sort(beg)
+        end = np.minimum(beg + g.integers(0, 2, n), num_ref - 1)
+        pidx = g.integers(0, num_points, n)
+        a = g.normal(size=(n, k, B))
+        b = g.normal(size=(n, k, 3)) if with_pt else None
+        for s, rows in enumerate(np.array_split(np.arange(n), shards)):
+            fams[s].append(types.SimpleNamespace(
+                beg_idx=i(beg[rows]), end_idx=i(end[rows]), const_cols=i(cols),
+                point_idx=i(pidx[rows]) if with_pt else None))
+            jc[s].append(t(a[rows]))
+            jp[s].append(t(b[rows]) if with_pt else None)
+    # an xyz prior: point blocks only
+    for s in range(shards):
+        fams[s].append(types.SimpleNamespace(beg_idx=None, end_idx=None, const_cols=None,
+                                             point_idx=i(g.integers(0, num_points, 7))))
+        jc[s].append(None)
+        jp[s].append(t(g.normal(size=(7, 3, 3))))
+    C = next_col + 5
+    m = g.normal(size=(num_points, 3, 3))
+    hpp = m @ m.transpose(0, 2, 1) + 3 * np.eye(3)
+    cam_free = (g.uniform(size=C) > 0.1).astype(float)
+    mesh = sh.make_mesh([dev] * shards)
+    system = smv.SchurSystem(mesh, fams, list(zip(jc, jp)), t(cam_free),
+                             t(g.uniform(0.5, 2.0, C) * cam_free + (1 - cam_free)),
+                             t(np.linalg.inv(hpp)), num_ref)
+    return system, t(g.normal(size=C))
+
+
+def _schur_close(got, ref, dtype):
+    err = float((got - ref).abs().max())
+    assert err <= _SCHUR_TOL[dtype] * float(ref.abs().max()), err
+
+
+_SCHUR_CASES = {
+    "k2_B29": [(3000, 2, 29, True)],
+    "k3_B30_no_point_block": [(2000, 3, 30, False)],
+    "k3_B35_affine": [(1500, 3, 35, True)],
+    "rig_families": [(2000, 2, 25, True), (1800, 2, 29, True), (0, 2, 30, True),
+                     (900, 3, 30, True), (700, 3, 30, False)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["grouped", "unsorted"])
+@pytest.mark.parametrize("case", list(_SCHUR_CASES))
+def test_schur_matvec_kernel_matches_plain_version(cuda_device, case, order, dtype):
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    system, x = _schur_system(cuda_device, dtype, _SCHUR_CASES[case], order)
+    before = smv.LAUNCHES
+    got = smv.schur_matvec(system, x)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES == before + 3       # point pass, camera pass, epilogue
+    _schur_close(got, smv.schur_matvec_plain(system, x), dtype)
+    g_c = torch.randn_like(x)
+    g_p = torch.randn((system.num_points, 3), dtype=dtype, device=cuda_device)
+    _schur_close(smv.schur_rhs(system, g_c, g_p), smv.schur_rhs_plain(system, g_c, g_p), dtype)
+    u, jtp_u = smv.row_products(system, x)
+    u_ref, jtp_ref = smv.row_products_plain(system, x)
+    _schur_close(torch.cat(u), torch.cat(u_ref), dtype)
+    _schur_close(jtp_u, jtp_ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_matvec_kernel_on_logical_shards(cuda_device, dtype):
+    """Two shards on one card: the kernel per shard, the sums over the mesh."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    system, x = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], "unsorted",
+                              shards=2)
+    _schur_close(smv.schur_matvec(system, x), smv.schur_matvec_plain(system, x), dtype)
+
+
+@pytest.mark.cuda
+def test_schur_matvec_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A non-contiguous block, another dtype, a CPU index: raised, never
+    computed another way."""
+    import dataclasses
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    system, x = _schur_system(cuda_device, torch.float32, _SCHUR_CASES["k2_B29"], "grouped")
+    jc, jp = system.J[0]
+    wide = torch.cat([jc[0], jc[0]], dim=2)[:, :, :29]       # the same values, strided
+    assert not wide.is_contiguous()
+    bad = dataclasses.replace(system, J=[([wide] + list(jc[1:]), jp)], _plans=None)
+    with pytest.raises(ValueError, match="not contiguous"):
+        smv.schur_matvec(bad, x)
+    with pytest.raises(TypeError):
+        smv.schur_matvec(dataclasses.replace(system, _plans=None), x.double())
+    f = system.shards[0][0]
+    moved = dataclasses.replace(system, shards=[[type(f)(**{**vars(f), "beg_idx":
+                                                            f.beg_idx.cpu()})]
+                                                + list(system.shards[0][1:])], _plans=None)
+    with pytest.raises(ValueError):
+        smv.schur_matvec(moved, x)
+
+
+@pytest.mark.cuda
+def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
+    """A solve on the card: every matvec is one point pass, one camera pass
+    and one epilogue of csrc/schur_mv.cu; per LM iteration one more camera
+    pass and epilogue (the right-hand side) and one point pass (the
+    back-substitution)."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import schur, schur_matvec as smv
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
+                                device=cuda_device)
+    state0 = syn.perturb_state(scene.true_state)
+    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
+                           include_points=False)
+    before = smv.LAUNCHES
+    res = schur.make_schur_solver(state0, scene.observations, scene.models,
+                                  prob.BAOptions(no_rig=True), mask, max_iterations=6,
+                                  cg_iterations=40, cg_tolerance=0.1)(
+        prob.pack_state(state0, include_points=False), state0.points)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES - before == 3 * res.matvecs + 3 * res.iterations
+    assert float(res.cost) < float(res.initial_cost)
