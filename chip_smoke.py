@@ -10,9 +10,10 @@ Phases (each raises on failure; the script then exits non-zero without
 printing a result):
 
 0. set-up: require CUDA, print versions and the card, build the two matcher
-   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu) and the Schur matvec kernel
-   (csrc/schur_mv.cu) for sm_90a, one nvcc each, started together, and the
-   track builder's host library (native/mv_native.cpp) with g++;
+   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu), the Schur matvec kernel
+   (csrc/schur_mv.cu) and the row blocks kernel (csrc/row_blocks.cu) for
+   sm_90a, one nvcc each, started together, and the track builder's host
+   library (native/mv_native.cpp) with g++;
 1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
    D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
    FP32 oracle, for wider D) against ``knn2_plain``,
@@ -54,6 +55,22 @@ printing a result):
    within 1e-4 of max |plain| (float32); microseconds per matvec of the
    kernel, the plain version, the plain version replayed from a CUDA graph,
    the kernel from a graph, and the bound with its share;
+3d. the row blocks kernel (``solver/row_blocks.py``, csrc/row_blocks.cu:
+   per-row residuals and block Jacobians by forward-mode dual numbers)
+   against its plain version (autograd) in float64 on the same inputs, on
+   every family that phases 3 and 4 handed the solver first (the cube's
+   384000 tsai rows; calibrate's three pixel sensors and depth rows), and on
+   the cube's rows with an rpc of degree 2 in place of tsai, within
+   SCHUR_RTOL of max |plain| for each output with the family's float32
+   tensors and ROW_RTOL_F64 with them in float64, beside the plain float32
+   version's own error: ms a call of the kernel, the plain version, the
+   plain version from a CUDA graph (or why it could not be captured), the
+   kernel from a graph (whose capture must work), the bound (the bytes, or
+   the FLOPs of the function, ``row_block_flops``, over the FP32 rate) and
+   its share, registers and spills from the build's ptxas report; then the
+   planted rows of
+   tests/row_block_scenes.py (every family, model and branch) in float32
+   (SCHUR_RTOL) and float64 (ROW_RTOL_F64);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -147,7 +164,9 @@ printing a result):
 
 Every path that runs the BA (phases 2, 2c, 3, 3b's ``cg_blocks``, 4, 4b, 6,
 6b, 6c, 8c, 9a, 9b, 9d and 10) counts the Schur matvec kernel's launches from
-0 and must have launched it.
+0 and must have launched it; each of them and phase 3b's other three modes
+counts the row blocks kernel's launches from 0 and must have launched it and
+taken no family to the plain version.
 
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
@@ -157,7 +176,9 @@ texture path of phases 8-8b launches no kernel; the FMA kernel, the FP32
 oracle, is launched by no path), its time, its plain version's, the
 product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
 the main path's chunk; the Schur matvec kernel with its launches per path
-and phase 3c's figures at the cube, ``library_ms`` null), the card's name and
+and phase 3c's figures at the cube, ``library_ms`` null; the row blocks
+kernel with its launches per path and phase 3d's figures at the cube, every
+family's under ``by_family``, ``library_ms`` null), the card's name and
 power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -290,6 +311,11 @@ SHARDED_COST_RTOL, SHARDED_CAM_ATOL = 1e-4, 2e-3
 # max |plain| in float32 (atomics and index_add_ sum in different orders)
 SCHUR_RTOL = 1e-4
 SCHUR_SOURCE = "multiview_tpu_torch/csrc/schur_mv.cu"
+# phase 3d: the row blocks kernel against its plain version in float64 on the
+# same inputs, max |diff| over max |plain| of each output (forward against
+# reverse mode): float32 tensors at SCHUR_RTOL, float64 ones at ROW_RTOL_F64
+ROW_RTOL_F64 = 1e-9
+ROW_SOURCE = "multiview_tpu_torch/csrc/row_blocks.cu"
 
 
 class Tee(io.TextIOBase):
@@ -315,22 +341,59 @@ def card_line() -> str:
     return out[0].strip()
 
 
-# launches of csrc/schur_mv.cu per path, each counted from 0 (schur_counted)
+# launches of csrc/schur_mv.cu and of csrc/row_blocks.cu per path, each
+# counted from 0 (schur_counted)
 SCHUR_PATHS = {}
+ROW_PATHS = {}
 # the first SchurSystem (and its x) of a path's BA, caught for phase 3c
 SCHUR_SYSTEMS = {}
+# the first call of each row-block family of a path's BA, caught for phase 3d
+ROW_CALLS = {}
 
 
 @contextlib.contextmanager
-def schur_counted(tag):
-    """Sets the Schur matvec kernel's count to 0 just before a path and reads
-    it just after; the path must have launched the kernel."""
-    from multiview_tpu_torch.solver import schur_matvec as smv
-    smv.LAUNCHES = 0
+def schur_counted(tag, matvec: bool = True):
+    """Sets the Schur matvec kernel's and the row blocks kernel's counts to 0
+    just before a BA path and reads them just after; the path must have
+    launched the row blocks kernel and (with ``matvec``: the ``cg_blocks``
+    paths) the matvec kernel."""
+    from multiview_tpu_torch.solver import row_blocks as rb, schur_matvec as smv
+    smv.LAUNCHES = rb.LAUNCHES = 0
     yield
-    SCHUR_PATHS[tag] = smv.LAUNCHES
-    if smv.LAUNCHES <= 0:
-        raise AssertionError(f"{tag}: the BA launched csrc/schur_mv.cu no time")
+    if matvec:
+        SCHUR_PATHS[tag] = smv.LAUNCHES
+        if smv.LAUNCHES <= 0:
+            raise AssertionError(f"{tag}: the BA launched csrc/schur_mv.cu no time")
+    ROW_PATHS[tag] = rb.LAUNCHES
+    if rb.LAUNCHES <= 0:
+        raise AssertionError(f"{tag}: the BA launched csrc/row_blocks.cu no time")
+
+
+@contextlib.contextmanager
+def first_row_blocks(key):
+    """Keeps the first call of each family (kind, sensor, variant) that the
+    path's BA hands the row-block entry points of ``solver/schur.py``."""
+    from multiview_tpu_torch.solver import schur
+    names = ("pixel_row_blocks", "depth_row_blocks", "prior_row_blocks")
+    originals = {n: getattr(schur, n) for n in names}
+    calls = ROW_CALLS.setdefault(key, {})
+
+    def spy(name):
+        def fn(*args):
+            obs = args[1]
+            tag = (name.split("_")[0], getattr(obs, "sensor", None),
+                   args[3] if name == "depth_row_blocks" else None)
+            calls.setdefault(tag, args)
+            return originals[name](*args)
+        return fn
+
+    for n in names:
+        setattr(schur, n, spy(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(schur, n, originals[n])
 
 
 @contextlib.contextmanager
@@ -693,7 +756,7 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     triangulated points, depth_to_image and its scale floated from a guess
     that is off the truth. On one card ``--sharded`` shards nothing, as the
     reference's does on one chip."""
-    with first_schur_system("rig"):
+    with first_schur_system("rig"), first_row_blocks("rig"):
         run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
                                    rig_true, ["--sharded"])
     sharded = "Sharded observations" in run["text"]
@@ -897,7 +960,7 @@ def phase3(torch, card):
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    with schur_counted("phase 3"), first_schur_system("cube"):
+    with schur_counted("phase 3"), first_schur_system("cube"), first_row_blocks("cube"):
         res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
         forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
                                                   state0.points)
@@ -927,7 +990,8 @@ def phase3b(torch, card, p3):
     scene, state0, solver = p3["problem"]
     cam0 = prob.pack_state(state0, include_points=False)
     for mode in ("cg_blocks", "cg", "cg_dense_j", "dense_schur"):
-        with (schur_counted("phase 3b") if mode == "cg_blocks" else contextlib.nullcontext()):
+        with schur_counted("phase 3b" if mode == "cg_blocks" else f"phase 3b ({mode})",
+                           matvec=mode == "cg_blocks"):
             res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
                                                   state0.points, reps=2)
         # dense_schur solves each step exactly: its trajectory is the one of
@@ -1050,6 +1114,229 @@ def phase3c(torch, card):
                       "plain_graph_ms": times["plain_graph"],
                       "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+    return out
+
+
+def ptxas_report(source: str):
+    """{mangled kernel: (registers, spill store bytes, spill load bytes)} from
+    this process's nvcc -Xptxas -v report of ``source``."""
+    from multiview_tpu_torch.utils import cuda_build
+    text = cuda_build.build_reports.get(source, (0.0, ""))[1]
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def row_family(torch, kind, args):
+    """(label, kernel symbol, tensors read, the entry points' arguments) of a
+    row-block family caught from a path (``first_row_blocks``)."""
+    from multiview_tpu_torch.solver import row_blocks as rb
+    st, obs = args[0], args[1]
+    t = "f" if st.dtype == torch.float32 else "d"
+    if kind == "pixel":
+        model, s = args[2], obs.sensor
+        d = int(st.dist[s].numel())
+        code = rb.model_code(model, d)
+        reads = [st.world_to_ref, st.points, obs.beg_idx, obs.end_idx, obs.point_idx, obs.pix,
+                 obs.dt_cam, obs.dt_bracket, obs.mask, st.ref_to_cam[s], st.optical_center[s],
+                 st.dist[s], obs.dist_half_size, st.focal[s], st.timestamp_offsets[s]]
+        return (f"pixel sensor {s} ({model} {d})", f"12pixel_kernelI{t}Li{code}EE", reads)
+    if kind == "depth":
+        opts, mesh, s = args[2], args[3], obs.sensor
+        a = int(opts.affine_depth_to_image)
+        reads = [st.world_to_ref, obs.beg_idx, obs.end_idx, obs.dt_cam, obs.dt_bracket, obs.mask,
+                 obs.depth_xyz, st.ref_to_cam[s], st.depth_to_image[s], st.depth_scale[s],
+                 st.timestamp_offsets[s]]
+        reads += ([obs.mesh_xyz] + ([obs.mesh_mask] if obs.mesh_mask is not None else [])
+                  if mesh else [st.points, obs.point_idx])
+        return (f"depth sensor {s} ({'mesh' if mesh else 'triangulated'}, "
+                f"{'affine' if a else 'pose'})", f"12depth_kernelI{t}Lb{a}ELb{int(mesh)}EE",
+                reads)
+    return ("xyz prior", f"12prior_kernelI{t}EE", [st.points, obs.point_idx, obs.ref_xyz,
+                                                   obs.mask])
+
+
+# The FLOPs of the function the row blocks kernel computes, a row: the value
+# V of the robustified residual as the plain version (solver/row_blocks.py)
+# computes it, branches as this call's rows take them (an add, multiply,
+# divide, square root or transcendental counts 1), and its reverse-mode
+# Jacobian, k sweeps back through the value's graph at 2 FLOPs a forward
+# operation: V (1 + 2k). V's parts, counted from the code: a quaternion
+# normalised on read 12; a vector rotated 30; pose_apply 45;
+# world_to_cam_from_bracket 161 (alpha 2, the translation's lerp 10, two
+# normalisations 24, slerp 40, the rig composed 85), 87 fewer where
+# dt_bracket == 0 (alpha 0, no rig) and 8 fewer on slerp's lerp branch;
+# pixel rows: pose_apply 45, the projection 4, the distortion (none 4, fov
+# 22 on its ru > 1e-5 branch, tsai 36 or 40 with k3, rpc of degree g with n
+# numerator and n - 1 denominator monomials 5n + 4(n - 1) + 2g + 2), the
+# residual 4, the Cauchy weight and mask 11 (counted on every row); depth
+# rows: depth_to_image 51 as a pose with its scale (9 affine), the camera
+# point 18, the pose inverted 42, pose_apply 45, the residual 6, the weight
+# 14; xyz priors: the residual 6 and the Cauchy weight 14 (th > 0) or the
+# mask 3.
+def row_block_flops(torch, kind, args) -> int:
+    from multiview_tpu_torch.geometry import distortion as dist_mod
+    st, obs = args[0], args[1]
+    if kind == "prior":
+        return (6 + (14 if args[3] > 0 else 3)) * 7 * int(obs.point_idx.shape[0])
+    n = len(obs)
+    q0, q1 = (st.world_to_ref[i, 3:] for i in (obs.beg_idx, obs.end_idx))
+    dot = ((q0 / q0.norm(dim=-1, keepdim=True)) * (q1 / q1.norm(dim=-1, keepdim=True))).sum(-1)
+    lerp = int((dot.abs() > 1 - 16 * torch.finfo(st.dtype).eps).sum())
+    value = 161 * n - 87 * int((obs.dt_bracket == 0).sum()) - 8 * lerp
+    if kind == "pixel":
+        model, d = args[2], int(st.dist[obs.sensor].numel())
+        if model == "rpc":
+            g = dist_mod.rpc_degree_from_num_params(d // 2)
+            m = (g + 1) * (g + 2) // 2
+            dist = 5 * m + 4 * (m - 1) + 2 * g + 2
+        else:
+            dist = {"none": 4, "fov": 22, "tsai": 36 if d == 4 else 40}[model]
+        return (value + n * (45 + 4 + dist + 4 + 11)) * (1 + 2 * 2)
+    affine = args[2].affine_depth_to_image
+    return (value + n * ((9 if affine else 51) + 18 + 42 + 45 + 6 + 14)) * (1 + 2 * 3)
+
+
+def row_rel(got, ref):
+    """max |kernel - plain| / max |plain| of each output (J_cam, J_pt, res)."""
+    out = {}
+    for name, g, r in zip(("J_cam", "J_pt", "res"), got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"phase 3d: {name} is None on one side only")
+        if r is not None:
+            if g.shape != r.shape or not bool(g.isfinite().all()):
+                raise AssertionError(f"phase 3d: {name} has shape {tuple(g.shape)} (plain "
+                                     f"{tuple(r.shape)}) or a value that is not finite")
+            out[name] = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    return out
+
+
+def phase3d(torch, card):
+    """The row blocks kernel (csrc/row_blocks.cu) against its plain version
+    (autograd) on every family that phases 3 (the benchmark's cube, 384000
+    rows) and 4 (calibrate's three sensors with depth rows) handed the solver
+    first, on the cube's rows with an rpc of degree 2 in place of tsai, then
+    on the planted rows of tests/row_block_scenes.py in float32 and float64.
+    The reference is the plain version in float64 on the same inputs: the
+    kernel computes in float64 and rounds its float32 outputs, while the
+    plain version's own float32 results err by up to a few 1e-4 of max |res|
+    on calibrate's families (printed beside). Per family: the error of each
+    output over max |plain| (float32 tensors at SCHUR_RTOL, the same family
+    in float64 at ROW_RTOL_F64), ms a call of the kernel, the plain version
+    (both float32, the main path's dtype), the plain version replayed from a
+    CUDA graph (or why it was not captured) and the kernel from a graph (a
+    capture of the kernel that fails is a fault), the bound (the bytes read
+    and written once over 3.35 TB/s, or the FLOPs of ``row_block_flops``
+    over the FP32 rate) with its share, and the registers and spills of the
+    family's kernel. Returns the records."""
+    import dataclasses
+    from multiview_tpu_torch.solver import row_blocks as rb
+    sys.path.insert(0, str(ROOT / "tests"))
+    import row_block_scenes as rbs
+
+    entry = {"pixel": (rb.pixel_row_blocks_cuda, rb.pixel_row_blocks_plain),
+             "depth": (rb.depth_row_blocks_cuda, rb.depth_row_blocks_plain),
+             "prior": (rb.prior_row_blocks_cuda, rb.prior_row_blocks_plain)}
+    regs = ptxas_report("row_blocks.cu")
+    families = [(path, kind, args) for path in ("cube", "rig")
+                for (kind, _, _), args in ROW_CALLS[path].items()]
+    st, obs, _, opts = next(a for path, kind, a in families if path == "cube" and kind == "pixel")
+    dist = list(st.dist)
+    dist[obs.sensor] = torch.tensor(rbs.rpc_coeffs(2), dtype=st.dtype,
+                                    device=st.world_to_ref.device)
+    families.append(("cube-rpc", "pixel", (dataclasses.replace(st, dist=tuple(dist)), obs, "rpc",
+                                           opts)))
+    out = {"families": {}}
+    for path, kind, args in families:
+        kernel, plain = entry[kind]
+        label, symbol, reads = row_family(torch, kind, args)
+        args64 = rbs.in_float64(args)
+        got, ref, ref32, got64 = (((None,) if kind == "prior" else ()) + tuple(fn(*a))
+                                  for fn, a in ((kernel, args), (plain, args64),
+                                                (plain, args), (kernel, args64)))
+        torch.cuda.synchronize()
+        rel, rel64 = row_rel(got, ref), row_rel(got64, ref)
+        plain_own, against_f32 = row_rel(ref32, ref), row_rel(got, ref32)
+        err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref)
+                  if r is not None)
+        runs = [("kernel", lambda: kernel(*args)), ("plain", lambda: plain(*args)),
+                ("kernel_graph", graphed(torch, lambda: kernel(*args)))]
+        graph_note = ""
+        try:
+            runs.append(("plain_graph", graphed(torch, lambda: plain(*args))))
+        except Exception as e:          # autograd that cannot be captured is reported
+            torch.cuda.synchronize()
+            graph_note = f"; plain not captured in a CUDA graph: {type(e).__name__}: " \
+                         f"{str(e).splitlines()[0][:160]}"
+        times = {}
+        for key, fn in runs + runs[::-1]:            # in turns, the better of two
+            ms = per_call_ms(torch, fn, reps=20)
+            times[key] = min(times.get(key, ms), ms)
+        nbytes = sum(t.numel() * t.element_size() for t in reads + [x for x in got
+                                                                    if x is not None])
+        flops = row_block_flops(torch, kind, args)
+        t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flops / FP32_CORES_PEAK * 1e3
+        bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                   else "operations")
+        found = [v for k, v in regs.items() if symbol in k]
+        rec = {"path": path, "rows": int(got[-1].shape[0]), "dtype": str(got[-1].dtype),
+               "B": None if got[0] is None else int(got[0].shape[2]),
+               "ms": times["kernel"], "plain_ms": times["plain"],
+               "plain_graph_ms": times.get("plain_graph"),
+               "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "max_abs_err": err, "rel": rel, "rel_float64": rel64,
+               "plain_float32_rel": plain_own, "rel_to_plain_float32": against_f32,
+               "library_ms": None,
+               "registers_spill_stores_loads": found[0] if found else None}
+        plain_graph = (f"plain from a CUDA graph {rec['plain_graph_ms']:.4f}"
+                       if rec["plain_graph_ms"] is not None else "plain not graphed")
+        fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())   # noqa: E731
+        print(f"[phase3d] {path} {label}: {rec['rows']} rows, B = {rec['B']}, "
+              f"{rec['dtype']}; max |diff| / max |plain in float64|: kernel {fmt(rel)} "
+              f"(in float64: {fmt(rel64)}); the plain version in float32 {fmt(plain_own)}; "
+              f"kernel against plain in float32 {fmt(against_f32)}; ms a call: kernel "
+              f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, {plain_graph}, kernel from a "
+              f"CUDA graph {rec['kernel_graph_ms']:.4f}{graph_note}; bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP), share "
+              f"{bound_ms / rec['ms']:.4f}; registers, spill stores and loads (bytes) of "
+              f"{symbol}: {found[0] if found else 'not in the build report'} [{card}]",
+              flush=True)
+        if not (all(v <= SCHUR_RTOL for v in rel.values())
+                and all(v <= ROW_RTOL_F64 for v in rel64.values())):
+            raise AssertionError(f"phase 3d {path} {label}: the row blocks kernel disagrees "
+                                 f"with its plain version: {rel} (bar {SCHUR_RTOL}), in "
+                                 f"float64 {rel64} (bar {ROW_RTOL_F64})")
+        out["families"][f"{path} {label}"] = rec
+        if path == "cube":
+            out.setdefault("cube", rec)
+    kernel = {k: v[0] for k, v in entry.items()}
+    plain = {k: v[1] for k, v in entry.items()}
+    for dtype, tol in ((torch.float32, SCHUR_RTOL), (torch.float64, ROW_RTOL_F64)):
+        worst = {}
+        for name, case in rbs.planted_rows(0, dtype, torch.device("cuda", 0)).items():
+            rel = row_rel(rbs.row_blocks_of(case, kernel),
+                          rbs.row_blocks_of(case, plain, float64=True))
+            worst[name] = max(rel.values())
+            if not all(v <= tol for v in rel.values()):
+                raise AssertionError(f"phase 3d planted {name} {dtype}: the row blocks kernel "
+                                     f"disagrees with its plain version: {rel} (bar {tol})")
+        print(f"[phase3d] planted rows, {dtype}: worst max |diff| / max |plain in float64| by "
+              f"case {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} (bar {tol}) "
+              f"[{card}]", flush=True)
+    print(f"[phase3d] ptxas (registers, spill stores, spill loads) of every kernel of "
+          f"csrc/row_blocks.cu: {json.dumps(regs)}", flush=True)
     return out
 
 
@@ -1993,7 +2280,7 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
     import torch.distributed as dist
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
-    from multiview_tpu_torch.solver import schur_matvec as smv
+    from multiview_tpu_torch.solver import row_blocks as rb, schur_matvec as smv
 
     if not pdist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo"):
         raise AssertionError("phase 9d: the worker joined no group")
@@ -2013,7 +2300,7 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
              cost=float(res.cost), initial_cost=float(res.initial_cost),
              iterations=res.iterations, cg=int(res.cg_iters_total), lam=float(res.lam),
              size=mesh.size, gathered=gathered, device=str(res.cam.device),
-             schur_launches=smv.LAUNCHES)
+             schur_launches=smv.LAUNCHES, row_launches=rb.LAUNCHES)
     dist.destroy_process_group()
     return 0
 
@@ -2055,9 +2342,12 @@ def phase9d(torch, card, workdir: Path):
             raise AssertionError(f"phase 9d: a rank failed:\n{log[-3000:]}")
     r0, r1 = (dict(np.load(o)) for o in outs)
     SCHUR_PATHS["phase 9d (2 gloo ranks)"] = int(r0["schur_launches"] + r1["schur_launches"])
-    if not (r0["schur_launches"] > 0 and r1["schur_launches"] > 0):
-        raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu no time")
-    same = all(np.array_equal(r0[k], r1[k]) for k in r0 if k != "schur_launches")
+    ROW_PATHS["phase 9d (2 gloo ranks)"] = int(r0["row_launches"] + r1["row_launches"])
+    if not all(r[k] > 0 for r in (r0, r1) for k in ("schur_launches", "row_launches")):
+        raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu or csrc/row_blocks.cu "
+                             "no time")
+    same = all(np.array_equal(r0[k], r1[k]) for k in r0
+               if k not in ("schur_launches", "row_launches"))
 
     dev = torch.device("cuda", 0)
     scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
@@ -2132,7 +2422,7 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()} [{card}]", flush=True)
     t0 = time.perf_counter()
-    sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu"]
+    sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu", "row_blocks.cu"]
     cuda_build.build_libraries(sources)        # one nvcc each, started together
     print(f"[phase0] built csrc/{{{','.join(sources)}}} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2176,6 +2466,7 @@ def main() -> int:
     paths["phase2b"] = phase2b(torch, mm, dev, card)
     phase3b(torch, card, phase3(torch, card))
     p3c = phase3c(torch, card)
+    p3d = phase3d(torch, card)
     phase5(torch, dev, card)
     t0 = time.perf_counter()
     phase9a(torch, card)
@@ -2201,7 +2492,15 @@ def main() -> int:
                      "no pallas_call)",
          "launches": sum(SCHUR_PATHS.values()), "launches_by_path": SCHUR_PATHS,
          **{k: p3c["cube"][k] for k in keys}, "plain_graph_ms": p3c["cube"]["plain_graph_ms"],
-         "kernel_graph_ms": p3c["cube"]["kernel_graph_ms"]}]}))
+         "kernel_graph_ms": p3c["cube"]["kernel_graph_ms"]},
+        # no single PyTorch call computes a row's block Jacobian: library_ms is null
+        {"name": "row_blocks", "route": "cuda", "source": ROW_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:88-244 (_pixel/_depth/_prior_row_blocks, "
+                     "XLA code: no pallas_call)",
+         "launches": sum(ROW_PATHS.values()), "launches_by_path": ROW_PATHS,
+         **{k: p3d["cube"][k] for k in keys}, "plain_graph_ms": p3d["cube"]["plain_graph_ms"],
+         "kernel_graph_ms": p3d["cube"]["kernel_graph_ms"],
+         "by_family": p3d["families"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,9 @@ explicit per-row block Jacobians:
   residual and its Jacobian with respect to the parameter blocks the row
   touches (pixel rows: beg/end pose, rig, offset, focal, centre,
   distortion; depth rows: beg/end pose, rig, offset, depth_to_image, depth
-  scale; point), by reverse-mode autograd of the row-summed residuals with per-row leaf
-  copies of the parameters;
+  scale; point) in ``solver/row_blocks.py``: on the card the hand-written
+  kernel ``csrc/row_blocks.cu`` (one launch a family), on the CPU
+  reverse-mode autograd of the row-summed residuals;
 - camera columns are gathered per row by the bracketing pose indices and
   reduced back with ``index_add_`` per pose (per-sensor constant columns
   are plain sums); point sides are ``index_add_`` per point. The CG's Schur
@@ -53,9 +54,10 @@ import numpy as np
 import torch
 
 from multiview_tpu_torch.calib import problem as prob
-from multiview_tpu_torch.geometry import pose as pose_mod
 from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
 from multiview_tpu_torch.solver import schur_matvec as smv
+from multiview_tpu_torch.solver.row_blocks import (  # noqa: F401  (re-exported)
+    depth_row_blocks, pixel_row_blocks, prior_row_blocks)
 
 
 class CamLayout(NamedTuple):
@@ -88,113 +90,6 @@ def cam_layout(template: prob.RigState) -> CamLayout:
     d2i = sec(template.depth_to_image.numel())
     ds = sec(template.depth_scale.numel())
     return CamLayout(w, r, o, f, c, d, d2i, ds, off)
-
-
-# ----------------------------------------------------------------------------
-# Per-row residuals + block Jacobians
-# ----------------------------------------------------------------------------
-
-
-def _row_jacobians(res: torch.Tensor, inputs: Sequence[torch.Tensor]):
-    """Per-row Jacobians of res [N,k] w.r.t. per-row leaf inputs [N,...]:
-    row n of the gradient of sum_n res[n,c] is d res[n,c] / d input[n].
-    Returns one [N,k,...] tensor per input."""
-    k = res.shape[1]
-    cols = []
-    for c in range(k):
-        g = torch.autograd.grad(res[:, c].sum(), inputs, retain_graph=c < k - 1,
-                                allow_unused=True)
-        cols.append([torch.zeros_like(x) if gi is None else gi
-                     for gi, x in zip(g, inputs)])
-    return [torch.stack([cols[c][i] for c in range(k)], dim=1) for i in range(len(inputs))]
-
-
-def _rows_of(x: torch.Tensor, n: int):
-    """A per-row leaf copy [n, ...] of a shared parameter block."""
-    return x.detach().expand((n,) + tuple(x.shape)).clone().requires_grad_(True)
-
-
-def pixel_row_blocks(state: prob.RigState, obs: prob.PixelObs, model: str,
-                     opts: prob.BAOptions):
-    """(J_cam [N,2,B], J_pt [N,2,3], res [N,2]) of every row, B = 25 + d
-    (beg7, end7, rig7, offset1, focal1, ctr2, dist d)."""
-    s = obs.sensor
-    n = len(obs)
-    with torch.enable_grad():
-        beg = state.world_to_ref[obs.beg_idx].detach().requires_grad_(True)
-        end = state.world_to_ref[obs.end_idx].detach().requires_grad_(True)
-        rig = _rows_of(state.ref_to_cam[s], n)
-        off = _rows_of(state.timestamp_offsets[s], n)
-        foc = _rows_of(state.focal[s], n)
-        ctr = _rows_of(state.optical_center[s], n)
-        dist = _rows_of(state.dist[s], n)
-        pt = state.points[obs.point_idx].detach().requires_grad_(True)
-        w2c = pose_mod.world_to_cam_from_bracket(beg, end, rig, obs.dt_cam,
-                                                 obs.dt_bracket, off)
-        pred = prob.project_rows(w2c, pt, foc, ctr, dist, obs.dist_half_size, model)
-        res = pred - obs.pix
-        w = prob.robust_weight(torch.sum(res * res, dim=-1), opts.robust_threshold)
-        res = res * (w * obs.mask.to(res.dtype))[:, None]
-        jb, je, jr, jo, jf, jc, jd, jp = _row_jacobians(
-            res, (beg, end, rig, off, foc, ctr, dist, pt))
-    j_cam = torch.cat([jb, je, jr, jo[..., None], jf[..., None], jc, jd], dim=-1)
-    return j_cam.detach(), jp.detach(), res.detach()
-
-
-def depth_row_blocks(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
-                     mesh_variant: bool):
-    """(J_cam [N,3,B], J_pt [N,3,3] | None, res [N,3]) of every depth row,
-    B = 7+7+7+1 + (7|12) + 1 (beg7, end7, rig7, offset1, depth_to_image,
-    scale1). The mesh variant (target = the row's mesh point) touches no
-    structure point: its J_pt is None."""
-    s = obs.sensor
-    n = len(obs)
-    weight = opts.depth_mesh_weight if mesh_variant else opts.depth_tri_weight
-    if mesh_variant:
-        if obs.mesh_xyz is None:
-            raise ValueError("the depth-mesh family needs DepthObs.mesh_xyz")
-        row_mask, target = prob.mesh_target(obs)
-    else:
-        row_mask = obs.mask
-    with torch.enable_grad():
-        beg = state.world_to_ref[obs.beg_idx].detach().requires_grad_(True)
-        end = state.world_to_ref[obs.end_idx].detach().requires_grad_(True)
-        rig = _rows_of(state.ref_to_cam[s], n)
-        off = _rows_of(state.timestamp_offsets[s], n)
-        d2i = _rows_of(state.depth_to_image[s], n)
-        dsc = _rows_of(state.depth_scale[s], n)
-        inputs = [beg, end, rig, off, d2i, dsc]
-        if not mesh_variant:
-            target = state.points[obs.point_idx].detach().requires_grad_(True)
-            inputs.append(target)
-        w2c = pose_mod.world_to_cam_from_bracket(beg, end, rig, obs.dt_cam,
-                                                 obs.dt_bracket, off)
-        M_world = prob.depth_world_points(w2c, d2i, dsc, obs.depth_xyz,
-                                          opts.affine_depth_to_image)
-        res = weight * (target - M_world)
-        w = prob.robust_weight(torch.sum(res * res, dim=-1), opts.robust_threshold)
-        res = res * (w * row_mask.to(res.dtype))[:, None]
-        jac = _row_jacobians(res, inputs)
-    jb, je, jr, jo, jd, js = jac[:6]
-    j_cam = torch.cat([jb, je, jr, jo[..., None], jd, js[..., None]], dim=-1)
-    j_pt = None if mesh_variant else jac[6].detach()
-    return j_cam.detach(), j_pt, res.detach()
-
-
-def prior_row_blocks(state: prob.RigState, prior: prob.XyzPriorObs,
-                     weight: float, th: float):
-    """(J_pt [M,3,3], res [M,3]) of an xyz-prior family (XYZError),
-    numerically identical to ``prob.xyz_prior_residuals``."""
-    with torch.enable_grad():
-        pt = state.points[prior.point_idx].detach().requires_grad_(True)
-        res = weight * (pt - prior.ref_xyz)
-        m = prior.mask.to(res.dtype)
-        if th <= 0:
-            res = res * m[:, None]
-        else:
-            res = res * (prob.robust_weight(torch.sum(res * res, dim=-1), th) * m)[:, None]
-        (jp,) = _row_jacobians(res, (pt,))
-    return jp.detach(), res.detach()
 
 
 def inv3x3_spd(A):

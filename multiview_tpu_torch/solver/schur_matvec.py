@@ -34,6 +34,7 @@ import torch
 
 from multiview_tpu_torch.parallel.sharding import ShardMesh
 from multiview_tpu_torch.utils import cuda_build
+from multiview_tpu_torch.utils.device import indexed_device as _device
 
 SOURCE = "schur_mv.cu"
 # kernel launches of csrc/schur_mv.cu: each pass and each epilogue adds one
@@ -226,14 +227,6 @@ def _check(name: str, t: torch.Tensor, shape, dtype, dev):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"schur_mv kernel: {name} is not contiguous")
-
-
-def _device(d) -> torch.device:
-    """``d`` with its index (a bare "cuda" names the current card)."""
-    d = torch.device(d)
-    if d.type == "cuda" and d.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 def _shard_plan(system: SchurSystem, s: int) -> _ShardPlan:

@@ -31,6 +31,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: a bare ``"cuda"`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def working_dtype(device) -> torch.dtype:
     """float32 on CUDA, float64 on the CPU."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64

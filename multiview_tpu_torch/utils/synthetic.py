@@ -145,6 +145,11 @@ def make_cube_scene(n_images: int = 10, n_per_face: int = 4,
                      models=(model,), image_size=image_size, n_images=n_images, n_points=P)
 
 
+def dist_mod_name(n: int) -> str:
+    """The distortion model of ``n`` coefficients (``model_from_num_coeffs``)."""
+    return model_from_num_coeffs(n)
+
+
 def perturb_state(state: prob.RigState, pose_rot: float = 0.01, pose_trans: float = 0.02,
                   point_sigma: float = 0.02, seed: int = 1) -> prob.RigState:
     """Random perturbation of poses and points (the optimizer's start)."""

@@ -17,7 +17,21 @@ as configured. Per LM iteration = T0 / k; per CG step = (T - T0) / matvecs.
 Medians of ``--reps`` solves after a warm one, host wall around a
 synchronised solve.
 
-    python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4]
+``--split`` then splits the LM loop (``_solve`` of ``solver/schur.py``,
+CG included) into its parts: a line tracer on that one function
+synchronises the card at each of its lines and adds the time since the
+previous line to that line's part, so each part holds its host time and
+its device time, serialised (a traced solve is slower than an untraced
+one, both are printed). The parts are found in the function's source by
+the statements that begin them, so the same split runs on an older
+checkout: the row blocks (``blocks_at``, once before the loop and once an
+iteration), the gradient J^T r, the Hpp and Jacobi-diagonal assembly, ``inv3x3_spd``, the
+SCHUR_JACOBI blocks and their ``torch.linalg.inv``, the CG's set-up (the
+Schur system and its right-hand side), the CG, the back-substitution, and
+the LM bookkeeping (every other line). Medians over ``--reps`` traced
+solves, in ms a solve and a LM iteration.
+
+    python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4] [--split]
 
 ``--root`` imports ``multiview_tpu_torch`` from another checkout (a parent
 commit unpacked beside this one), so two versions can be split in one call.
@@ -26,12 +40,29 @@ commit unpacked beside this one), so two versions can be split in one call.
 from __future__ import annotations
 
 import argparse
+import collections
+import inspect
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# (the statement that begins a part of the LM loop, the part); a part ends
+# where the next begins; "until" parts end after the named statement
+PARTS = [("blocks_at(", "row blocks (blocks_at)"),
+         ("gc_raw, g_p = JTc(r), JTp(r)", "gradient (J^T r)"),
+         ("hpp_parts, diag_parts", "Hpp and Jacobi diagonal"),
+         ("inv3x3_spd(", "inv3x3_spd"),
+         ("if use_block_precond:", "SCHUR_JACOBI blocks"),
+         ("torch.linalg.inv(", "SCHUR_JACOBI torch.linalg.inv"),
+         ("smv.SchurSystem(", "CG set-up"), ("smv.schur_rhs(", "CG set-up"),
+         ("= pcg(", "CG"), ("= dense_schur_solve(", "CG"),
+         ("row_products(", "back-substitution")]
+ONE_LINE = {"row blocks (blocks_at)", "gradient (J^T r)", "inv3x3_spd",
+            "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution"}
+BOOKKEEPING = "LM bookkeeping"
 
 
 def solve_times(torch, solver, cam0, points0, reps):
@@ -44,6 +75,54 @@ def solve_times(torch, solver, cam0, points0, reps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times), res
+
+
+def solve_code(schur):
+    """The code object of the LM loop (``_solve``, nested in
+    ``make_schur_solver``) and its lines' parts {line number: part}."""
+    code = next(c for c in schur.make_schur_solver.__code__.co_consts
+                if inspect.iscode(c) and c.co_name == "_solve")
+    lines, first = inspect.getsourcelines(code)
+    parts, current = {}, BOOKKEEPING
+    for i, text in enumerate(lines):
+        hit = next((part for marker, part in PARTS
+                    if marker in text and not text.lstrip().startswith("def ")), None)
+        if hit is not None and hit not in ONE_LINE:
+            current = hit
+        parts[first + i] = hit if hit in ONE_LINE else current
+        if hit in ("inv3x3_spd", "SCHUR_JACOBI torch.linalg.inv"):
+            current = BOOKKEEPING
+    return code, parts
+
+
+def traced_solve(torch, schur, solver, cam0, points0):
+    """(ms by part, traced wall s) of one solve, the card synchronised at
+    each line of the LM loop."""
+    code, parts = solve_code(schur)
+    spent = collections.defaultdict(float)
+    last = [None, 0.0]
+
+    def on_line(frame, event, arg):
+        if event in ("line", "return"):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if last[0] is not None:
+                spent[parts.get(last[0], BOOKKEEPING)] += (now - last[1]) * 1e3
+            last[0], last[1] = (frame.f_lineno if event == "line" else None), now
+        return on_line
+
+    def on_call(frame, event, arg):
+        return on_line if frame.f_code is code else None
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys.settrace(on_call)
+    try:
+        solver(cam0, points0)
+    finally:
+        sys.settrace(None)
+    torch.cuda.synchronize()
+    return dict(spent), time.perf_counter() - t0
 
 
 def problems(torch, dev):
@@ -75,6 +154,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--lm", type=int, default=4)
+    ap.add_argument("--split", action="store_true",
+                    help="also split the LM loop into its parts (a traced solve)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -103,6 +184,19 @@ def main() -> int:
             "lm_only_s": t0, "per_lm_iteration_ms": t0 / args.lm * 1e3,
             "per_cg_step_ms": (t - t0) / max(res.matvecs, 1) * 1e3, "card": card}),
             flush=True)
+        if args.split:
+            s = solver()
+            traced_solve(torch, schur, s, cam0, st.points)          # warm
+            runs = [traced_solve(torch, schur, s, cam0, st.points) for _ in range(args.reps)]
+            names = sorted({k for ms, _ in runs for k in ms})
+            per_solve = {k: statistics.median(ms.get(k, 0.0) for ms, _ in runs) for k in names}
+            print(json.dumps({
+                "problem": name, "root": args.root, "split": True, "lm_iterations": args.lm,
+                "matvecs": res.matvecs, "untraced_solve_s": t,
+                "traced_solve_s": statistics.median(w for _, w in runs),
+                "ms_per_solve": per_solve,
+                "ms_per_lm_iteration": {k: v / args.lm for k, v in per_solve.items()},
+                "card": card}), flush=True)
     return 0
 
 

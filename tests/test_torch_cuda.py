@@ -528,3 +528,134 @@ def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
     torch.cuda.synchronize()
     assert smv.LAUNCHES - before == 3 * res.matvecs + 3 * res.iterations
     assert float(res.cost) < float(res.initial_cost)
+
+
+# ----------------------------------------------------------------------------
+# The per-row residuals and block Jacobians (csrc/row_blocks.cu) against their
+# plain version in float64 on the same inputs, on the card: |kernel - plain| <=
+# tol * max |plain| for each output (J_cam, J_pt, res), tol 1e-9 with float64
+# tensors and 1e-4 with float32 ones (the kernel computes in float64 and
+# rounds its outputs; forward mode against reverse mode)
+# ----------------------------------------------------------------------------
+
+_ROW_TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+
+
+def _row_families():
+    from multiview_tpu_torch.solver import row_blocks as rb
+    kernel = {"pixel": rb.pixel_row_blocks, "depth": rb.depth_row_blocks,
+              "prior": rb.prior_row_blocks}
+    plain = {"pixel": rb.pixel_row_blocks_plain, "depth": rb.depth_row_blocks_plain,
+             "prior": rb.prior_row_blocks_plain}
+    return rb, kernel, plain
+
+
+def _rows_close(label, got, ref, dtype):
+    for name, g, r in zip(("J_cam", "J_pt", "res"), got, ref):
+        assert (g is None) == (r is None), (label, name)
+        if r is None:
+            continue
+        assert g.shape == r.shape and torch.isfinite(g).all(), (label, name)
+        err = float((g - r).abs().max())
+        assert err <= _ROW_TOL[dtype] * float(r.abs().max()), (label, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_blocks_kernel_matches_plain_version_on_the_planted_rows(cuda_device, dtype):
+    """Every family, distortion model and branch of tests/row_block_scenes.py,
+    one launch a family."""
+    from row_block_scenes import planted_rows, row_blocks_of
+    rb, kernel, plain = _row_families()
+    for name, case in planted_rows(0, dtype, cuda_device).items():
+        before = rb.LAUNCHES
+        got = row_blocks_of(case, kernel)
+        torch.cuda.synchronize()
+        assert rb.LAUNCHES == before + 1, name
+        _rows_close(name, got, row_blocks_of(case, plain, float64=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_blocks_kernel_matches_plain_version_on_a_cube(cuda_device, dtype):
+    """The benchmark's scene at 4320 rows (tsai, dt_bracket 0 in every row)."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.utils import synthetic as syn
+    from row_block_scenes import in_float64
+    rb, kernel, plain = _row_families()
+    scene = syn.make_cube_scene(n_images=20, n_per_face=6, pix_noise=0.5,
+                                dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), dtype=dtype,
+                                device=cuda_device)
+    st = syn.perturb_state(scene.true_state, pose_rot=0.01, pose_trans=0.02, point_sigma=0.02)
+    obs, model = scene.observations.pixels[0], scene.models[0]
+    assert len(obs) == 4320
+    opts = prob.BAOptions(no_rig=True)
+    got = kernel["pixel"](st, obs, model, opts)
+    torch.cuda.synchronize()
+    _rows_close("cube", got, plain["pixel"](*in_float64((st, obs, model, opts))), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_blocks_kernel_matches_plain_version_on_every_family(cuda_device, dtype):
+    """The rig of tests/test_torch_schur_matvec.py at the default rig
+    perturbation (0.02 rad / 3 cm), where the first LM steps are rejected:
+    three pixel sensors (none, tsai, fov), depth against the point and the
+    mesh (with misses), the xyz prior."""
+    from multiview_tpu_torch.calib import problem as prob
+    from row_block_scenes import every_family_scene, in_float64
+    rb, kernel, plain = _row_families()
+    state0, obs, models, opts, _ = every_family_scene(dtype, cuda_device)
+    calls = ([("pixel", (state0, o, models[o.sensor], opts)) for o in obs.pixels]
+             + [("depth", (state0, o, opts, mesh)) for o, mesh in prob.depth_families(obs, opts)]
+             + [("prior", (state0, p, w, th)) for p, w, th in prob.static_priors(obs, opts)])
+    for kind, args in calls:
+        got, ref = kernel[kind](*args), plain[kind](*in_float64(args))
+        if kind == "prior":
+            got, ref = (None,) + tuple(got), (None,) + tuple(ref)
+        _rows_close(f"{kind} sensor {getattr(args[1], 'sensor', None)}", got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_cg_blocks_solve_on_the_card_follows_the_cpu(cuda_device, monkeypatch):
+    """One ``cg_blocks`` solve of every family in float32 on the card, its
+    row blocks from csrc/row_blocks.cu alone (one launch a family at the
+    start and at each LM iteration's trial point; no autograd pass), against
+    the float64 solve on the CPU, to the tolerances of
+    test_depth_calibration_on_the_card_follows_the_cpu: both run to the
+    minimum (20 LM iterations; the two paths round apart on the way), and
+    the camera vectors compare with every quaternion normalised (its stored
+    norm is free: the residuals read it through ``pose_q``)."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.geometry import pose as P
+    from multiview_tpu_torch.solver import schur
+    from row_block_scenes import every_family_scene
+    rb, _, _ = _row_families()
+
+    def canonical(cam, template):
+        st = prob.unpack_state(cam.cpu().double(), template, include_points=False)
+        poses = [torch.cat([x[:, :3], P.quat_normalize(x[:, 3:7]), x[:, 7:]], dim=1).reshape(-1)
+                 for x in (st.world_to_ref, st.ref_to_cam, st.depth_to_image)]
+        return torch.cat(poses + [st.timestamp_offsets, st.focal, st.optical_center.reshape(-1),
+                                  st.depth_scale, *st.dist])
+
+    out = {}
+    for dev, dtype in ((torch.device("cpu"), torch.float64), (cuda_device, torch.float32)):
+        state0, obs, models, opts, mask = every_family_scene(dtype, dev, rig_rot=0.002,
+                                                             rig_trans=0.003)
+        if dev.type == "cuda":
+            monkeypatch.setattr(rb, "_row_jacobians",
+                                lambda *a: pytest.fail("an autograd pass ran on the card"))
+        before = rb.LAUNCHES
+        res = schur.make_schur_solver(state0, obs, models, opts, mask, max_iterations=20,
+                                      cg_iterations=40)(
+            prob.pack_state(state0, include_points=False), state0.points)
+        families = len(obs.pixels) + len(prob.depth_families(obs, opts)) + len(
+            prob.static_priors(obs, opts))
+        assert rb.LAUNCHES - before == (families * (1 + res.iterations)
+                                        if dev.type == "cuda" else 0)
+        assert float(res.cost) < float(res.initial_cost)
+        out[dev.type] = (res, canonical(res.cam, state0))
+    (cpu, cpu_cam), (card, card_cam) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(card.cost.cpu().double(), cpu.cost, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card_cam, cpu_cam, rtol=1e-4, atol=1e-4)

@@ -23,7 +23,7 @@ from multiview_tpu_torch.calib import calibrator as TCal, problem as TPr, rig_in
 from multiview_tpu_torch.geometry import camera as TCam, pose as TP
 from multiview_tpu_torch.sfm import tracks as TTr
 from multiview_tpu_torch.tools import common as TCo
-from multiview_tpu_torch.utils import images as TIm, profiling as TProf
+from multiview_tpu_torch.utils import images as TIm, profiling as TProf, synthetic as TSyn
 from torch_port_scenes import one_torch_thread, port_problem  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -204,3 +204,16 @@ def test_device_trace_on_the_cpu(tmp_path):
     (trace,) = tmp_path.glob("trace_*.json")
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
     assert "probe_region" in names
+
+
+@pytest.mark.parametrize("n", [0, 1, 4, 5, 8, 3, 7])
+def test_dist_mod_name(n):
+    """The model of a coefficient count: none, fov, tsai (4 and 5), rpc (an
+    even count above 5); an irregular count raises in both packages."""
+    if n in (3, 7):
+        with pytest.raises(ValueError, match="Irregular"):
+            JSyn.dist_mod_name(n)
+        with pytest.raises(ValueError, match="Irregular"):
+            TSyn.dist_mod_name(n)
+        return
+    assert TSyn.dist_mod_name(n) == JSyn.dist_mod_name(n)
