@@ -52,11 +52,16 @@ printing a result):
    against its plain version on the first system of phase 3's solve (the
    benchmark's cube, 384000 rows) and of phase 4's (three sensors and depth
    rows): S x, the right-hand side and the back-substitution's products
-   within 1e-4 of max |plain| (float32); microseconds per matvec of the
+   within 1e-4 of max |plain| (float32); per matvec the launches (one
+   cooperative launch on one shard), the launch's grid, tile rows and
+   slots, the rows kept in shared memory between its passes, its pose
+   window, and the bytes its design reads; microseconds per matvec of the
    kernel, the plain version, the plain version replayed from a CUDA graph,
-   the kernel from a graph, and the bound with its share;
+   the kernel from a graph (where the capture takes the cooperative
+   launch), and the bound with its share;
 3d. the row blocks kernel (``solver/row_blocks.py``, csrc/row_blocks.cu:
-   per-row residuals and block Jacobians by forward-mode dual numbers)
+   per-row residuals and block Jacobians by forward-mode dual numbers, the
+   chain split where the blocks meet)
    against its plain version (autograd) in float64 on the same inputs, on
    every family that phases 3 and 4 handed the solver first (the cube's
    384000 tsai rows; calibrate's three pixel sensors and depth rows), and on
@@ -1061,14 +1066,34 @@ def per_call_ms(torch, fn, reps: int = 50):
     return s.elapsed_time(e) / reps
 
 
+def schur_design_bytes(system, record):
+    """Bytes one S x of csrc/schur_mv.cu moves by its design: every row's J_c,
+    J_p and indices read in the point pass, u written there and read back,
+    and the rows that did not stay in shared memory read again in the camera
+    pass (an upper bound of the device-memory traffic: part of the rereads
+    come from L2)."""
+    item = system.cam_free.element_size()
+    rows = per_row = u_bytes = 0
+    for a, b in zip(*system.J[0]):
+        if a is not None:
+            n, k, B = a.shape
+            rows += n
+            per_row += n * (item * k * B + 16 + (item * k * 3 + 8 if b is not None else 0))
+            u_bytes += 2 * n * k * item
+    mean = per_row / max(rows, 1)
+    return int(per_row + u_bytes + mean * (rows - record.get("resident_rows", 0)))
+
+
 def phase3c(torch, card):
     """The Schur matvec kernel (csrc/schur_mv.cu) against its plain version
     on the systems phases 3 and 4 handed it first: the benchmark's cube at
-    384000 rows, and calibrate's three sensors with depth rows. Times per
-    matvec: the kernel, the plain version, the plain version replayed from a
-    CUDA graph (the launch overhead a graph removes is not the kernel's
-    gain), the kernel from a graph (its device time alone), and the bound.
-    Returns the records by system."""
+    384000 rows, and calibrate's three sensors with depth rows. Per matvec:
+    the launches (one, cooperative, on one shard), the launch's shape, the
+    bytes its design reads (``schur_design_bytes``), then the times of the
+    kernel, the plain version, the plain version replayed from a CUDA graph
+    (the launch overhead a graph removes is not the kernel's gain), the
+    kernel from a graph (its device time alone, where the cooperative launch
+    can be captured), and the bound. Returns the records by system."""
     from multiview_tpu_torch.solver import schur_matvec as smv
 
     out = {}
@@ -1076,7 +1101,18 @@ def phase3c(torch, card):
         system, x = SCHUR_SYSTEMS[label]
         x = x.clone()
         fams = [(tuple(a.shape), b is not None) for a, b in zip(*system.J[0]) if a is not None]
-        got = smv.schur_matvec_cuda(system, x)
+        before, smv.RECORD_LAUNCH = smv.LAUNCHES, True
+        try:
+            got = smv.schur_matvec_cuda(system, x)
+            torch.cuda.synchronize()
+            launch = dict(smv.LAST_LAUNCH)
+        finally:
+            smv.RECORD_LAUNCH = False
+        launches = smv.LAUNCHES - before
+        if system.mesh.size == 1 and not (launches == 1 and launch["passes"] == 3):
+            raise AssertionError(f"phase 3c {label}: S x took {launches} launches "
+                                 f"({launch}), not one launch of both passes")
+        design_bytes = schur_design_bytes(system, launch)
         ref = smv.schur_matvec_plain(system, x)
         g_p = torch.randn((system.num_points, 3), dtype=x.dtype, device=x.device)
         rhs = (smv.schur_rhs_cuda(system, x, g_p), smv.schur_rhs_plain(system, x, g_p))
@@ -1090,21 +1126,36 @@ def phase3c(torch, card):
         err = float((got - ref).abs().max())
         runs = [("kernel", lambda: smv.schur_matvec_cuda(system, x)),
                 ("plain", lambda: smv.schur_matvec_plain(system, x)),
-                ("plain_graph", graphed(torch, lambda: smv.schur_matvec_plain(system, x))),
-                ("kernel_graph", graphed(torch, lambda: smv.schur_matvec_cuda(system, x)))]
+                ("plain_graph", graphed(torch, lambda: smv.schur_matvec_plain(system, x)))]
+        graph_note = ""
+        try:
+            runs.append(("kernel_graph", graphed(torch, lambda: smv.schur_matvec_cuda(system, x))))
+        except Exception as e:          # a cooperative launch the capture refuses is reported
+            torch.cuda.synchronize()
+            graph_note = f" (kernel not captured in a CUDA graph: {type(e).__name__}: " \
+                         f"{str(e).splitlines()[0][:160]})"
         times = {}
         for key, fn in runs + runs[::-1]:                # in turns, the better of two
             ms = per_call_ms(torch, fn)
             times[key] = min(times.get(key, ms), ms)
         bound_ms, bound_by = schur_bound(system)
+        kg = times.get("kernel_graph")
+        kg_text = (f"{kg * 1e3:.1f}" if kg else "not measured") + graph_note
+        share_graph = f"{bound_ms / kg:.4f}" if kg else "not measured"
         print(f"[phase3c] {label}: {system.mesh.size} shard(s), families with a camera block "
               f"(shape, point block) {fams}, {system.num_points} points, {system.total} "
-              f"camera parameters, {x.dtype}: us per matvec kernel "
+              f"camera parameters, {x.dtype}: {launches} launch(es) a matvec, cooperative "
+              f"grid {launch['grid']} x {launch['threads']} threads, {launch['tile_rows']} rows "
+              f"a tile, {launch['slots']} slots, {launch['resident_rows']} rows kept in shared "
+              f"memory between the passes, pose window {launch['window_poses']} of "
+              f"{system.num_ref} ({launch['pose_copies']} copies), x in shared memory "
+              f"{bool(launch['x_in_shared'])}; the design "
+              f"reads {design_bytes / 1e6:.2f} MB a matvec; us per matvec kernel "
               f"{times['kernel'] * 1e3:.1f}, plain {times['plain'] * 1e3:.1f}, plain from a "
               f"CUDA graph {times['plain_graph'] * 1e3:.1f}, kernel from a CUDA graph "
-              f"{times['kernel_graph'] * 1e3:.1f}, bound {bound_ms * 1e3:.1f} by {bound_by} "
+              f"{kg_text}, bound {bound_ms * 1e3:.1f} by {bound_by} "
               f"(share of bound {bound_ms / times['kernel']:.4f}; from a graph "
-              f"{bound_ms / times['kernel_graph']:.4f}); kernel against plain, max |diff| / "
+              f"{share_graph}); kernel against plain, max |diff| / "
               f"max |plain|: {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} [{card}]",
               flush=True)
         if not all(v <= SCHUR_RTOL for v in rel.values()):
@@ -1112,8 +1163,10 @@ def phase3c(torch, card):
                                  f"version: {rel} (bar {SCHUR_RTOL})")
         out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
                       "plain_graph_ms": times["plain_graph"],
-                      "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
-                      "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+                      "kernel_graph_ms": times.get("kernel_graph"), "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
+                      "launches_a_matvec": launches, "launch": launch,
+                      "design_bytes": design_bytes}
     return out
 
 

@@ -7,15 +7,19 @@
 // multiview_tpu/solver/schur.py:88-244 (XLA code: vmap of jacrev; the JAX
 // package has no pallas_call there).
 //
-// One launch a family; one thread a row. A row reads its indices, gathers its
-// bracket's two poses and its point itself (no [N,7] gather is written), and
-// reads the family's sensor blocks (rig, offset, focal, centre, distortion,
-// depth_to_image, scale) from shared memory, loaded once a block. It writes
+// One launch a family; one thread a row, a block of up to 128 consecutive
+// rows. A row reads its indices, gathers its bracket's two poses and its point
+// itself (no [N,7] gather is written), and reads the family's sensor values
+// (rig, offset, focal, centre, distortion, depth_to_image, scale) from shared
+// memory, loaded by every thread of the block once. It writes
 //   res   [N, k]        the robustified, masked residual,
 //   J_cam [N, k, B]     the camera block, columns in the plain version's order,
 //   J_pt  [N, k, 3]     the point block (none for depth against the mesh),
-// contiguous, so the solver, csrc/schur_mv.cu and the assembly read them as
-// they read the plain version's.
+// into shared memory; the block then stores each of the three as the one
+// contiguous span its rows make, 16 bytes a thread and store, so the solver,
+// csrc/schur_mv.cu and the assembly read them as they read the plain
+// version's. The block's rows are sized so that its tiles fit (rpc of degree 8
+// in float64 takes 32 rows a block).
 //
 //   family                 k  B                       inputs a row
 //   pixel (none/fov/tsai)  2  25 + d (beg7 end7 rig7  28 + d
@@ -30,44 +34,63 @@
 //
 // Derivatives: forward mode on dual numbers (Jet<T, W>: a value and W
 // derivative slots), as Ceres' AutoDiffCostFunction, which the reference
-// rig_calibrator uses on the same cost functors. The inputs are seeded one
-// block at a time (beg pose, end pose, rig, the sensor's scalars, the point):
-// a pass evaluates the whole residual with that block's W inputs as Jets and
-// every other input as a plain number, so registers hold W + 1 values a live
-// quantity, not 34, and the computation before the seeded block enters stays
-// scalar. The value is the same in every pass (the same operations on the same
-// numbers), so every branch is taken alike in every pass. The rpc map is
-// differentiated by hand: along the centred pixel by its 2x2 Jacobian (one
-// chain rule a pass), and along its coefficients by a sixth pass that seeds
-// the map's two numerators and two denominators, whose derivatives along a
+// rig_calibrator uses on the same cost functors, with the chain split where
+// the blocks meet. The head maps the bracket's poses, the rig and the offset
+// (slerp, rig, world-to-camera) to the camera-frame point X_c of a pixel row,
+// or to the depth point in the world M of a depth row; the tail maps X_c to
+// the residual (projection, distortion, the Cauchy weight, the mask), or M and
+// the point to it. A row evaluates the head once in plain numbers (a moving
+// pixel row, dt_bracket != 0, with the offset seeded, which gives its column
+// too), then the tail once with X_c (M) seeded: the residual and its k x 3
+// Jacobian along X_c (M); then the tail with the sensor's own inputs seeded
+// in turn (focal and centre; the distortion coefficients, or rpc's
+// numerators and denominators). Each block of the head is then seeded, at
+// most kPixelHeadWidth / kDepthHeadWidth inputs a pass and every other input
+// a plain number (registers hold W + 1 values a live quantity), and its
+// columns are the tail's k x 3 Jacobian times the head's 3 x W. The point
+// block of a pixel row seeds the point through X_c = R x + t alone; a depth
+// row's point block is minus the tail's Jacobian along M. A row with
+// dt_bracket == 0 skips the end pose's, the rig's and the offset's passes
+// (a depth row's offset column comes out 0 from its sensor pass): their
+// columns are exactly 0. The value is the same in every pass (the same
+// operations on the same numbers), so every branch is taken alike in every
+// pass. The rpc map is differentiated by hand: along the centred pixel by
+// its 2x2 Jacobian, and along its coefficients by a tail pass that seeds the
+// map's two numerators and two denominators, whose derivatives along a
 // coefficient are that coefficient's monomial.
 //
 // Precision: the arithmetic is float64 whatever the tensors' dtype (C below);
 // float32 tensors are read into float64 and the outputs rounded to float32.
 // In float32 the residual chain (poses far from the origin, slerp, projection)
-// errs by 2e-4 to 3.4e-4 of max |res| on calibrate's families, this kernel's
-// float32 arithmetic and the plain version's alike; in float64 the kernel
-// meets the plain version's float64 result to 1e-4 of max |res| whatever the
-// tensors' dtype. The branch thresholds that depend on the dtype (slerp's
-// 16 eps, the norm's tiny) are the tensors' dtype's, as in the plain version.
+// errs by 2e-4 to 3.4e-4 of max |res| on calibrate's families, a float32
+// evaluation and the plain version's alike; in float64 the kernel meets the
+// plain version's float64 result to 1e-4 of max |res| whatever the tensors'
+// dtype. The branch thresholds that depend on the dtype (slerp's 16 eps, the
+// norm's tiny) are the tensors' dtype's, as in the plain version.
 //
 // Branches: each of the plain version's branches and ties, as autograd
 // differentiates them: the quaternion normalised on read (clamp_min of the
 // norm at the dtype's tiny), slerp's sign flip at dot < 0, |dot| (no gradient
 // at 0) clamped at 1 (no gradient above), its lerp branch at
 // dot > 1 - 16 eps(T); dt_bracket == 0: alpha = 0 and the interpolated pose
-// itself (the rig ignored); the camera z clamped to 1e-8 where |z| < 1e-8
-// (no gradient); fov's clamp_min(r^2, 1e-24) and its ru > 1e-5 branch;
-// tsai's optional k3; the Cauchy weight sqrt(rho(s)/s), 1 (no gradient) at
-// s <= 1e-20; the mask multiplied last; the mesh target zeroed where the ray
-// missed before the residual; the prior's th <= 0 branch without a weight.
+// itself (the rig ignored); in the tail the camera z clamped to 1e-8 where
+// |z| < 1e-8 (a zero row of the tail's Jacobian along z), fov's
+// clamp_min(r^2, 1e-24) and its ru > 1e-5 branch, tsai's optional k3, the
+// Cauchy weight sqrt(rho(s)/s), 1 (no gradient) at s <= 1e-20, the mask
+// multiplied last; the mesh target zeroed where the ray missed before the
+// residual; the prior's th <= 0 branch without a weight.
 //
-// This design re-evaluates the residual once a block (5 passes for pixel and
-// depth rows, 6 for rpc) and stores each row's blocks with strided writes:
-// both are left to a later, faster kernel. Its bound (chip_smoke.py phase 3d)
-// is the larger of the bytes a call must move over the memory rate and the
-// FLOPs of the function itself (the value and its reverse-mode Jacobian,
-// counted there a row) over the FP32 rate.
+// Bound (chip_smoke.py phase 3d): the larger of the bytes a call must move
+// over the memory rate and the FLOPs of the function itself (the value and
+// its reverse-mode Jacobian, counted there a row) over the FP32 rate; bytes
+// bound every family. This design's ceiling is its float64 arithmetic, not
+// its bytes: a row of the benchmark's cube (dt_bracket == 0) runs the head in
+// plain numbers, three tail passes of 3, 3 and 4 inputs, the begin pose's two
+// head passes (4 + 3 inputs) and the point's, some 5-6k float64 operations,
+// which at the card's 34 TFLOP/s of FP64 outside the tensor cores take about
+// as long as the bound's bytes; the registers (168 a pixel kernel, 255 a
+// depth kernel, no spill) leave 3 and 2 blocks of 128 rows an SM to hide
+// the gathers and the arithmetic's latency.
 //
 // The arithmetic compiles for the host too (g++ -x c++), so that it can be
 // checked against the plain version without a card.
@@ -84,11 +107,17 @@
 #include <type_traits>
 #include <utility>
 
+
 namespace rowblocks {
 
 using C = double;                 // the arithmetic's type, whatever the tensors' dtype
-constexpr int kRows = 128;        // rows (threads) of a block
+constexpr int kRows = 128;        // rows (threads) of a block at most
 constexpr int kRpcMaxDeg = 8;     // the highest rpc degree the kernel takes
+// Inputs a head pass seeds at most, and blocks an SM each kernel is compiled
+// for (its register cap): pixel rows 4 and 3 (168 registers, no spill),
+// depth rows 7 and 1 (their passes are wider; a cap spills)
+constexpr int kPixelHeadWidth = 4, kPixelMinBlocks = 3;
+constexpr int kDepthHeadWidth = 7;
 // rpc_num_params_from_degree (geometry/distortion.py): the distort half's count
 MV_HD constexpr int rpc_half(int deg) { return 2 * (deg + 1) * (deg + 2) - 2; }
 // sensor values a family keeps in shared memory: 13 + the rpc distort half
@@ -440,13 +469,13 @@ template <int K, class S> MV_HD void robustify(S (&res)[K], C a2, C mask) {
 }
 
 // ---------------------------------------------------------------------------
-// The families: the row's inputs, one pass, the row
+// The families: the row's inputs, the head, the tail, the row
 // ---------------------------------------------------------------------------
 
 enum Model { kNone = 0, kFov = 1, kTsai4 = 2, kTsai5 = 3, kRpc = 4 };
 
-// The coefficients a pass seeds with the sensor's scalars (rpc: none; its
-// coefficients have a pass of their own)
+// The distortion coefficients a tail pass seeds (rpc: none; its coefficients
+// have a pass of their own)
 MV_HD constexpr int num_coeffs(int model) {
   return model == kFov ? 1 : model == kTsai4 ? 4 : model == kTsai5 ? 5 : 0;
 }
@@ -560,86 +589,133 @@ template <typename T> MV_HD void load_bracket(const Args<T>& a, long long i, Row
 // Sensor values: rig 0-6, offset 7, then pixel: focal 8, ctr 9-10,
 // dist_half 11-12, dist 13.. (rpc: the distort half); depth: d2i
 // 8..8+nd-1, scale 8+nd
+MV_HD int pixel_sensor_count(int model, int ndist) { return 13 + coeffs_read(model, ndist); }
+template <typename T> MV_HD C pixel_sensor_value(const Args<T>& a, int i) {
+  if (i < 7) return a.rig[i];
+  if (i == 7) return a.offset[0];
+  if (i == 8) return a.focal[0];
+  if (i < 11) return a.ctr[i - 9];
+  if (i < 13) return a.dist_half[i - 11];
+  return a.dist[i - 13];
+}
+template <typename T> MV_HD C depth_sensor_value(const Args<T>& a, int nd, int i) {
+  if (i < 7) return a.rig[i];
+  if (i == 7) return a.offset[0];
+  if (i < 8 + nd) return a.d2i[i - 8];
+  return a.dscale[0];
+}
 template <typename T> MV_HD void load_pixel_sensor(const Args<T>& a, int model, C* sp) {
-  const int d = coeffs_read(model, a.ndist);
-  for (int i = 0; i < 7; ++i) sp[i] = a.rig[i];
-  sp[7] = a.offset[0];
-  sp[8] = a.focal[0];
-  sp[9] = a.ctr[0];
-  sp[10] = a.ctr[1];
-  sp[11] = a.dist_half[0];
-  sp[12] = a.dist_half[1];
-  for (int i = 0; i < d; ++i) sp[13 + i] = a.dist[i];
+  for (int i = 0; i < pixel_sensor_count(model, a.ndist); ++i) sp[i] = pixel_sensor_value(a, i);
 }
 template <typename T> MV_HD void load_depth_sensor(const Args<T>& a, int nd, C* sp) {
-  for (int i = 0; i < 7; ++i) sp[i] = a.rig[i];
-  sp[7] = a.offset[0];
-  for (int i = 0; i < nd; ++i) sp[8 + i] = a.d2i[i];
-  sp[8 + nd] = a.dscale[0];
+  for (int i = 0; i < 9 + nd; ++i) sp[i] = depth_sensor_value(a, nd, i);
 }
 
-// One pass of a pixel row (BracketedCamError). Blocks: 0 beg, 1 end, 2 rig,
-// 3 (offset, focal, ctr2, dist d; rpc: no dist), 4 point, 5 (rpc only) the
-// rpc map's numerators and denominators. Writes the residual in pass 0 and
-// the seeded block's columns of J_cam (B columns a component) or J_pt.
-template <typename T, int MODEL, int PASS>
-MV_HD void pixel_pass(const Row& in, const T* pix, const C* sp, C a2, int deg, int B, T* res,
-                      T* jc, T* jp) {
-  constexpr int D = num_coeffs(MODEL);
-  constexpr int NI = 4 + D;
-  using SB = Blk<PASS, 0, 7>;
-  using SE = Blk<PASS, 1, 7>;
-  using SR = Blk<PASS, 2, 7>;
-  using SI = Blk<PASS, 3, NI>;
-  using SX = Blk<PASS, 4, 3>;
+// A head pass's inputs: block BLK's values FIRST .. FIRST + W - 1 seeded
+// (slots 0 .. W - 1), its others Jets without derivative, every other block
+// a plain number
+template <int FIRST, int W> MV_HD void seed_at(C& x, C v, int) { x = v; }
+template <int FIRST, int W, int W2> MV_HD void seed_at(Jet<C, W2>& x, C v, int i) {
+  x = Jet<C, W2>(v);
+  if (i >= FIRST && i < FIRST + W) x.d[i - FIRST] = C(1);
+}
+
+// The columns base .. base + W - 1 of each of the K components: the tail's
+// Jacobian tx [K][3] along the split point times the head's derivatives
+template <typename T, int K, int W>
+MV_HD void emit_cols(const C (&tx)[K][3], const Jet<C, W> (&h)[3], T* dst, int stride) {
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      dst[c * stride + j] =
+          static_cast<T>(tx[c][0] * h[0].d[j] + tx[c][1] * h[1].d[j] + tx[c][2] * h[2].d[j]);
+}
+
+template <typename T, int K>
+MV_HD void zero_cols(T* dst, int stride, int first, int count) {
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+    for (int j = 0; j < count; ++j) dst[c * stride + first + j] = T(0);
+}
+
+// --- pixel rows (BracketedCamError) ----------------------------------------
+
+// The head: X_c = world_to_cam(beg, end, rig, offset) applied to the point.
+// Blocks: 0 beg, 1 end, 2 rig, 3 the offset; BLK < 0 seeds none.
+template <typename T, int BLK, int FIRST, int W, class X>
+MV_HD void pixel_head(const Row& in, const C* sp, X (&xc)[3]) {
+  using SB = Blk<BLK, 0, W>;
+  using SE = Blk<BLK, 1, W>;
+  using SR = Blk<BLK, 2, W>;
+  using SO = Blk<BLK, 3, W>;
   SB beg[7];
   SE end[7];
   SR rig[7];
+#pragma unroll
   for (int i = 0; i < 7; ++i) {
-    seed(beg[i], in.beg[i], i);
-    seed(end[i], in.end[i], i);
-    seed(rig[i], sp[i], i);
+    seed_at<FIRST, W>(beg[i], in.beg[i], i);
+    seed_at<FIRST, W>(end[i], in.end[i], i);
+    seed_at<FIRST, W>(rig[i], sp[i], i);
   }
-  SI off, focal, ctr[2], dist[D > 0 ? D : 1];
-  seed(off, sp[7], 0);
-  seed(focal, sp[8], 1);
-  seed(ctr[0], sp[9], 2);
-  seed(ctr[1], sp[10], 3);
-  for (int i = 0; i < D; ++i) seed(dist[i], sp[13 + i], 4 + i);
-  SX x[3];
-  for (int i = 0; i < 3; ++i) seed(x[i], in.x[i], i);
-  const C dh[2] = {sp[11], sp[12]};
-
-  using W2 = PoseT<SB, SE, SR, SI>;
-  W2 w2c[7];
+  SO off;
+  seed_at<FIRST, W>(off, sp[7], 0);
+  PoseT<SB, SE, SR, SO> w2c[7];
   world_to_cam<T>(beg, end, rig, off, in.dt_cam, in.dt_bracket, w2c);
-  using X3 = Pr<W2, SX>;
-  X3 xc[3];
-  pose_apply<T>(w2c, x, xc);
+  pose_apply<T>(w2c, in.x, xc);
+}
+
+// The tail from X_c: the projection (z clamped), the distortion, the residual
+// and its weight. Pass 0 seeds X_c (res and its Jacobian tx along X_c), pass 1
+// the focal and the centre (columns 22-24), pass 2 the distortion
+// coefficients (columns 25..; rpc: its numerators and denominators, whose
+// coefficients' columns are their monomials times those derivatives).
+template <typename T, int MODEL, int TP>
+MV_HD void pixel_tail(const C (&xv)[3], const T* pix, const C* sp, C a2, C mask, int deg, int B,
+                      T* res, T* jc, C (&tx)[2][3]) {
+  constexpr int D = num_coeffs(MODEL);
+  constexpr bool kCoeffPass = MODEL == kRpc && TP == 2;
+  constexpr bool kDistPass = TP == 2 && (D > 0);
+  constexpr int DW = D > 0 ? D : 1;
+  using SX = typename std::conditional<TP == 0, Jet<C, 3>, C>::type;
+  using SF = typename std::conditional<TP == 1, Jet<C, 3>, C>::type;
+  using SD = typename std::conditional<kDistPass, Jet<C, DW>, C>::type;
+  SX xc[3];
+  SF focal, ctr[2];
+  SD dist[DW];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) seed_at<0, 3>(xc[i], xv[i], i);
+  seed_at<0, 3>(focal, sp[8], 0);
+  seed_at<0, 3>(ctr[0], sp[9], 1);
+  seed_at<0, 3>(ctr[1], sp[10], 2);
+#pragma unroll
+  for (int i = 0; i < DW; ++i)
+    if (i < D) seed_at<0, DW>(dist[i], sp[13 + i], i);
+  const C dh[2] = {sp[11], sp[12]};
   // project_rows: z clamped to 1e-8 where |z| < 1e-8
-  X3 z = xc[2];
-  if (val(z) < C(1e-8) && val(z) > -C(1e-8)) z = X3(C(1e-8));
-  using U = Pr<X3, SI>;
+  SX z = xc[2];
+  if (val(z) < C(1e-8) && val(z) > -C(1e-8)) z = SX(C(1e-8));
+  using U = Pr<SF, SX>;
   const U u[2] = {focal * (xc[0] / z), focal * (xc[1] / z)};
-  // the distorted centred pixel; pass 5 of rpc seeds (vx, wx, vy, wy)
-  constexpr bool kCoeffPass = MODEL == kRpc && PASS == 5;
-  using P = typename std::conditional<kCoeffPass, Jet<C, 4>, U>::type;
+  using V = Pr<U, SD>;
+  using P = typename std::conditional<kCoeffPass, Jet<C, 4>, V>::type;
   P p[2];
   C xp[kRpcMaxDeg + 1], yp[kRpcMaxDeg + 1];
   if constexpr (MODEL == kNone) {
     for (int c = 0; c < 2; ++c) p[c] = u[c] + ctr[c] - dh[c];
   } else if constexpr (MODEL == kFov) {
-    const SI pre1 = C(1) / dist[0];
-    const SI pre2 = C(2) * mtan(dist[0] / C(2));
+    const SD pre1 = C(1) / dist[0];
+    const SD pre2 = C(2) * mtan(dist[0] / C(2));
     const U nrm[2] = {u[0] / focal, u[1] / focal};
     U ss = nrm[0] * nrm[0] + nrm[1] * nrm[1];
     if (val(ss) < C(1e-24)) ss = U(C(1e-24));
     const U ru = msqrt(ss);
-    U conv = U(C(1));
+    V conv = V(C(1));
     if (val(ru) > C(1e-5)) conv = matan(ru * pre2) * pre1 / ru;
     for (int c = 0; c < 2; ++c) p[c] = (ctr[c] - dh[c]) + conv * nrm[c] * focal;
   } else if constexpr (MODEL == kRpc) {
-    // rpc reads neither the focal nor the optical centre (their columns stay 0)
+    // rpc reads neither the focal nor the optical centre but through the
+    // undistorted centred pixel u
     C v[2], w[2], f[2], df[2][2];
     rpc_map(sp + 13, deg, val(u[0]), val(u[1]), xp, yp, v, w, f, df);
     if constexpr (kCoeffPass) {
@@ -655,19 +731,26 @@ MV_HD void pixel_pass(const Row& in, const T* pix, const C* sp, C a2, int deg, i
   } else {
     const U nx = u[0] / focal, ny = u[1] / focal;
     const U r2 = nx * nx + ny * ny;
-    U radial = C(1) + dist[0] * r2 + dist[1] * r2 * r2;
+    V radial = C(1) + dist[0] * r2 + dist[1] * r2 * r2;
     if constexpr (D == 5) radial = radial + dist[D - 1] * r2 * r2 * r2;
-    const U dx = radial * nx + C(2) * dist[2] * nx * ny + dist[3] * (r2 + C(2) * nx * nx);
-    const U dy = radial * ny + dist[2] * (r2 + C(2) * ny * ny) + C(2) * dist[3] * nx * ny;
+    const V dx = radial * nx + C(2) * dist[2] * nx * ny + dist[3] * (r2 + C(2) * nx * nx);
+    const V dy = radial * ny + dist[2] * (r2 + C(2) * ny * ny) + C(2) * dist[3] * nx * ny;
     p[0] = dx * focal + (ctr[0] - dh[0]);
     p[1] = dy * focal + (ctr[1] - dh[1]);
   }
   P r[2];
   for (int c = 0; c < 2; ++c) r[c] = p[c] + dh[c] - C(pix[c]);
-  robustify<2>(r, a2, in.mask);
-  if constexpr (PASS == 0)
-    for (int c = 0; c < 2; ++c) res[c] = static_cast<T>(val(r[c]));
-  if constexpr (kCoeffPass) {
+  robustify<2>(r, a2, mask);
+  if constexpr (TP == 0) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      res[c] = static_cast<T>(val(r[c]));
+#pragma unroll
+      for (int i = 0; i < 3; ++i) tx[c][i] = r[c].d[i];
+    }
+  } else if constexpr (TP == 1) {
+    for (int c = 0; c < 2; ++c) emit(r[c], jc + c * B + 22);
+  } else if constexpr (kCoeffPass) {
     // a coefficient's column: d r / d (its numerator or denominator) times
     // its monomial; the undistort half's columns are 0
     const int nl = (deg + 1) * (deg + 2) / 2, dl = nl - 1, nh = 2 * (nl + dl);
@@ -688,40 +771,94 @@ MV_HD void pixel_pass(const Row& in, const T* pix, const C* sp, C a2, int deg, i
       }
       for (int k = nh; k < 2 * nh; ++k) col[k] = T(0);
     }
-  } else if constexpr (PASS == 4) {
-    for (int c = 0; c < 2; ++c) emit(r[c], jp + c * 3);
   } else {
-    constexpr int base = PASS < 3 ? 7 * PASS : 21;
-    for (int c = 0; c < 2; ++c) emit(r[c], jc + c * B + base);
+    for (int c = 0; c < 2; ++c) emit(r[c], jc + c * B + 25);
   }
 }
 
-// One pass of a depth row (BracketedDepthError / BracketedDepthMeshError).
-// Blocks: 0 beg, 1 end, 2 rig, 3 (offset, depth_to_image nd, scale), 4 the
-// point (the triangulated family only).
-template <typename T, bool AFFINE, bool MESH, int PASS>
-MV_HD void depth_pass(const Row& in, const T* xyz, const C* target, const C* sp, C weight,
-                      C a2, T* res, T* jc, T* jp) {
+// A head block's columns, kPixelHeadWidth inputs a pass
+template <typename T, int BLK, int FIRST, int NB>
+MV_HD void pixel_block(const Row& in, const C* sp, const C (&tx)[2][3], int B, T* jc) {
+  constexpr int W = NB - FIRST < kPixelHeadWidth ? NB - FIRST : kPixelHeadWidth;
+  Jet<C, W> h[3];
+  pixel_head<T, BLK, FIRST, W>(in, sp, h);
+  emit_cols<T, 2, W>(tx, h, jc + 7 * BLK + FIRST, B);
+  if constexpr (FIRST + W < NB) pixel_block<T, BLK, FIRST + W, NB>(in, sp, tx, B, jc);
+}
+
+// A whole pixel row into res [2], jc [2, B], jp [2, 3]
+template <typename T, int MODEL>
+MV_HD void pixel_row_into(const Row& in, const T* pix, const C* sp, C a2, int deg, int B, T* res,
+                          T* jc, T* jp) {
+  C xc[3], tx[2][3];
+  const bool moving = in.dt_bracket != C(0);
+  Jet<C, 1> xo[3];
+  if (moving) {
+    // the value and the offset's derivative in one pass
+    pixel_head<T, 3, 0, 1>(in, sp, xo);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xc[i] = xo[i].v;
+  } else {
+    pixel_head<T, -1, 0, 1>(in, sp, xc);
+  }
+  pixel_tail<T, MODEL, 0>(xc, pix, sp, a2, in.mask, deg, B, res, jc, tx);
+  pixel_tail<T, MODEL, 1>(xc, pix, sp, a2, in.mask, deg, B, res, jc, tx);
+  if constexpr (MODEL == kRpc || num_coeffs(MODEL) > 0)
+    pixel_tail<T, MODEL, 2>(xc, pix, sp, a2, in.mask, deg, B, res, jc, tx);
+  {
+    // the point: X_c = R(w2c) x + t, w2c in plain numbers
+    C beg[7], end[7], rig[7], w2c[7];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      beg[i] = in.beg[i];
+      end[i] = in.end[i];
+      rig[i] = sp[i];
+    }
+    world_to_cam<T>(beg, end, rig, sp[7], in.dt_cam, in.dt_bracket, w2c);
+    Jet<C, 3> x[3], h[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) seed_at<0, 3>(x[i], in.x[i], i);
+    pose_apply<T>(w2c, x, h);
+    emit_cols<T, 2, 3>(tx, h, jp, 3);
+  }
+  pixel_block<T, 0, 0, 7>(in, sp, tx, B, jc);
+  if (moving) {
+    pixel_block<T, 1, 0, 7>(in, sp, tx, B, jc);
+    pixel_block<T, 2, 0, 7>(in, sp, tx, B, jc);
+    emit_cols<T, 2, 1>(tx, xo, jc + 21, B);
+  } else {
+    // alpha = 0 and the rig ignored: the end pose, the rig and the offset
+    // have exact zero columns
+    zero_cols<T, 2>(jc, B, 7, 15);
+  }
+}
+
+// --- depth rows (BracketedDepthError / BracketedDepthMeshError) ------------
+
+// The head: the depth point in the world, M = world_to_cam(beg, end, rig,
+// offset)^-1 applied to depth_to_cam(d2i, scale, xyz). Blocks: 0 beg, 1 end,
+// 2 rig, 3 (offset, depth_to_image nd, scale); BLK < 0 seeds none.
+template <typename T, bool AFFINE, int BLK, int FIRST, int W, class M>
+MV_HD void depth_head(const Row& in, const T* xyz, const C* sp, M (&mw)[3]) {
   constexpr int ND = AFFINE ? 12 : 7;
-  constexpr int NI = 2 + ND;
-  constexpr int B = 23 + ND;
-  using SB = Blk<PASS, 0, 7>;
-  using SE = Blk<PASS, 1, 7>;
-  using SR = Blk<PASS, 2, 7>;
-  using SI = Blk<PASS, 3, NI>;
-  using SX = Blk<PASS, 4, 3>;
+  using SB = Blk<BLK, 0, W>;
+  using SE = Blk<BLK, 1, W>;
+  using SR = Blk<BLK, 2, W>;
+  using SI = Blk<BLK, 3, W>;
   SB beg[7];
   SE end[7];
   SR rig[7];
+#pragma unroll
   for (int i = 0; i < 7; ++i) {
-    seed(beg[i], in.beg[i], i);
-    seed(end[i], in.end[i], i);
-    seed(rig[i], sp[i], i);
+    seed_at<FIRST, W>(beg[i], in.beg[i], i);
+    seed_at<FIRST, W>(end[i], in.end[i], i);
+    seed_at<FIRST, W>(rig[i], sp[i], i);
   }
   SI off, d2i[ND], scale;
-  seed(off, sp[7], 0);
-  for (int i = 0; i < ND; ++i) seed(d2i[i], sp[8 + i], 1 + i);
-  seed(scale, sp[8 + ND], 1 + ND);
+  seed_at<FIRST, W>(off, sp[7], 0);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) seed_at<FIRST, W>(d2i[i], sp[8 + i], 1 + i);
+  seed_at<FIRST, W>(scale, sp[8 + ND], 1 + ND);
 
   using W2 = PoseT<SB, SE, SR, SI>;
   W2 w2c[7];
@@ -758,39 +895,70 @@ MV_HD void depth_pass(const Row& in, const T* xyz, const C* target, const C* sp,
   W2 ti[3];
   rotate<T>(qi, tw, ti);
   for (int i = 0; i < 3; ++i) inv[i] = -ti[i];
-  using M = Pr<W2, SI>;
-  M mw[3];
   pose_apply<T>(inv, mc, mw);
-  SX x[3];
-  for (int i = 0; i < 3; ++i) seed(x[i], in.x[i], i);
-  using R3 = Pr<M, SX>;
-  R3 r[3];
-  for (int i = 0; i < 3; ++i) {
-    if constexpr (MESH)
-      r[i] = weight * (target[i] - mw[i]);
-    else
-      r[i] = weight * (x[i] - mw[i]);
-  }
-  robustify<3>(r, a2, in.mask);
-  if constexpr (PASS == 0)
-    for (int c = 0; c < 3; ++c) res[c] = static_cast<T>(val(r[c]));
-  constexpr int base = PASS < 3 ? 7 * PASS : 21;
+}
+
+// The tail from M: r = weight (target - M), its Cauchy weight and mask; res
+// and its Jacobian tm along M
+template <typename T>
+MV_HD void depth_tail(const C (&mv)[3], const C (&target)[3], C weight, C a2, C mask, T* res,
+                      C (&tm)[3][3]) {
+  Jet<C, 3> m[3], r[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) seed_at<0, 3>(m[i], mv[i], i);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r[i] = weight * (target[i] - m[i]);
+  robustify<3>(r, a2, mask);
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    if constexpr (PASS == 4)
-      emit(r[c], jp + c * 3);
-    else
-      emit(r[c], jc + c * B + base);
+    res[c] = static_cast<T>(val(r[c]));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tm[c][i] = r[c].d[i];
   }
 }
 
+template <typename T, bool AFFINE, int BLK, int FIRST, int NB>
+MV_HD void depth_block(const Row& in, const T* xyz, const C* sp, const C (&tm)[3][3], int B,
+                       T* jc) {
+  constexpr int W = NB - FIRST < kDepthHeadWidth ? NB - FIRST : kDepthHeadWidth;
+  Jet<C, W> h[3];
+  depth_head<T, AFFINE, BLK, FIRST, W>(in, xyz, sp, h);
+  emit_cols<T, 3, W>(tm, h, jc + 7 * BLK + FIRST, B);
+  if constexpr (FIRST + W < NB) depth_block<T, AFFINE, BLK, FIRST + W, NB>(in, xyz, sp, tm, B, jc);
+}
+
+// A whole depth row into res [3], jc [3, B], jp [3, 3] (none for the mesh)
+template <typename T, bool AFFINE, bool MESH>
+MV_HD void depth_row_into(const Row& in, const T* xyz, const C (&target)[3], const C* sp,
+                          C weight, C a2, T* res, T* jc, T* jp) {
+  constexpr int ND = AFFINE ? 12 : 7;
+  constexpr int B = 23 + ND;
+  C mw[3], tm[3][3];
+  depth_head<T, AFFINE, -1, 0, 1>(in, xyz, sp, mw);
+  depth_tail<T>(mw, MESH ? target : in.x, weight, a2, in.mask, res, tm);
+  if constexpr (!MESH) {
+    // r = weight (x - M): along the point, minus the tail's Jacobian along M
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) jp[c * 3 + j] = static_cast<T>(-tm[c][j]);
+  }
+  depth_block<T, AFFINE, 0, 0, 7>(in, xyz, sp, tm, B, jc);
+  if (in.dt_bracket != C(0)) {
+    depth_block<T, AFFINE, 1, 0, 7>(in, xyz, sp, tm, B, jc);
+    depth_block<T, AFFINE, 2, 0, 7>(in, xyz, sp, tm, B, jc);
+  } else {
+    zero_cols<T, 3>(jc, B, 7, 14);
+  }
+  depth_block<T, AFFINE, 3, 0, 2 + ND>(in, xyz, sp, tm, B, jc);
+}
+
 // The xyz prior (XYZError), one pass: the point's three inputs
-template <typename T, int PASS>
-MV_HD void prior_pass(const T* pt, const T* ref, C mask, C weight, C a2, bool robust, T* res,
-                      T* jp) {
-  using S = Blk<PASS, 0, 3>;
-  S x[3];
+template <typename T>
+MV_HD void prior_row_into(const T* pt, const T* ref, C mask, C weight, C a2, bool robust, T* res,
+                          T* jp) {
+  Jet<C, 3> x[3], r[3];
   for (int i = 0; i < 3; ++i) seed(x[i], C(pt[i]), i);
-  S r[3];
   for (int i = 0; i < 3; ++i) r[i] = weight * (x[i] - C(ref[i]));
   if (robust) {
     robustify<3>(r, a2, mask);
@@ -803,30 +971,20 @@ MV_HD void prior_pass(const T* pt, const T* ref, C mask, C weight, C a2, bool ro
   }
 }
 
-// A whole row: every pass
+// The row's inputs gathered, then the row into the given outputs
 template <typename T, int MODEL>
-MV_HD void pixel_row(const Args<T>& a, const C* sp, long long i) {
+MV_HD void pixel_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp) {
   const int deg = MODEL == kRpc ? rpc_degree(a.ndist / 2) : 0;
   const int B = 25 + (MODEL == kRpc ? a.ndist : num_coeffs(MODEL));
   Row in;
   load_bracket(a, i, in);
   const T* pt = a.points + a.pidx[i] * 3;
   for (int j = 0; j < 3; ++j) in.x[j] = pt[j];
-  const T* pix = a.pix + 2 * i;
-  T* res = a.res + 2 * i;
-  T* jc = a.j_cam + 2 * B * i;
-  T* jp = a.j_pt + 6 * i;
-  pixel_pass<T, MODEL, 0>(in, pix, sp, a.a2, deg, B, res, jc, jp);
-  pixel_pass<T, MODEL, 1>(in, pix, sp, a.a2, deg, B, res, jc, jp);
-  pixel_pass<T, MODEL, 2>(in, pix, sp, a.a2, deg, B, res, jc, jp);
-  pixel_pass<T, MODEL, 3>(in, pix, sp, a.a2, deg, B, res, jc, jp);
-  pixel_pass<T, MODEL, 4>(in, pix, sp, a.a2, deg, B, res, jc, jp);
-  if constexpr (MODEL == kRpc) pixel_pass<T, MODEL, 5>(in, pix, sp, a.a2, deg, B, res, jc, jp);
+  pixel_row_into<T, MODEL>(in, a.pix + 2 * i, sp, a.a2, deg, B, res, jc, jp);
 }
 
 template <typename T, bool AFFINE, bool MESH>
-MV_HD void depth_row(const Args<T>& a, const C* sp, long long i) {
-  constexpr int B = 23 + (AFFINE ? 12 : 7);
+MV_HD void depth_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp) {
   Row in;
   load_bracket(a, i, in);
   C target[3] = {C(0), C(0), C(0)};
@@ -841,23 +999,34 @@ MV_HD void depth_row(const Args<T>& a, const C* sp, long long i) {
     const T* pt = a.points + a.pidx[i] * 3;
     for (int j = 0; j < 3; ++j) in.x[j] = pt[j];
   }
-  const T* xyz = a.depth_xyz + 3 * i;
-  T* res = a.res + 3 * i;
-  T* jc = a.j_cam + 3 * B * i;
-  T* jp = MESH ? nullptr : a.j_pt + 9 * i;
-  depth_pass<T, AFFINE, MESH, 0>(in, xyz, target, sp, a.weight, a.a2, res, jc, jp);
-  depth_pass<T, AFFINE, MESH, 1>(in, xyz, target, sp, a.weight, a.a2, res, jc, jp);
-  depth_pass<T, AFFINE, MESH, 2>(in, xyz, target, sp, a.weight, a.a2, res, jc, jp);
-  depth_pass<T, AFFINE, MESH, 3>(in, xyz, target, sp, a.weight, a.a2, res, jc, jp);
-  if constexpr (!MESH) depth_pass<T, AFFINE, MESH, 4>(in, xyz, target, sp, a.weight, a.a2, res, jc, jp);
+  depth_row_into<T, AFFINE, MESH>(in, a.depth_xyz + 3 * i, target, sp, a.weight, a.a2, res, jc,
+                                  jp);
+}
+
+template <typename T>
+MV_HD void prior_row_at(const Args<T>& a, long long i, T* res, T* jp) {
+  const T* pt = a.points + a.pidx[i] * 3;
+  const C mask = a.mask[i] ? C(1) : C(0);
+  prior_row_into<T>(pt, a.ref_xyz + 3 * i, mask, a.weight, a.a2, a.robust != 0, res, jp);
+}
+
+// Row i written in place (the host build's loop)
+template <typename T, int MODEL>
+MV_HD void pixel_row(const Args<T>& a, const C* sp, long long i) {
+  const int B = 25 + (MODEL == kRpc ? a.ndist : num_coeffs(MODEL));
+  pixel_row_at<T, MODEL>(a, sp, i, a.res + 2 * i, a.j_cam + 2 * B * i, a.j_pt + 6 * i);
+}
+
+template <typename T, bool AFFINE, bool MESH>
+MV_HD void depth_row(const Args<T>& a, const C* sp, long long i) {
+  constexpr int B = 23 + (AFFINE ? 12 : 7);
+  depth_row_at<T, AFFINE, MESH>(a, sp, i, a.res + 3 * i, a.j_cam + 3 * B * i,
+                                MESH ? nullptr : a.j_pt + 9 * i);
 }
 
 template <typename T>
 MV_HD void prior_row(const Args<T>& a, long long i) {
-  const T* pt = a.points + a.pidx[i] * 3;
-  const C mask = a.mask[i] ? C(1) : C(0);
-  prior_pass<T, 0>(pt, a.ref_xyz + 3 * i, mask, a.weight, a.a2, a.robust != 0, a.res + 3 * i,
-                   a.j_pt + 9 * i);
+  prior_row_at<T>(a, i, a.res + 3 * i, a.j_pt + 9 * i);
 }
 
 }  // namespace rowblocks
@@ -942,74 +1111,160 @@ rowblocks::Args<T> typed_args(const RowBlocksArgs& h) {
 
 namespace rowblocks {
 
-// The family's sensor values into shared memory, once a block
-template <typename T, int FAMILY, int MODEL, bool AFFINE>
-__device__ __forceinline__ void stage_sensor(const Args<T>& a, C* sp) {
-  if (threadIdx.x == 0) {
-    if constexpr (FAMILY == 0) load_pixel_sensor(a, MODEL, sp);
-    if constexpr (FAMILY == 1) load_depth_sensor(a, AFFINE ? 12 : 7, sp);
+// Where a block keeps its sensor values and its rows' outputs in shared
+// memory (byte offsets), and the outputs' widths a row
+struct Tile {
+  int res, jc, jp;       // offsets of the staged res, J_cam, J_pt
+  int k, kb, kp;         // values a row: res k, J_cam k B, J_pt k 3 (0: none)
+};
+
+constexpr int kSensorBytes = kSensorMax * sizeof(C);
+
+// count values of T from shared memory to the global span dst, by every
+// thread: 16-byte stores where both ends allow
+template <typename T>
+__device__ __forceinline__ void store_span(T* dst, const T* src, long long count) {
+  long long done = 0;
+  if (((reinterpret_cast<unsigned long long>(dst) | reinterpret_cast<unsigned long long>(src)) &
+       15ull) == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+    const long long n16 = count / kPer;
+    const int4* s = reinterpret_cast<const int4*>(src);
+    int4* d = reinterpret_cast<int4*>(dst);
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) d[i] = s[i];
+    done = n16 * kPer;
   }
+  for (long long i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// The block's staged outputs to their spans of res, J_cam and J_pt
+template <typename T>
+__device__ __forceinline__ void store_tile(const Args<T>& a, const Tile& t, const unsigned char* smem,
+                                           long long row0, int rows) {
   __syncthreads();
+  store_span(a.res + row0 * t.k, reinterpret_cast<const T*>(smem + t.res),
+             static_cast<long long>(rows) * t.k);
+  if (t.kb)
+    store_span(a.j_cam + row0 * t.kb, reinterpret_cast<const T*>(smem + t.jc),
+               static_cast<long long>(rows) * t.kb);
+  if (t.kp)
+    store_span(a.j_pt + row0 * t.kp, reinterpret_cast<const T*>(smem + t.jp),
+               static_cast<long long>(rows) * t.kp);
 }
 
 template <typename T, int MODEL>
-__global__ void __launch_bounds__(kRows) pixel_kernel(Args<T> a) {
-  __shared__ C sp[MODEL == kRpc ? kSensorMax : 13 + 5];
-  stage_sensor<T, 0, MODEL, false>(a, sp);
-  const long long i = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
-  if (i < a.n) pixel_row<T, MODEL>(a, sp, i);
+__global__ void __launch_bounds__(kRows, kPixelMinBlocks) pixel_kernel(Args<T> a, Tile t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* sp = reinterpret_cast<C*>(smem);
+  for (int i = threadIdx.x; i < pixel_sensor_count(MODEL, a.ndist); i += blockDim.x)
+    sp[i] = pixel_sensor_value(a, i);
+  __syncthreads();
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
+  const int r = threadIdx.x;
+  if (r < rows)
+    pixel_row_at<T, MODEL>(a, sp, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
+                           reinterpret_cast<T*>(smem + t.jc) + r * t.kb,
+                           reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
+  store_tile(a, t, smem, row0, rows);
 }
 
 template <typename T, bool AFFINE, bool MESH>
-__global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a) {
-  __shared__ C sp[8 + 12 + 1];
-  stage_sensor<T, 1, 0, AFFINE>(a, sp);
-  const long long i = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
-  if (i < a.n) depth_row<T, AFFINE, MESH>(a, sp, i);
+__global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a, Tile t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ND = AFFINE ? 12 : 7;
+  C* sp = reinterpret_cast<C*>(smem);
+  for (int i = threadIdx.x; i < 9 + ND; i += blockDim.x) sp[i] = depth_sensor_value(a, ND, i);
+  __syncthreads();
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
+  const int r = threadIdx.x;
+  if (r < rows)
+    depth_row_at<T, AFFINE, MESH>(a, sp, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
+                                  reinterpret_cast<T*>(smem + t.jc) + r * t.kb,
+                                  MESH ? nullptr : reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
+  store_tile(a, t, smem, row0, rows);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kRows) prior_kernel(Args<T> a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
-  if (i < a.n) prior_row<T>(a, i);
+__global__ void __launch_bounds__(kRows) prior_kernel(Args<T> a, Tile t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
+  const int r = threadIdx.x;
+  if (r < rows)
+    prior_row_at<T>(a, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
+                    reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
+  store_tile(a, t, smem, row0, rows);
 }
 
-// One launch of the family's kernel
-template <typename T, int FAMILY, int MODEL, bool AFFINE, bool MESH>
-int go(const Args<T>& a, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((a.n + kRows - 1) / kRows));
-  if constexpr (FAMILY == 0)
-    pixel_kernel<T, MODEL><<<grid, kRows, 0, stream>>>(a);
-  else if constexpr (FAMILY == 1)
-    depth_kernel<T, AFFINE, MESH><<<grid, kRows, 0, stream>>>(a);
-  else
-    prior_kernel<T><<<grid, kRows, 0, stream>>>(a);
-  return 0;
+constexpr int kTileBudget = 52 * 1024;   // a block's shared memory, for 4 blocks an SM
+constexpr int kSmemMax = 232448;         // a block's shared memory at most (sm_90)
+
+__host__ __forceinline__ int align16h(long long b) { return static_cast<int>((b + 15) & ~15ll); }
+
+// One launch of the family's kernel: rows a block from 128 down (in 32s) until
+// its tile fits kTileBudget, else 32
+template <typename T, typename Kernel>
+int go(Kernel kernel, const Args<T>& a, int k, int kb, int kp, cudaStream_t stream) {
+  Tile t;
+  t.k = k;
+  t.kb = kb;
+  t.kp = kp;
+  auto bytes = [&](int rows) {
+    t.res = kSensorBytes;
+    t.jc = t.res + align16h(static_cast<long long>(rows) * k * sizeof(T));
+    t.jp = t.jc + align16h(static_cast<long long>(rows) * kb * sizeof(T));
+    return t.jp + align16h(static_cast<long long>(rows) * kp * sizeof(T));
+  };
+  int rows = kRows;
+  while (rows > 32 && bytes(rows) > kTileBudget) rows -= 32;
+  const int smem = bytes(rows);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((a.n + rows - 1) / rows));
+  kernel<<<grid, rows, smem, stream>>>(a, t);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the instantiation; returns -1 for a combination that has none
+// Picks the instantiation; returns -1 for a combination that has none, else
+// the launch's cudaError_t
 template <typename T>
 int launch(const RowBlocksArgs& h, cudaStream_t s) {
   const Args<T> a = typed_args<T>(h);
   if (h.family == 0) {
+    const int B = 25 + h.ndist;
     switch (h.model) {
-      case kNone: return go<T, 0, kNone, false, false>(a, s);
-      case kFov: return go<T, 0, kFov, false, false>(a, s);
-      case kTsai4: return go<T, 0, kTsai4, false, false>(a, s);
-      case kTsai5: return go<T, 0, kTsai5, false, false>(a, s);
+      case kNone:
+        if (h.ndist != 0) return -1;
+        return go<T>(pixel_kernel<T, kNone>, a, 2, 2 * B, 6, s);
+      case kFov:
+        if (h.ndist != 1) return -1;
+        return go<T>(pixel_kernel<T, kFov>, a, 2, 2 * B, 6, s);
+      case kTsai4:
+        if (h.ndist != 4) return -1;
+        return go<T>(pixel_kernel<T, kTsai4>, a, 2, 2 * B, 6, s);
+      case kTsai5:
+        if (h.ndist != 5) return -1;
+        return go<T>(pixel_kernel<T, kTsai5>, a, 2, 2 * B, 6, s);
       case kRpc:
         if (h.ndist % 2 != 0 || rpc_degree(h.ndist / 2) == 0) return -1;
-        return go<T, 0, kRpc, false, false>(a, s);
+        return go<T>(pixel_kernel<T, kRpc>, a, 2, 2 * B, 6, s);
       default: return -1;
     }
   }
   if (h.family == 1) {
-    if (h.affine && h.mesh) return go<T, 1, 0, true, true>(a, s);
-    if (h.affine) return go<T, 1, 0, true, false>(a, s);
-    if (h.mesh) return go<T, 1, 0, false, true>(a, s);
-    return go<T, 1, 0, false, false>(a, s);
+    const int B = 23 + (h.affine ? 12 : 7);
+    if (h.affine && h.mesh) return go<T>(depth_kernel<T, true, true>, a, 3, 3 * B, 0, s);
+    if (h.affine) return go<T>(depth_kernel<T, true, false>, a, 3, 3 * B, 9, s);
+    if (h.mesh) return go<T>(depth_kernel<T, false, true>, a, 3, 3 * B, 0, s);
+    return go<T>(depth_kernel<T, false, false>, a, 3, 3 * B, 9, s);
   }
-  if (h.family == 2) return go<T, 2, 0, false, false>(a, s);
+  if (h.family == 2) return go<T>(prior_kernel<T>, a, 3, 0, 9, s);
   return -1;
 }
 
@@ -1020,11 +1275,9 @@ int launch(const RowBlocksArgs& h, cudaStream_t s) {
 extern "C" int mv_row_blocks(const RowBlocksArgs* h, void* stream) {
   if (h->n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int bad = -1;
-  if (h->elem == 4) bad = rowblocks::launch<float>(*h, s);
-  if (h->elem == 8) bad = rowblocks::launch<double>(*h, s);
-  if (bad != 0) return -1;
-  return static_cast<int>(cudaGetLastError());
+  if (h->elem == 4) return rowblocks::launch<float>(*h, s);
+  if (h->elem == 8) return rowblocks::launch<double>(*h, s);
+  return -1;
 }
 
 #endif  // __CUDACC__

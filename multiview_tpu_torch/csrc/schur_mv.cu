@@ -8,46 +8,107 @@
 //   S x = cam_free * J_c^T (u - J_p Hpp^-1 J_p^T u) + dc * x,   u = J_c (cam_free * x)
 //
 // Row n of a family has a camera block J_c[n] [k, b] (pixel rows k = 2, depth
-// rows k = 3; columns: its bracket's begin pose 7, end pose 7, then the
-// family's b - 14 constant columns) and, where it touches a point, a point
-// block J_p[n] [k, 3]. Three launches:
-//   point pass    g_p[p] += J_p[n]^T u_n                 (u stored where asked)
-//   camera pass   v_n = u_n - J_p[n] Hpp^-1[p] g_p[p];   g_c += J_c[n]^T v_n
-//   epilogue      out = cam_free * g_c + dc * x
-// The camera pass needs the whole g_p (a grid-wide dependency, across shards a
-// sum), so it is a second launch; it recomputes u instead of reading it back.
-// A family without a camera block (the xyz priors) adds nothing to S x and is
-// left out of the table; one without a point block (depth against the mesh)
-// skips the point side.
+// rows k = 3, the row loops compiled for each; columns: its bracket's begin
+// pose 7, end pose 7, then the family's b - 14 constant columns) and, where
+// it touches a point, a point block J_p[n] [k, 3]. A family without a camera block (the xyz priors) adds
+// nothing to S x and is left out of the table; one without a point block
+// (depth against the mesh) skips the point side.
+//
+// One persistent, cooperative launch (cudaLaunchKernelEx with the cooperative
+// attribute; a grid of the blocks that fit on the card at once, one an SM):
+//   phase 0       g_p = 0; out = dc * x (0 without dc)
+//   grid barrier
+//   point pass    g_p[p] += J_p[n]^T u_n;  u_n stored (3 MB at the cube, coalesced)
+//   grid barrier
+//   points        w[p] = Hpp^-1[p] g_p[p], once a point
+//   grid barrier
+//   camera pass   v_n = u_n - J_p[n] w[p];  out[c] += cam_free[c] (J_c^T v)[c]
+// The epilogue is folded into the camera pass: out starts at dc * x and each
+// sum is added scaled by its column's cam_free. Which launch runs what:
+//   one shard:    S x is one launch of both passes; the right-hand side one
+//                 launch of the camera pass with u = 0 (x null, dc null); the
+//                 back-substitution's product one launch of the point pass
+//                 with u stored.
+//   more shards:  a shard's g_p must be summed over the shards (and the
+//                 processes) between the passes (ShardMesh.sum in
+//                 solver/schur_matvec.py), so S x is a point-pass launch and
+//                 a camera-pass launch a shard (dc * x added on the first
+//                 shard of all only; the shards' outs summed).
+//
+// Rows. Each block walks a contiguous span of 32-row chunks, family by family,
+// in tiles of tile_rows rows (one thread a row), staged into shared memory
+// with 16-byte cp.async copies (J_c, J_p, beg, end, pidx of the tile: each one
+// contiguous span), two tiles in flight while a third is computed. The tiles
+// go round a ring of `slots` slots that fills the block's shared memory, so
+// when the point pass ends its last `slots` tiles are still there: the camera
+// pass takes those first, from shared memory, then rereads the others in the
+// reverse order of the point pass, so that the rows the point pass read last
+// (the likeliest to be still in the 50 MB L2) come first.
+//
+// Sums. The camera pass's, in each thread's registers over its rows: a row
+// whose begin and end pose are one pose adds its two 7-column halves first
+// (every row of the benchmark's cube, every dt_bracket = 0 row); a thread
+// keeps running sums of its begin pose's and its end pose's columns while
+// they stay the same pose, and of its family's first 16 constant columns.
+// Where a lane's pose changes, its warp adds its sums (a reduce-scatter of 9
+// shuffles where the warp's lanes share a pose, else a tree of shuffles over
+// the lanes of each pose and one add a pose) into
+// the block's copy of g_c's pose columns in shared memory (the whole of them
+// where they fit, else a window of poses from the block's first row; a pose
+// outside it adds to out with a global atomic; where the pose columns are
+// few, each warp has a copy of its own, so that only a warp's lanes contend
+// for an address); the block adds its copies to out once, at the end. The
+// constant columns: at the end of a family, a reduce-scatter a warp, a block
+// sum in shared memory, one global atomic a block and column. Point columns: rows of one point that lie together
+// (calibrate's track-major rows) are summed by a segmented warp scan first,
+// then one atomic a run and column. Right in any row order; atomics make the
+// order of the sums, and the last bits, vary from run to run (as index_add_
+// on the card does).
+//
+// Why so: the camera pass, with 8 warps an SM, is bound by the latency of
+// its instructions, not by its bytes (per-phase SM clocks on the card: the
+// tiles were always in shared memory before they were needed). So it reads
+// u and w back (5 values a row) instead of rebuilding them (85 loads and
+// multiply-adds), keeps its sums in registers instead of a warp reduction
+// a row (a chain of shuffles, with shared-memory float atomics that are
+// compare-and-swap loops), and compiles its row loop for k = 2 and k = 3.
 //
 // Bound: bytes. A matvec must read J_c, J_p and the row indices once (at the
 // benchmark's 384000 float32 pixel rows 89.1 + 9.2 + 9.2 MB: 32 us at 3.35
 // TB/s); its 4 N k b operations are far below the FP32 rate. This design reads
-// J_c twice (once a pass), so half the bound is its ceiling. A block stages its
-// rows' camera blocks, one contiguous span, in shared memory with 16-byte
-// cp.async copies; each thread then owns one row.
-//
-// Sums: g_p takes one atomic a row and column (the rows of a point are spread
-// over the rows). Pose columns: the rows of a warp that share a pose are summed
-// first (__match_any_sync peers, a tree of shuffles; right for any row order),
-// then the first of them adds the sums, one atomic a pose column per warp.
-// Constant columns, which every row of a family adds into: a warp sum, a block
-// sum in shared memory, then one atomic a block and column. Atomics make the
-// order of the sums vary from run to run, as index_add_ on the card does.
+// them once from device memory in the point pass and again in the camera pass
+// for the rows that did not stay in shared memory (132 SMs hold about 29 MB:
+// all of calibrate's systems, a fifth of the cube's rows), part of those from
+// L2, and writes and reads u (2 x 3 MB at the cube): its ceiling is that
+// traffic and three grid barriers. On the card (chip_smoke.py phase 3c, SM
+// clocks) the cube's point pass streams its 108 MB at about 2.9 TB/s (37 us),
+// the barriers, phase 0 and the per-point phase take about 10 us, and the
+// camera pass, bound by its instructions' latency, the rest (about 50 us of
+// 0.097 ms against the bound's 0.032 ms).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxFamilies = 16;   // families of one launch; more go in further launches
+constexpr int kMaxFamilies = 32;   // families of one launch (the wrapper refuses more)
 constexpr int kFields = 10;        // int64 fields of one family in the host table
-constexpr int kMaxRows = 128;      // rows (threads) of a block
+constexpr int kThreads = 256;      // threads of a block
+constexpr int kChunk = 32;         // rows of the unit the rows are split among the blocks by
+constexpr int kPrefetch = 2;       // tiles in flight while one is computed
 constexpr int kPoseCols = 7;
 constexpr int kFirstConst = 14;    // camera columns before the constant ones
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSharedLimit = 232448;   // bytes of shared memory a block may use (sm_90)
+constexpr int kSmem = 230400;      // dynamic shared memory a block (sm_90: 227 KB at most)
+constexpr int kXBudget = 48 * 1024;  // x * cam_free kept whole in shared memory up to this
+constexpr int kGBudget = 32 * 1024;  // the pose-column copy of g_c (whole or a window)
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpCopyBudget = 24 * 1024;  // a copy a warp where they all fit this
+constexpr int kPointPass = 1, kCameraPass = 2;
 
 struct Family {
   const void* j_cam;        // [n, k, b]
@@ -58,73 +119,290 @@ struct Family {
   const long long* pidx;    // [n] point of each row (null with j_pt)
   long long n;
   long long u_offset;       // first element of the family in the flat u
+  long long first_chunk;    // the family's first 32-row chunk among all families'
+  long long weight;         // bytes a row reads: the blocks' spans are even in bytes
   int k, b;
-  int first_block;          // first block of the family in the grid
 };
 
-struct Table {
+template <typename T>
+struct Params {
   Family f[kMaxFamilies];
   int count;
+  int passes;               // kPointPass | kCameraPass
+  long long weight;         // the bytes of every family's 32-row chunks
+  const T* x;               // null: u = 0
+  const T* cf;              // [total] cam_free
+  const T* dc;              // [total]; null: out starts at 0
+  const T* hpp_inv;         // [num_points, 3, 3]
+  T* g_p;                   // [num_points, 3]: the point pass's sum, the camera pass's input
+  T* out;                   // [total]
+  T* u_out;                 // null or [sum n k]: u stored by the point pass (and read
+                            // back by the camera pass of the same launch)
+  T* w;                     // [num_points, 3] scratch: Hpp^-1 g_p
+  long long num_points, total, num_ref;
+  int tile_rows, slots, full_x, wposes, copies, max_const;
+  int off_xcf, off_g, off_const, off_slots, slot_bytes;
 };
 
-__device__ __forceinline__ const Family& family_of(const Table& t) {
-  int fi = 0;
-#pragma unroll
-  for (int i = 1; i < kMaxFamilies; ++i)
-    if (i < t.count && static_cast<int>(blockIdx.x) >= t.f[i].first_block) fi = i;
-  return t.f[fi];
+struct TileRef {
+  int f;
+  int rows;
+  long long row0;
+};
+
+__host__ __device__ __forceinline__ int align16(long long b) {
+  return static_cast<int>((b + 15) & ~15ll);
 }
 
-// The block's rows of J_c (one contiguous span) into shared memory: 16-byte
-// cp.async copies, all of a thread's in flight at once (a loop of plain loads
-// waits out the memory's latency once per element), then the tail. The
-// caller waits with cp_async_wait before its __syncthreads.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const Family& f, long long row0, int rows, T* tile) {
-  const int kb = f.k * f.b;
-  const T* src = static_cast<const T*>(f.j_cam) + row0 * kb;
-  const int count = rows * kb;
-  int done = 0;
-  if ((reinterpret_cast<unsigned long long>(src) & 15ull) == 0) {
-    constexpr int kPer = 16 / sizeof(T);
-    const int chunks = count / kPer;
-    const char* s = reinterpret_cast<const char*>(src);
-    const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(tile));
-    for (int i = threadIdx.x; i < chunks; i += blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + 16u * i),
-                   "l"(s + 16ll * i));
-    asm volatile("cp.async.commit_group;\n" ::);
-    done = chunks * kPer;
+// The byte offsets of a tile's arrays in its slot: J_c, J_p, beg, end, pidx
+struct SlotLayout {
+  int jp, beg, end, pidx, bytes;
+};
+
+__host__ __device__ __forceinline__ SlotLayout slot_layout(int tile_rows, int k, int b,
+                                                           bool with_pt, int elem) {
+  SlotLayout l;
+  l.jp = align16(static_cast<long long>(tile_rows) * k * b * elem);
+  l.beg = l.jp + (with_pt ? align16(static_cast<long long>(tile_rows) * k * 3 * elem) : 0);
+  l.end = l.beg + align16(tile_rows * 8ll);
+  l.pidx = l.end + align16(tile_rows * 8ll);
+  l.bytes = l.pidx + (with_pt ? align16(tile_rows * 8ll) : 0);
+  return l;
+}
+
+// The first chunk whose bytes start at or after `at` (of all the chunks'
+// bytes, family by family)
+template <typename Fam>
+__host__ __device__ __forceinline__ long long chunk_at(const Fam* fams, int count, long long at) {
+  long long seen = 0;
+  for (int fi = 0; fi < count; ++fi) {
+    const long long w = fams[fi].weight * kChunk;
+    const long long span = (fams[fi].n + kChunk - 1) / kChunk * w;
+    if (at < seen + span) return fams[fi].first_chunk + (at - seen + w - 1) / w;
+    seen += span;
   }
-  for (int i = done + threadIdx.x; i < count; i += blockDim.x) tile[i] = src[i];
+  return count > 0 ? fams[count - 1].first_chunk + (fams[count - 1].n + kChunk - 1) / kChunk : 0;
 }
 
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// The chunk span [c0, c1) of block g of G: as many bytes each
+template <typename Fam>
+__host__ __device__ __forceinline__ void block_span(const Fam* fams, int count, long long weight,
+                                                    long long g, long long G, long long& c0,
+                                                    long long& c1) {
+  c0 = chunk_at(fams, count, weight * g / G);
+  c1 = chunk_at(fams, count, weight * (g + 1) / G);
+}
 
-// u = J x_cols of one row: J [k, b] row-major; x_cols gathered by pose, the
-// constant columns' (cam_free * x) from shared memory.
+// The tile at index i of a span (f = -1 past its end), or with i < 0 the
+// number of tiles of the span (in .rows)
+template <typename Fam>
+__host__ __device__ __forceinline__ TileRef locate(const Fam* fams, int count, long long c0,
+                                                   long long c1, int tile_rows, int i) {
+  int seen = 0;
+  for (int fi = 0; fi < count; ++fi) {
+    const long long fc0 = fams[fi].first_chunk;
+    const long long fc1 = fc0 + (fams[fi].n + kChunk - 1) / kChunk;
+    const long long a = c0 > fc0 ? c0 : fc0;
+    const long long b = c1 < fc1 ? c1 : fc1;
+    if (a >= b) continue;
+    const long long r0 = (a - fc0) * kChunk;
+    const long long r1 = (b - fc0) * kChunk < fams[fi].n ? (b - fc0) * kChunk : fams[fi].n;
+    const int nt = static_cast<int>((r1 - r0 + tile_rows - 1) / tile_rows);
+    if (i >= 0 && i < seen + nt) {
+      const long long row0 = r0 + static_cast<long long>(i - seen) * tile_rows;
+      return {fi, static_cast<int>(r1 - row0 < tile_rows ? r1 - row0 : tile_rows), row0};
+    }
+    seen += nt;
+  }
+  return {-1, i < 0 ? seen : 0, 0};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bytes (a multiple of 4) from global to shared by every thread of the block:
+// 16-byte copies where both ends allow, 4-byte ones for the rest
+__device__ __forceinline__ void copy_async(unsigned char* dst, const unsigned char* src,
+                                           long long bytes) {
+  long long done = 0;
+  if (((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) &
+       15ull) == 0) {
+    const long long n16 = bytes >> 4;
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) cp_async16(dst + 16 * i, src + 16 * i);
+    done = n16 << 4;
+  }
+  for (long long i = done + 4 * threadIdx.x; i < bytes; i += 4ll * blockDim.x)
+    cp_async4(dst + i, src + i);
+}
+
 template <typename T>
-__device__ __forceinline__ void row_product(const T* J, int k, int b, const T* __restrict__ x,
-                                            const T* __restrict__ cf, long long beg,
-                                            long long end, const T* xconst, T (&u)[3]) {
+__device__ __forceinline__ void issue_tile(const Params<T>& p, const TileRef& t,
+                                           unsigned char* slot) {
+  const Family& f = p.f[t.f];
+  const int kb = f.k * f.b;
+  const SlotLayout l = slot_layout(p.tile_rows, f.k, f.b, f.j_pt != nullptr, sizeof(T));
+  copy_async(slot, static_cast<const unsigned char*>(f.j_cam) + t.row0 * kb * sizeof(T),
+             static_cast<long long>(t.rows) * kb * sizeof(T));
+  copy_async(slot + l.beg, reinterpret_cast<const unsigned char*>(f.beg + t.row0), t.rows * 8ll);
+  copy_async(slot + l.end, reinterpret_cast<const unsigned char*>(f.end + t.row0), t.rows * 8ll);
+  if (f.j_pt) {
+    copy_async(slot + l.jp, static_cast<const unsigned char*>(f.j_pt) + t.row0 * f.k * 3 * sizeof(T),
+               static_cast<long long>(t.rows) * f.k * 3 * sizeof(T));
+    copy_async(slot + l.pidx, reinterpret_cast<const unsigned char*>(f.pidx + t.row0),
+               t.rows * 8ll);
+  }
+}
+
+// Walks the block's tiles through the ring: step j takes tile j (tile
+// T - 1 - j with `reverse`); the first `resident` steps find their tile in
+// its slot already (left there by the point pass). body(tile, slot) is called
+// by every thread, between two __syncthreads.
+template <typename T, typename Body>
+__device__ __forceinline__ void walk(const Params<T>& p, long long c0, long long c1, int tiles,
+                                     bool reverse, int resident, unsigned char* slots, Body body) {
+  auto tile_of = [&](int j) { return reverse ? tiles - 1 - j : j; };
+  auto issue = [&](int j) {
+    if (j < tiles && j >= resident) {
+      const int i = tile_of(j);
+      issue_tile(p, locate(p.f, p.count, c0, c1, p.tile_rows, i),
+                 slots + static_cast<long long>(i % p.slots) * p.slot_bytes);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kPrefetch; ++j) issue(j);
+  for (int j = 0; j < tiles; ++j) {
+    issue(j + kPrefetch);
+    cp_async_wait<kPrefetch>();
+    __syncthreads();
+    const int i = tile_of(j);
+    body(locate(p.f, p.count, c0, c1, p.tile_rows, i),
+         slots + static_cast<long long>(i % p.slots) * p.slot_bytes);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// Sums V = 2^q values over the 32 lanes with a reduce-scatter: 16 / 2 + ... + 1
+// shuffles in the halving rounds, one each in the others. Returns in lane l
+// the warp's total of value (l >> (5 - q)); the lanes with
+// l % 2^(5 - q) == 0 hold each total once.
+template <int V, typename T>
+__device__ __forceinline__ T reduce_scatter(T (&v)[V]) {
+  const int lane = threadIdx.x & 31;
+  int n = V;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    if (n > 1) {
+      const int h = n / 2;
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        if (i < h) {
+          const T send = upper ? v[i] : v[i + h];
+          const T keep = upper ? v[i + h] : v[i];
+          v[i] = keep + __shfl_xor_sync(kFull, send, o);
+        }
+      }
+      n = h;
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], o);
+    }
+  }
+  return v[0];
+}
+
+template <int V>
+__device__ __forceinline__ int scatter_index() {
+  constexpr int q = V == 32 ? 5 : V == 16 ? 4 : V == 8 ? 3 : V == 4 ? 2 : V == 2 ? 1 : 0;
+  return (threadIdx.x & 31) >> (5 - q);
+}
+template <int V>
+__device__ __forceinline__ bool scatter_writer() {
+  constexpr int q = V == 32 ? 5 : V == 16 ? 4 : V == 8 ? 3 : V == 4 ? 2 : V == 2 ? 1 : 0;
+  return ((threadIdx.x & 31) & ((1 << (5 - q)) - 1)) == 0;
+}
+
+// What the passes read besides the tiles, copied once into registers (the
+// kernel's parameters are read through a generic address, which a store or an
+// atomic the compiler cannot tell apart from them makes it load again)
+template <typename T>
+struct Ctx {
+  const T* __restrict__ x;        // null: u = 0
+  const T* __restrict__ cf;
+  const T* __restrict__ hpp_inv;
+  T* g_p;
+  T* w;
+  T* out;
+  const T* xcf;       // [total] x * cam_free in shared memory, or null: read from global
+  T* g;               // [copies][wposes * 7] pose columns of poses p0 .. p0 + wposes, shared
+  T* gw;              // this warp's copy (the one copy where there is one)
+  T* cst;             // [max_const] the current family's constant columns' sums, shared
+  T* xconst;          // [max_const] x * cam_free at them, shared
+  long long p0;
+  int wposes, copies;
+};
+
+// One tile's family, in registers
+template <typename T>
+struct Fam {
+  const long long* cols;
+  long long u_offset;
+  int k, b, nconst;
+  bool with_pt;
+};
+
+template <typename T>
+__device__ __forceinline__ Fam<T> fam_of(const Family& f) {
+  return {f.cols, f.u_offset, f.k, f.b, f.b - kFirstConst, f.j_pt != nullptr};
+}
+
+template <typename T>
+__device__ __forceinline__ T xcf_at(const Ctx<T>& c, long long col) {
+  return c.xcf ? c.xcf[col] : __ldg(c.x + col) * __ldg(c.cf + col);
+}
+
+// u = J (cam_free * x) of one row, J [K, b] row-major
+template <int K, typename T>
+__device__ __forceinline__ void row_u(const Ctx<T>& c, const T* J, int b, long long beg,
+                                      long long end, T (&u)[3]) {
   u[0] = u[1] = u[2] = T(0);
   const long long pose[2] = {beg * kPoseCols, end * kPoseCols};
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
 #pragma unroll
     for (int j = 0; j < kPoseCols; ++j) {
-      const long long col = pose[side] + j;
-      const T xv = x[col] * cf[col];
+      const T xv = xcf_at(c, pose[side] + j);
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (c < k) u[c] += J[c * b + side * kPoseCols + j] * xv;
+      for (int r = 0; r < K; ++r) u[r] += J[r * b + side * kPoseCols + j] * xv;
     }
   }
   for (int j = kFirstConst; j < b; ++j) {
-    const T xv = xconst[j - kFirstConst];
+    const T xv = c.xconst[j - kFirstConst];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      if (c < k) u[c] += J[c * b + j] * xv;
+    for (int r = 0; r < K; ++r) u[r] += J[r * b + j] * xv;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void add_pose_col(const Ctx<T>& c, long long pose, int j, T v) {
+  const long long rel = pose - c.p0;
+  if (rel >= 0 && rel < c.wposes) {
+    atomicAdd(c.gw + rel * kPoseCols + j, v);
+  } else {
+    const long long col = pose * kPoseCols + j;
+    atomicAdd(c.out + col, __ldg(c.cf + col) * v);
   }
 }
 
@@ -150,290 +428,522 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, T (&v)[V]) {
   }
 }
 
+// Adds a pose's 7 columns o[0..7) (o[7] = 0) to out and clears them; key < 0:
+// nothing to add, and o is 0. Every lane of the warp calls it: a warp of one
+// pose sums with a reduce-scatter first (9 shuffles); a warp of several poses
+// (track-major rows) sums the lanes of each pose with a tree of shuffles, so
+// that each pose is added once a warp, without lanes contending
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+__device__ __forceinline__ void flush_pose(const Ctx<T>& c, long long& key, T (&o)[8]) {
+  const unsigned valid = __ballot_sync(kFull, key >= 0);
+  if (valid != 0u) {
+    const long long k0 = __shfl_sync(kFull, key, __ffs(valid) - 1);
+    if (__all_sync(kFull, key < 0 || key == k0)) {
+      const T v = reduce_scatter<8>(o);
+      const int j = scatter_index<8>();
+      if (scatter_writer<8>() && j < kPoseCols) add_pose_col(c, k0, j, v);
+    } else {
+      const unsigned peers = __match_any_sync(kFull, key);
+      reduce_peers(peers, o);
+      if (key >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// J_c[:, first:first+7]^T v of each row, summed over the warp's rows of the
-// same pose, into g_c's pose columns. Rows past the family's end come with
-// pose -1 and add nothing. Every lane of the warp must call it.
-template <typename T>
-__device__ __forceinline__ void pose_columns(const T* J, int k, int b, bool valid,
-                                             const T (&v)[3], int first, long long pose,
-                                             T* __restrict__ g_c) {
-  T o[kPoseCols];
-#pragma unroll
-  for (int j = 0; j < kPoseCols; ++j) {
-    o[j] = T(0);
-    if (valid) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (c < k) o[j] += J[c * b + first + j] * v[c];
+        for (int j = 0; j < kPoseCols; ++j) add_pose_col(c, key, j, o[j]);
+      }
     }
   }
-  const unsigned peers = __match_any_sync(kFull, pose);
-  reduce_peers(peers, o);
-  if (pose >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+  key = -1;
 #pragma unroll
-    for (int j = 0; j < kPoseCols; ++j) atomicAdd(g_c + pose * kPoseCols + j, o[j]);
-  }
+  for (int j = 0; j < 8; ++j) o[j] = T(0);
 }
 
+// A thread's running sums of the camera pass over its rows, in registers
+// (float atomics on shared memory are compare-and-swap loops, and a warp
+// reduction a row is a chain of shuffles the 8 warps of a block cannot hide):
+// the columns of its rows' begin pose and end pose while they stay the same
+// pose, and the current family's first 16 constant columns.
 template <typename T>
-__global__ void __launch_bounds__(kMaxRows)
-point_pass(const __grid_constant__ Table t, const T* __restrict__ x, const T* __restrict__ cf,
-           T* __restrict__ g_p, T* __restrict__ u_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);
-  const Family& f = family_of(t);
-  const int kb = f.k * f.b;
-  const int nconst = f.b - kFirstConst;
-  const long long row0 = static_cast<long long>(blockIdx.x - f.first_block) * blockDim.x;
-  const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), f.n - row0));
-  T* xconst = tile + blockDim.x * kb;
-  stage_rows(f, row0, rows, tile);
-  for (int i = threadIdx.x; i < nconst; i += blockDim.x) {
-    const long long col = f.cols[i];
-    xconst[i] = x[col] * cf[col];
-  }
-  cp_async_wait();
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r >= rows) return;                     // no warp-wide step follows
-  const long long n = row0 + r;
-  T u[3];
-  row_product(tile + r * kb, f.k, f.b, x, cf, f.beg[n], f.end[n], xconst, u);
-  if (u_out) {
-    T* dst = u_out + f.u_offset + n * f.k;
+struct Sums {
+  long long kb = -1, ke = -1;
+  T b[8], e[8], c[16];
+};
+
+// Adds one row's columns o[0..7) of pose `key` (key < 0: none) to a running
+// sum, flushing the warp's sums first where a lane's pose changes
+template <typename T>
+__device__ __forceinline__ void add_pose(const Ctx<T>& c, long long key, const T (&o)[8],
+                                         long long& akey, T (&acc)[8]) {
+  if (__any_sync(kFull, key >= 0 && akey >= 0 && key != akey)) flush_pose(c, akey, acc);
+  if (key >= 0) {
+    akey = key;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      if (c < f.k) dst[c] = u[c];
-  }
-  if (f.j_pt) {
-    const T* P = static_cast<const T*>(f.j_pt) + n * f.k * 3;
-    T* g = g_p + f.pidx[n] * 3;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (c < f.k) s += P[c * 3 + j] * u[c];
-      atomicAdd(g + j, s);
-    }
+    for (int j = 0; j < 8; ++j) acc[j] += o[j];
   }
 }
 
-// x null: u = 0 (the right-hand side's product); g_p null: no point side.
+// Adds v[0..3) to point `key`'s g_p (key < 0: nothing). Every lane calls it:
+// runs of lanes with one point are summed by a segmented scan first.
 template <typename T>
-__global__ void __launch_bounds__(kMaxRows)
-camera_pass(const __grid_constant__ Table t, const T* __restrict__ x, const T* __restrict__ cf,
-            const T* __restrict__ hpp_inv, const T* __restrict__ g_p, T* __restrict__ g_c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);
-  const Family& f = family_of(t);
-  const int kb = f.k * f.b;
-  const int nconst = f.b - kFirstConst;
-  const long long row0 = static_cast<long long>(blockIdx.x - f.first_block) * blockDim.x;
-  const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), f.n - row0));
-  T* xconst = tile + blockDim.x * kb;
-  T* acc = xconst + nconst;
-  stage_rows(f, row0, rows, tile);
-  for (int i = threadIdx.x; i < nconst; i += blockDim.x) {
-    if (x) {
-      const long long col = f.cols[i];
-      xconst[i] = x[col] * cf[col];
-    }
-    acc[i] = T(0);
-  }
-  cp_async_wait();
-  __syncthreads();
-  const int r = threadIdx.x;
-  const bool valid = r < rows;
-  const T* J = tile + r * kb;
-  T v[3] = {T(0), T(0), T(0)};
-  long long beg = -1, end = -1;
-  if (valid) {
-    const long long n = row0 + r;
-    beg = f.beg[n];
-    end = f.end[n];
-    if (x) row_product(J, f.k, f.b, x, cf, beg, end, xconst, v);
-    if (g_p && f.j_pt) {
-      const long long p = f.pidx[n];
-      const T* H = hpp_inv + p * 9;
-      const T* g = g_p + p * 3;
-      T w[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) w[i] = H[3 * i] * g[0] + H[3 * i + 1] * g[1] + H[3 * i + 2] * g[2];
-      const T* P = static_cast<const T*>(f.j_pt) + n * f.k * 3;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (c < f.k) v[c] -= P[3 * c] * w[0] + P[3 * c + 1] * w[1] + P[3 * c + 2] * w[2];
-    }
-  }
-  pose_columns(J, f.k, f.b, valid, v, 0, beg, g_c);
-  pose_columns(J, f.k, f.b, valid, v, kPoseCols, end, g_c);
+__device__ __forceinline__ void add_point(T* g_p, long long key, T (&v)[3]) {
   const int lane = threadIdx.x & 31;
-  for (int i = 0; i < nconst; ++i) {
-    T s = T(0);
+  const long long prev = __shfl_up_sync(kFull, key, 1);
+  const bool head = key >= 0 && (lane == 0 || prev != key);
+  const unsigned heads = __ballot_sync(kFull, head);
+  const unsigned valid = __ballot_sync(kFull, key >= 0);
+  if (heads != valid) {
+    const unsigned breaks = heads | ~valid;
+    const unsigned above = lane == 31 ? 0u : breaks & (0xffffffffu << (lane + 1));
+    const int run_end = above ? __ffs(above) - 2 : 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const T t = __shfl_down_sync(kFull, v[j], o);
+        if (lane + o <= run_end) v[j] += t;
+      }
+    }
+  }
+  if (head) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) atomicAdd(g_p + key * 3 + j, v[j]);
+  }
+}
+
+// The point pass over one tile's rows (K components a row): u stored where
+// asked, J_p^T u added to g_p
+template <int K, typename T>
+__device__ __forceinline__ void point_rows(const Ctx<T>& c, int rows, int b, const T* jc,
+                                           const T* jp, const long long* beg,
+                                           const long long* end, const long long* pidx, T* u_dst,
+                                           bool with_pt) {
+  const int lane = threadIdx.x & 31, kb = K * b;
+  for (int rb = (threadIdx.x >> 5) * 32; rb < rows; rb += blockDim.x) {
+    const int r = rb + lane;
+    const bool valid = r < rows;
+    T u[3] = {T(0), T(0), T(0)};
+    if (valid && c.x) row_u<K>(c, jc + r * kb, b, beg[r], end[r], u);
+    if (valid && u_dst) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) u_dst[r * K + i] = u[i];
+    }
+    if (with_pt) {
+      T v[3] = {T(0), T(0), T(0)};
+      if (valid) {
+        const T* P = jp + r * K * 3;
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int i = 0; i < K; ++i) v[j] += P[i * 3 + j] * u[i];
+      }
+      add_point(c.g_p, valid ? pidx[r] : -1ll, v);
+    }
+  }
+}
+
+// The camera pass over one tile's rows (K components a row): v = u - J_p w,
+// J_c^T v into the thread's running sums
+template <int K, typename T>
+__device__ __forceinline__ void camera_rows(const Ctx<T>& c, int rows, int b, int nconst,
+                                            const T* jc, const T* jp, const long long* beg,
+                                            const long long* end, const long long* pidx,
+                                            const T* u_src, bool pt_side, Sums<T>& sum) {
+  const int lane = threadIdx.x & 31, kb = K * b;
+  for (int rb = (threadIdx.x >> 5) * 32; rb < rows; rb += blockDim.x) {
+    const int r = rb + lane;
+    const bool valid = r < rows;
+    const T* J = jc + (valid ? r : 0) * kb;
+    T v[3] = {T(0), T(0), T(0)};
+    long long kb0 = -1, ke0 = -1;
+    if (valid) {
+      kb0 = beg[r];
+      ke0 = end[r];
+      T w[3] = {T(0), T(0), T(0)};
+      if (pt_side) {
+        const long long pt = pidx[r];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) w[i] = __ldcg(c.w + pt * 3 + i);
+      }
+      if (u_src) {
+#pragma unroll
+        for (int i = 0; i < K; ++i) v[i] = __ldcg(u_src + r * K + i);
+      } else if (c.x) {
+        row_u<K>(c, J, b, kb0, ke0, v);
+      }
+      if (pt_side) {
+        const T* P = jp + r * K * 3;
+#pragma unroll
+        for (int i = 0; i < K; ++i) v[i] -= P[3 * i] * w[0] + P[3 * i + 1] * w[1] + P[3 * i + 2] * w[2];
+      }
+    }
+    T ob[8], oe[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ob[j] = oe[j] = T(0);
+      if (valid && j < kPoseCols) {
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          ob[j] += J[i * b + j] * v[i];
+          oe[j] += J[i * b + kPoseCols + j] * v[i];
+        }
+      }
+    }
+    if (kb0 == ke0) {
+      // one pose: its two halves summed, the end side left empty
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ob[j] += oe[j];
+        oe[j] = T(0);
+      }
+      ke0 = -1;
+    }
+    add_pose(c, kb0, ob, sum.kb, sum.b);
+    add_pose(c, ke0, oe, sum.ke, sum.e);
     if (valid) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        if (c < f.k) s += J[c * f.b + kFirstConst + i] * v[c];
+      for (int j = 0; j < 16; ++j) {
+        if (j < nconst) {
+#pragma unroll
+          for (int i = 0; i < K; ++i) sum.c[j] += J[i * b + kFirstConst + j] * v[i];
+        }
+      }
     }
-    s = warp_sum(s);
-    if (lane == 0) atomicAdd(acc + i, s);
+    // constant columns past the first 16 (rpc's coefficients): a warp
+    // reduction a row
+    for (int c0c = 16; c0c < nconst; c0c += 16) {
+      T o[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[j] = T(0);
+        if (valid && c0c + j < nconst) {
+#pragma unroll
+          for (int i = 0; i < K; ++i) o[j] += J[i * b + kFirstConst + c0c + j] * v[i];
+        }
+      }
+      const T total = reduce_scatter<16>(o);
+      const int j = c0c + scatter_index<16>();
+      if (scatter_writer<16>() && j < nconst) atomicAdd(c.cst + j, total);
+    }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constant__ Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ctx<T> c;
+  c.x = p.x;
+  c.cf = p.cf;
+  c.hpp_inv = p.hpp_inv;
+  c.g_p = p.g_p;
+  c.w = p.w;
+  c.out = p.out;
+  c.xcf = (p.full_x && p.x) ? reinterpret_cast<const T*>(smem + p.off_xcf) : nullptr;
+  c.g = reinterpret_cast<T*>(smem + p.off_g);
+  c.cst = reinterpret_cast<T*>(smem + p.off_const);
+  c.xconst = c.cst + p.max_const;
+  c.wposes = p.wposes;
+  c.copies = p.copies;
+  c.gw = c.g + (c.copies > 1 ? (threadIdx.x >> 5) * c.wposes * kPoseCols : 0);
+  T* const u_out = p.u_out;
+  const T* const dc = p.dc;
+  const long long total = p.total, num_points = p.num_points;
+  const int max_const = p.max_const;
+  unsigned char* slots = smem + p.off_slots;
+  const int tid = threadIdx.x;
+  long long c0, c1;
+  block_span(p.f, p.count, p.weight, blockIdx.x, gridDim.x, c0, c1);
+  const int tiles = locate(p.f, p.count, c0, c1, p.tile_rows, -1).rows;
+  const bool point = p.passes & kPointPass, camera = p.passes & kCameraPass;
+
+  // phase 0: zero g_p, start out, stage x * cam_free and zero the block's sums
+  const long long gt = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
+  const long long gs = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (point)
+    for (long long i = gt; i < num_points * 3; i += gs) c.g_p[i] = T(0);
+  if (camera)
+    for (long long i = gt; i < total; i += gs) c.out[i] = dc ? dc[i] * c.x[i] : T(0);
+  if (c.xcf) {
+    T* xcf = reinterpret_cast<T*>(smem + p.off_xcf);
+#pragma unroll 4
+    for (long long i = tid; i < total; i += blockDim.x) xcf[i] = __ldg(c.x + i) * __ldg(c.cf + i);
+  }
+  for (int i = tid; i < c.copies * c.wposes * kPoseCols; i += blockDim.x) c.g[i] = T(0);
+  for (int i = tid; i < max_const; i += blockDim.x) c.cst[i] = T(0);
+  c.p0 = 0;
+  if (c.wposes < p.num_ref && tiles > 0) {
+    const TileRef t0 = locate(p.f, p.count, c0, c1, p.tile_rows, 0);
+    const long long first = p.f[t0.f].beg[t0.row0];
+    c.p0 = first < 0 ? 0 : first > p.num_ref - c.wposes ? p.num_ref - c.wposes : first;
+  }
+  int cur = -1;
+  Fam<T> fc{};
+  Sums<T> sum;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) sum.c[j] = T(0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum.b[j] = sum.e[j] = T(0);
+  // the family of the next tile: its constant columns' x * cam_free (and, in
+  // the camera pass, the previous family's sums added to out)
+  auto on_family = [&](int fi, bool flush) {
+    if (fi == cur) return;
+    if (flush && cur >= 0) {
+      // the threads' sums of the constant columns 0-15: a reduce-scatter a
+      // warp, then shared memory
+      const int i = scatter_index<16>();
+      const T v = reduce_scatter<16>(sum.c);
+      if (scatter_writer<16>() && i < fc.nconst) atomicAdd(c.cst + i, v);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) sum.c[j] = T(0);
+    }
+    __syncthreads();
+    if (flush && cur >= 0) {
+      for (int i = tid; i < fc.nconst; i += blockDim.x) {
+        const long long col = fc.cols[i];
+        atomicAdd(c.out + col, __ldg(c.cf + col) * c.cst[i]);
+        c.cst[i] = T(0);
+      }
+    }
+    cur = fi;
+    if (fi >= 0) {
+      fc = fam_of<T>(p.f[fi]);
+      for (int i = tid; i < fc.nconst; i += blockDim.x)
+        c.xconst[i] = c.x ? xcf_at(c, fc.cols[i]) : T(0);
+    }
+    __syncthreads();
+  };
+  // w = Hpp^-1 g_p, once a point, before the camera pass reads it
+  auto solve_points = [&]() {
+    if (!c.g_p) return;
+    for (long long i = gt; i < num_points; i += gs) {
+      const T* H = c.hpp_inv + i * 9;
+      const T g[3] = {__ldcg(c.g_p + i * 3), __ldcg(c.g_p + i * 3 + 1), __ldcg(c.g_p + i * 3 + 2)};
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        c.w[i * 3 + r] = __ldg(H + 3 * r) * g[0] + __ldg(H + 3 * r + 1) * g[1] + __ldg(H + 3 * r + 2) * g[2];
+    }
+  };
+  if (camera && !point) solve_points();
+  cg::grid_group grid = cg::this_grid();
   __syncthreads();
-  for (int i = threadIdx.x; i < nconst; i += blockDim.x) atomicAdd(g_c + f.cols[i], acc[i]);
-}
+  grid.sync();
 
-// x null: out = cam_free * g_c (dc unread).
-template <typename T>
-__global__ void epilogue(long long total, const T* __restrict__ g_c, const T* __restrict__ cf,
-                         const T* __restrict__ dc, const T* __restrict__ x, T* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  out[i] = x ? g_c[i] * cf[i] + dc[i] * x[i] : g_c[i] * cf[i];
-}
-
-// One launch of `kernel` per kMaxFamilies families of the host table; blocks
-// of up to 128 rows (fewer where the widest family's rows would not fit in
-// shared memory). `launched` counts the launches made.
-template <typename T, typename Kernel, typename... Args>
-cudaError_t launch_families(Kernel kernel, bool with_acc, const long long* table, int families,
-                            int* launched, cudaStream_t s, Args... args) {
-  for (int first = 0; first < families; first += kMaxFamilies) {
-    Table tb{};
-    tb.count = families - first < kMaxFamilies ? families - first : kMaxFamilies;
-    int max_kb = 0, max_const = 0;
-    for (int i = 0; i < tb.count; ++i) {
-      const long long* e = table + static_cast<long long>(first + i) * kFields;
-      Family& f = tb.f[i];
-      f.j_cam = reinterpret_cast<const void*>(e[0]);
-      f.j_pt = reinterpret_cast<const void*>(e[1]);
-      f.beg = reinterpret_cast<const long long*>(e[2]);
-      f.end = reinterpret_cast<const long long*>(e[3]);
-      f.cols = reinterpret_cast<const long long*>(e[4]);
-      f.pidx = reinterpret_cast<const long long*>(e[5]);
-      f.n = e[6];
-      f.u_offset = e[7];
-      f.k = static_cast<int>(e[8]);
-      f.b = static_cast<int>(e[9]);
-      if (f.k < 1 || f.k > 3 || f.b < kFirstConst || f.n < 0) return cudaErrorInvalidValue;
-      max_kb = std::max(max_kb, f.k * f.b);
-      max_const = std::max(max_const, f.b - kFirstConst);
+  if (point) {
+    walk(p, c0, c1, tiles, false, 0, slots, [&](const TileRef& t, unsigned char* slot) {
+      on_family(t.f, false);
+      const int k = fc.k, b = fc.b;
+      const SlotLayout l = slot_layout(p.tile_rows, k, b, fc.with_pt, sizeof(T));
+      const T* jc = reinterpret_cast<const T*>(slot);
+      const T* jp = reinterpret_cast<const T*>(slot + l.jp);
+      const long long* beg = reinterpret_cast<const long long*>(slot + l.beg);
+      const long long* end = reinterpret_cast<const long long*>(slot + l.end);
+      const long long* pidx = reinterpret_cast<const long long*>(slot + l.pidx);
+      T* const u_dst = u_out ? u_out + fc.u_offset + t.row0 * k : nullptr;
+      if (k == 2)
+        point_rows<2>(c, t.rows, b, jc, jp, beg, end, pidx, u_dst, fc.with_pt);
+      else
+        point_rows<3>(c, t.rows, b, jc, jp, beg, end, pidx, u_dst, fc.with_pt);
+    });
+    __syncthreads();
+    if (camera) {
+      grid.sync();
+      solve_points();
+      grid.sync();
     }
-    auto shared = [&](int rows) {
-      return (static_cast<size_t>(rows) * max_kb + (with_acc ? 2 : 1) * max_const) * sizeof(T);
-    };
-    int rows = kMaxRows;
-    while (rows > 32 && shared(rows) > static_cast<size_t>(kSharedLimit)) rows -= 32;
-    if (shared(rows) > static_cast<size_t>(kSharedLimit)) return cudaErrorInvalidValue;
-    long long blocks = 0;
-    for (int i = 0; i < tb.count; ++i) {
-      tb.f[i].first_block = static_cast<int>(blocks);
-      blocks += (tb.f[i].n + rows - 1) / rows;
-    }
-    if (blocks == 0) continue;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const size_t bytes = shared(rows);
-    if (bytes > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<static_cast<unsigned>(blocks), rows, bytes, s>>>(tb, args...);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    ++*launched;
   }
-  return cudaSuccess;
+  if (!camera) return;
+
+  const bool with_gp = c.g_p != nullptr;
+  // u of this launch's point pass, read back (else recomputed from x)
+  const T* const u_back = point ? u_out : nullptr;
+  walk(p, c0, c1, tiles, true, point ? min(tiles, p.slots) : 0, slots,
+       [&](const TileRef& t, unsigned char* slot) {
+    on_family(t.f, true);
+    const int k = fc.k, b = fc.b, nconst = fc.nconst;
+    const bool pt_side = with_gp && fc.with_pt;
+    const T* const u_src = u_back ? u_back + fc.u_offset + t.row0 * k : nullptr;
+    const SlotLayout l = slot_layout(p.tile_rows, k, b, fc.with_pt, sizeof(T));
+    const T* jc = reinterpret_cast<const T*>(slot);
+    const T* jp = reinterpret_cast<const T*>(slot + l.jp);
+    const long long* beg = reinterpret_cast<const long long*>(slot + l.beg);
+    const long long* end = reinterpret_cast<const long long*>(slot + l.end);
+    const long long* pidx = reinterpret_cast<const long long*>(slot + l.pidx);
+    if (k == 2)
+      camera_rows<2>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
+    else
+      camera_rows<3>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
+  });
+  flush_pose(c, sum.kb, sum.b);
+  flush_pose(c, sum.ke, sum.e);
+  on_family(-1, true);
+  for (int i = tid; i < c.wposes * kPoseCols; i += blockDim.x) {
+    T v = T(0);
+    for (int w = 0; w < c.copies; ++w) v += c.g[w * c.wposes * kPoseCols + i];
+    if (v != T(0)) {
+      const long long col = c.p0 * kPoseCols + i;
+      atomicAdd(c.out + col, __ldg(c.cf + col) * v);
+    }
+  }
 }
 
+// Per-device launch state: SM count and co-resident blocks an SM
+struct DeviceState {
+  int sms = 0;
+  int blocks[2] = {0, 0};   // float, double
+};
+DeviceState g_devices[64];
+
 template <typename T>
-cudaError_t run_point_pass(const long long* table, int families, const void* x, const void* cf,
-                           long long num_points, void* g_p, void* u, int* launched,
-                           cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(g_p, 0, static_cast<size_t>(num_points) * 3 * sizeof(T), s);
+cudaError_t run(const long long* table, int families, int passes, const void* x, const void* cf,
+                const void* dc, const void* hpp_inv, long long num_points, long long total,
+                long long num_ref, void* g_p, void* w, void* out, void* u, long long* info,
+                cudaStream_t stream) {
+  if (families < 0 || families > kMaxFamilies) return cudaErrorInvalidValue;
+  Params<T> p{};
+  p.count = families;
+  p.passes = passes;
+  int max_const = 0;
+  long long chunks = 0, weight = 0;
+  for (int i = 0; i < families; ++i) {
+    const long long* e = table + static_cast<long long>(i) * kFields;
+    Family& f = p.f[i];
+    f.j_cam = reinterpret_cast<const void*>(e[0]);
+    f.j_pt = reinterpret_cast<const void*>(e[1]);
+    f.beg = reinterpret_cast<const long long*>(e[2]);
+    f.end = reinterpret_cast<const long long*>(e[3]);
+    f.cols = reinterpret_cast<const long long*>(e[4]);
+    f.pidx = reinterpret_cast<const long long*>(e[5]);
+    f.n = e[6];
+    f.u_offset = e[7];
+    f.k = static_cast<int>(e[8]);
+    f.b = static_cast<int>(e[9]);
+    if (f.k < 2 || f.k > 3 || f.b < kFirstConst || f.n < 0) return cudaErrorInvalidValue;
+    f.first_chunk = chunks;
+    chunks += (f.n + kChunk - 1) / kChunk;
+    f.weight = static_cast<long long>(f.k) * f.b * sizeof(T) + 16 +
+               (f.j_pt ? 3ll * f.k * sizeof(T) + 8 : 0);
+    weight += (f.n + kChunk - 1) / kChunk * kChunk * f.weight;
+    max_const = std::max(max_const, f.b - kFirstConst);
+  }
+  p.weight = weight;
+  p.x = static_cast<const T*>(x);
+  p.cf = static_cast<const T*>(cf);
+  p.dc = static_cast<const T*>(dc);
+  p.hpp_inv = static_cast<const T*>(hpp_inv);
+  p.g_p = static_cast<T*>(g_p);
+  p.out = static_cast<T*>(out);
+  p.u_out = static_cast<T*>(u);
+  p.w = static_cast<T*>(w);
+  if ((passes & kCameraPass) && g_p && !w) return cudaErrorInvalidValue;
+  p.num_points = num_points;
+  p.total = total;
+  p.num_ref = num_ref;
+  p.max_const = max_const;
+  const int elem = sizeof(T);
+  // shared memory: x * cam_free (where whole), the pose-column copy, the
+  // constant columns' sums and x, then the ring of tile slots
+  p.full_x = total * elem <= kXBudget;
+  p.wposes = static_cast<int>(std::min<long long>(num_ref, kGBudget / (kPoseCols * elem)));
+  p.off_xcf = 0;
+  p.off_g = p.full_x ? align16(total * elem) : 0;
+  // where the pose columns are few (calibrate's systems), each warp sums into
+  // its own copy: lanes of several poses add with shared-memory float
+  // atomics, compare-and-swap loops that the block's 8 warps on one copy
+  // made a contention (twice the matvec's time on a 12-pose system)
+  p.copies = kWarps * p.wposes * kPoseCols * elem <= kWarpCopyBudget ? kWarps : 1;
+  p.off_const = p.off_g + align16(static_cast<long long>(p.copies) * p.wposes * kPoseCols * elem);
+  p.off_slots = p.off_const + align16(2ll * max_const * elem);
+  const int avail = kSmem - p.off_slots;
+  auto slot_bytes = [&](int rows) {
+    int most = 0;
+    for (int i = 0; i < families; ++i)
+      most = std::max(most, slot_layout(rows, p.f[i].k, p.f[i].b, p.f[i].j_pt != nullptr, elem).bytes);
+    return most;
+  };
+  int rows = 512;
+  while (rows > 8 && 3ll * slot_bytes(rows) > avail) rows -= rows > 64 ? 32 : 8;
+  if (3ll * slot_bytes(rows) > avail) return cudaErrorInvalidValue;
+  p.tile_rows = rows;
+  p.slot_bytes = std::max(slot_bytes(rows), 16);
+  p.slots = avail / p.slot_bytes;
+
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return launch_families<T>(point_pass<T>, false, table, families, launched, s,
-                            static_cast<const T*>(x), static_cast<const T*>(cf),
-                            static_cast<T*>(g_p), static_cast<T*>(u));
-}
-
-template <typename T>
-cudaError_t run_camera_pass(const long long* table, int families, const void* x, const void* cf,
-                            const void* hpp_inv, const void* g_p, long long total, void* g_c,
-                            int* launched, cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(g_c, 0, static_cast<size_t>(total) * sizeof(T), s);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  DeviceState& ds = g_devices[dev];
+  int& nb = ds.blocks[elem == 8];
+  if (nb == 0) {
+    err = cudaDeviceGetAttribute(&ds.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(schur_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, schur_kernel<T>, kThreads, kSmem);
+    if (err != cudaSuccess) return err;
+    if (nb < 1) return cudaErrorCooperativeLaunchTooLarge;
+  }
+  const int grid = nb * ds.sms;
+  if (info) {
+    // the launch's shape, and the rows the camera pass finds in shared memory
+    long long resident = 0;
+    for (int g = 0; g < grid; ++g) {
+      long long a, b;
+      block_span(p.f, families, p.weight, g, grid, a, b);
+      const int tiles = locate(p.f, families, a, b, rows, -1).rows;
+      for (int i = std::max(0, tiles - p.slots); i < tiles; ++i)
+        resident += locate(p.f, families, a, b, rows, i).rows;
+    }
+    info[0] = grid;
+    info[1] = kThreads;
+    info[2] = rows;
+    info[3] = p.slots;
+    info[4] = (passes & kPointPass) && (passes & kCameraPass) ? resident : 0;
+    info[5] = p.wposes;
+    info[6] = p.full_x;
+    info[7] = p.copies;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, schur_kernel<T>, p);
   if (err != cudaSuccess) return err;
-  return launch_families<T>(camera_pass<T>, true, table, families, launched, s,
-                            static_cast<const T*>(x), static_cast<const T*>(cf),
-                            static_cast<const T*>(hpp_inv), static_cast<const T*>(g_p),
-                            static_cast<T*>(g_c));
-}
-
-template <typename T>
-cudaError_t run_epilogue(long long total, const void* g_c, const void* cf, const void* dc,
-                         const void* x, void* out, cudaStream_t s) {
-  if (total <= 0) return cudaSuccess;
-  const int threads = 256;
-  epilogue<T><<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, s>>>(
-      total, static_cast<const T*>(g_c), static_cast<const T*>(cf), static_cast<const T*>(dc),
-      static_cast<const T*>(x), static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Every function takes `elem`, the element size (4: float32, 8: float64), and
-// launches on `stream` without synchronising; it returns the first CUDA error
-// (0 for none). `table` holds 10 int64 per family with a camera block:
-// pointers to J_c [n,k,b], J_p [n,k,3] (0: none), begin and end poses [n],
-// constant columns [b-14], points [n] (0 with J_p), then n, the family's
-// offset in the flat u, k, b; pointers on the device, indices int64, every
-// array contiguous. `launched` receives the number of kernel launches.
-
-// g_p [num_points, 3] = sum of J_p^T u, u = J_c (cam_free * x); u [sum n k]
-// (null: not stored) receives u of the families in the table.
-extern "C" int mv_schur_point_pass(int elem, const long long* table, int families,
-                                   const void* x, const void* cam_free, long long num_points,
-                                   void* g_p, void* u, int* launched, void* stream) {
+// One cooperative launch on `stream`, without synchronising; returns the
+// first CUDA error (0 for none). `elem`: the element size (4: float32, 8:
+// float64). `table` holds 10 int64 per family with a camera block: pointers to
+// J_c [n,k,b], J_p [n,k,3] (0: none), begin and end poses [n], constant
+// columns [b-14], points [n] (0 with J_p), then n, the family's offset in the
+// flat u, k, b; pointers on the device, indices int64, every array contiguous.
+// `passes`: 1 the point pass (g_p [num_points, 3] = J_p^T u, zeroed first; u
+// [sum n k] stored unless null), 2 the camera pass (out [total] = dc * x +
+// cam_free * J_c^T (u - J_p Hpp^-1 g_p); dc null: no dc * x; x null: u = 0;
+// g_p null: no point side; w [num_points, 3] scratch for Hpp^-1 g_p), 3 both
+// (S x; u, where given, is stored by the point pass and read back by the
+// camera pass). `info` (null: not asked) receives
+// the grid, the threads a block, the rows a tile, the ring's slots, the rows
+// the camera pass found in shared memory, the poses whose columns a block sums
+// in shared memory, whether x * cam_free was kept whole there (1) or read
+// from global memory (0), and the copies of the pose columns (one a warp, or
+// one).
+extern "C" int mv_schur(int elem, const long long* table, int families, int passes,
+                        const void* x, const void* cam_free, const void* dc, const void* hpp_inv,
+                        long long num_points, long long total, long long num_ref, void* g_p,
+                        void* w, void* out, void* u, long long* info, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
+  if (passes < 1 || passes > 3) return cudaErrorInvalidValue;
   if (elem == 4)
-    return run_point_pass<float>(table, families, x, cam_free, num_points, g_p, u, launched, s);
+    return run<float>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
+                      num_ref, g_p, w, out, u, info, s);
   if (elem == 8)
-    return run_point_pass<double>(table, families, x, cam_free, num_points, g_p, u, launched, s);
-  return cudaErrorInvalidValue;
-}
-
-// g_c [total] = J_c^T (u - J_p Hpp^-1 g_p) summed per column; x null: u = 0;
-// g_p null: no point side. hpp_inv [num_points, 3, 3].
-extern "C" int mv_schur_camera_pass(int elem, const long long* table, int families,
-                                    const void* x, const void* cam_free, const void* hpp_inv,
-                                    const void* g_p, long long total, void* g_c, int* launched,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
-  if (elem == 4)
-    return run_camera_pass<float>(table, families, x, cam_free, hpp_inv, g_p, total, g_c,
-                                  launched, s);
-  if (elem == 8)
-    return run_camera_pass<double>(table, families, x, cam_free, hpp_inv, g_p, total, g_c,
-                                   launched, s);
-  return cudaErrorInvalidValue;
-}
-
-// out [total] = cam_free * g_c + dc * x; x null: cam_free * g_c.
-extern "C" int mv_schur_epilogue(int elem, long long total, const void* g_c,
-                                 const void* cam_free, const void* dc, const void* x, void* out,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) return run_epilogue<float>(total, g_c, cam_free, dc, x, out, s);
-  if (elem == 8) return run_epilogue<double>(total, g_c, cam_free, dc, x, out, s);
+    return run<double>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
+                       num_ref, g_p, w, out, u, info, s);
   return cudaErrorInvalidValue;
 }

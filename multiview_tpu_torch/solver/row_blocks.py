@@ -19,10 +19,14 @@ tensors take the plain version (``*_plain``: reverse-mode autograd of the
 row-summed residuals, one pass per residual component, with per-row leaf
 copies of every shared block), CUDA tensors the hand-written kernel
 ``csrc/row_blocks.cu`` (one launch a family; ``*_cuda``), which raises on
-anything it does not take. The kernel takes every distortion model (rpc up
-to degree 8) and computes in float64 for float32 tensors too, rounding its
-outputs: in float32 the residuals of far-from-origin rigs err by a few 1e-4
-of their largest value, the plain version's float32 results as much.
+anything it does not take. The kernel evaluates each row's residual chain
+once, differentiates its tail (projection, distortion, Cauchy weight) once
+and seeds only the head's blocks (poses, rig, offset), and stores its
+outputs from shared memory in contiguous spans (see the source). It takes
+every distortion model (rpc up to degree 8) and computes in float64 for
+float32 tensors too, rounding its outputs: in float32 the residuals of
+far-from-origin rigs err by a few 1e-4 of their largest value, the plain
+version's float32 results as much.
 ``LAUNCHES`` counts the kernel's launches."""
 
 from __future__ import annotations

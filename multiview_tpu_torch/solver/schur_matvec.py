@@ -10,13 +10,16 @@ share its passes:
 - ``row_products(system, x)``: u per shard and J_p^T u, the
   back-substitution's product.
 
-On CUDA tensors each runs the hand-written kernels of ``csrc/schur_mv.cu``
-(per shard a point pass and a camera pass, then one epilogue; see the
-source). On CPU tensors each runs its plain version, the composition of
-gathers, batched block products and ``index_add_`` that the solver ran
-before the kernel existed; nothing on the card gives way to it. The kernel
-adds with atomics, so on the card the order of the sums, and the last bits
-of S x, vary from run to run (as ``index_add_`` does there).
+On CUDA tensors each runs the hand-written kernel of ``csrc/schur_mv.cu``,
+one cooperative launch at a time (see the source): on one shard S x is one
+launch (point pass, grid barrier, camera pass), the right-hand side one
+launch and the back-substitution's product one launch; with more shards S x
+is a point-pass launch and a camera-pass launch a shard, the shards' sums
+added between them. On CPU tensors each runs its plain version, the
+composition of gathers, batched block products and ``index_add_`` that the
+solver ran before the kernel existed; nothing on the card gives way to it.
+The kernel adds with atomics, so on the card the order of the sums, and the
+last bits of S x, vary from run to run (as ``index_add_`` does there).
 
 The per-shard products (``shard_jmv``, ``shard_jtmv_c``, ``shard_jtmv_p``)
 are also the solver's products with the row blocks outside the CG. A
@@ -37,9 +40,19 @@ from multiview_tpu_torch.utils import cuda_build
 from multiview_tpu_torch.utils.device import indexed_device as _device
 
 SOURCE = "schur_mv.cu"
-# kernel launches of csrc/schur_mv.cu: each pass and each epilogue adds one
+# kernel launches of csrc/schur_mv.cu, one each
 LAUNCHES = 0
+# with RECORD_LAUNCH set, the shape of the last launch (LAST_LAUNCH): grid,
+# threads a block, rows a tile, the ring's slots, the rows its camera pass
+# found in shared memory, the poses a block sums in shared memory (all of them
+# unless they overflow it: the others take global atomics), whether
+# x * cam_free stayed whole in shared memory, and the copies of those pose
+# columns (one a warp where they are few)
+RECORD_LAUNCH = False
+LAST_LAUNCH: dict = {}
 _FIELDS = 10            # int64 fields of one family in the kernel's table
+_MAX_FAMILIES = 32      # families with a camera block a shard the kernel takes
+_POINT, _CAMERA = 1, 2  # the kernel's passes
 
 
 # ----------------------------------------------------------------------------
@@ -207,13 +220,10 @@ class _ShardPlan(NamedTuple):
 
 def _lib():
     lib = cuda_build.load_library(SOURCE)
-    if lib.mv_schur_epilogue.argtypes is None:
+    if lib.mv_schur.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_schur_point_pass.argtypes = [i32, p, i32, p, p, i64, p, p, p, p]
-        lib.mv_schur_camera_pass.argtypes = [i32, p, i32, p, p, p, p, i64, p, p, p]
-        lib.mv_schur_epilogue.argtypes = [i32, i64, p, p, p, p, p, p]
-        for fn in (lib.mv_schur_point_pass, lib.mv_schur_camera_pass, lib.mv_schur_epilogue):
-            fn.restype = ctypes.c_int
+        lib.mv_schur.argtypes = [i32, p, i32, i32, p, p, p, p, i64, i64, i64, p, p, p, p, p, p]
+        lib.mv_schur.restype = ctypes.c_int
     return lib
 
 
@@ -244,9 +254,9 @@ def _shard_plan(system: SchurSystem, s: int) -> _ShardPlan:
         if a is None:
             u_zero = True
         else:
-            if a.dim() != 3 or not 1 <= k <= 3 or a.shape[2] < 14:
+            if a.dim() != 3 or k not in (2, 3) or a.shape[2] < 14:
                 raise ValueError(f"schur_mv kernel: family {i}'s camera block has shape "
-                                 f"{tuple(a.shape)}, expected [N, 1-3, B >= 14]")
+                                 f"{tuple(a.shape)}, expected [N, 2 or 3, B >= 14]")
             B = a.shape[2]
             _check(f"family {i}'s camera block", a, (n, k, B), dtype, dev)
             _check(f"family {i}'s beg_idx", f.beg_idx, (n,), i64, dev)
@@ -259,6 +269,9 @@ def _shard_plan(system: SchurSystem, s: int) -> _ShardPlan:
                        f.end_idx.data_ptr(), f.const_cols.data_ptr(),
                        0 if b is None else f.point_idx.data_ptr(), n, u_len, k, B]
         u_len += n * k
+    if len(fields) > _MAX_FAMILIES * _FIELDS:
+        raise ValueError(f"schur_mv kernel: shard {s} has {len(fields) // _FIELDS} families "
+                         f"with a camera block, more than the kernel's {_MAX_FAMILIES}")
     table = (ctypes.c_longlong * max(len(fields), 1))(*fields)
     hpp_inv = system.hpp_inv.to(dev)
     _check("hpp_inv", hpp_inv, (system.num_points, 3, 3), dtype, dev)
@@ -281,82 +294,85 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def point_pass_cuda(plan: _ShardPlan, x: torch.Tensor, num_points: int, want_u: bool):
-    """(J_p^T u [P,3], u flat [rows x k] or None) of one shard on the card,
-    u = J_c (cam_free * x)."""
-    global LAUNCHES
+def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out, u) -> None:
+    """One cooperative launch of csrc/schur_mv.cu on the plan's shard."""
+    global LAUNCHES, LAST_LAUNCH
     dt = plan.cam_free.dtype
-    g_p = torch.empty((num_points, 3), dtype=dt, device=plan.device)
+    info = (ctypes.c_longlong * 8)() if RECORD_LAUNCH else None
+    w = torch.empty((system.num_points, 3), dtype=dt, device=plan.device) if passes & _CAMERA \
+        else None
+    with torch.cuda.device(plan.device):
+        err = _lib().mv_schur(
+            dt.itemsize, plan.table, plan.families, passes, _ptr(x), plan.cam_free.data_ptr(),
+            _ptr(dc), plan.hpp_inv.data_ptr(), system.num_points, system.total,
+            system.num_ref, _ptr(g_p), _ptr(w), _ptr(out), _ptr(u), info,
+            torch.cuda.current_stream(plan.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"schur_mv kernel (passes {passes}) failed with cudaError {err}")
+    LAUNCHES += 1
+    if info is not None:
+        LAST_LAUNCH = dict(zip(("grid", "threads", "tile_rows", "slots", "resident_rows",
+                                "window_poses", "x_in_shared", "pose_copies"), list(info)),
+                           passes=passes)
+
+
+def point_pass_cuda(system: SchurSystem, plan: _ShardPlan, x: torch.Tensor, want_u: bool):
+    """(J_p^T u [P,3], u flat [rows x k] or None) of one shard on the card,
+    u = J_c (cam_free * x): one launch of the point pass."""
+    dt = plan.cam_free.dtype
+    g_p = torch.empty((system.num_points, 3), dtype=dt, device=plan.device)
     u = None
     if want_u:
         u = (torch.zeros if plan.u_zero else torch.empty)(plan.u_len, dtype=dt,
                                                           device=plan.device)
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(plan.device):
-        err = _lib().mv_schur_point_pass(
-            dt.itemsize, plan.table, plan.families, x.data_ptr(), plan.cam_free.data_ptr(),
-            num_points, g_p.data_ptr(), _ptr(u), ctypes.byref(launched),
-            torch.cuda.current_stream(plan.device).cuda_stream)
-    LAUNCHES += launched.value
-    if err != 0:
-        raise RuntimeError(f"schur_mv point pass failed with cudaError {err}")
+    _launch(system, plan, _POINT, x, None, g_p, None, u)
     return g_p, u
 
 
-def camera_pass_cuda(plan: _ShardPlan, x: Optional[torch.Tensor], g_p: torch.Tensor,
-                     total: int) -> torch.Tensor:
-    """J_c^T (u - J_p Hpp^-1 g_p) [C] of one shard on the card; x None: u = 0."""
-    global LAUNCHES
+def camera_pass_cuda(system: SchurSystem, plan: _ShardPlan, x: Optional[torch.Tensor],
+                     g_p: torch.Tensor, dc: Optional[torch.Tensor]) -> torch.Tensor:
+    """dc * x + cam_free * J_c^T (u - J_p Hpp^-1 g_p) [C] of one shard on the
+    card (x None: u = 0; dc None: no dc * x): one launch of the camera pass."""
     dt = plan.cam_free.dtype
-    g_c = torch.empty(total, dtype=dt, device=plan.device)
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(plan.device):
-        err = _lib().mv_schur_camera_pass(
-            dt.itemsize, plan.table, plan.families, _ptr(x), plan.cam_free.data_ptr(),
-            plan.hpp_inv.data_ptr(), g_p.data_ptr(), total, g_c.data_ptr(),
-            ctypes.byref(launched), torch.cuda.current_stream(plan.device).cuda_stream)
-    LAUNCHES += launched.value
-    if err != 0:
-        raise RuntimeError(f"schur_mv camera pass failed with cudaError {err}")
-    return g_c
-
-
-def epilogue_cuda(g_c: torch.Tensor, cam_free: torch.Tensor, dc: Optional[torch.Tensor],
-                  x: Optional[torch.Tensor]) -> torch.Tensor:
-    """cam_free * g_c + dc * x on the card; x None: cam_free * g_c."""
-    global LAUNCHES
-    out = torch.empty_like(g_c)
-    with torch.cuda.device(g_c.device):
-        err = _lib().mv_schur_epilogue(
-            g_c.dtype.itemsize, g_c.shape[0], g_c.data_ptr(), cam_free.data_ptr(), _ptr(dc),
-            _ptr(x), out.data_ptr(), torch.cuda.current_stream(g_c.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"schur_mv epilogue failed with cudaError {err}")
-    LAUNCHES += 1
+    g_p = g_p.to(plan.device).contiguous()
+    _check("g_p", g_p, (system.num_points, 3), dt, plan.device)
+    out = torch.empty(system.total, dtype=dt, device=plan.device)
+    _launch(system, plan, _CAMERA, x, None if dc is None else dc.to(plan.device), g_p, out,
+            None)
     return out
 
 
 def schur_matvec_cuda(system: SchurSystem, x: torch.Tensor) -> torch.Tensor:
     plans = _plans(system, x)
+    if system.mesh.size == 1:
+        # one shard over every process: one launch (point pass, grid barrier,
+        # camera pass)
+        plan = plans[0]
+        g_p = torch.empty((system.num_points, 3), dtype=x.dtype, device=plan.device)
+        u = torch.empty(plan.u_len, dtype=x.dtype, device=plan.device)
+        out = torch.empty_like(x)
+        _launch(system, plan, _POINT | _CAMERA, x, system.dc, g_p, out, u)
+        return out
+    # a shard's g_p is summed over every shard (and process) between the
+    # passes; dc * x is added on the first shard of all
     xs = [x.to(p.device) for p in plans]
-    g_p = system.mesh.sum([point_pass_cuda(p, xi, system.num_points, False)[0]
+    g_p = system.mesh.sum([point_pass_cuda(system, p, xi, False)[0]
                            for p, xi in zip(plans, xs)])
-    g_c = system.mesh.sum([camera_pass_cuda(p, xi, g_p.to(p.device), system.total)
-                           for p, xi in zip(plans, xs)])
-    return epilogue_cuda(g_c, system.cam_free, system.dc, x)
+    first = [system.mesh.global_index(i) == 0 for i in range(len(plans))]
+    return system.mesh.sum([camera_pass_cuda(system, p, xi, g_p, system.dc if f else None)
+                            for p, xi, f in zip(plans, xs, first)])
 
 
 def schur_rhs_cuda(system: SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor) -> torch.Tensor:
     plans = _plans(system, None)
-    gc0 = system.mesh.sum([camera_pass_cuda(p, None, g_p.to(p.device), system.total)
-                           for p in plans])
-    # the camera pass with u = 0 gives -J_c^T J_p Hpp^-1 g_p
-    return -(g_c + epilogue_cuda(gc0, system.cam_free, None, None))
+    # the camera pass with u = 0 gives -cam_free * J_c^T J_p Hpp^-1 g_p
+    return -(g_c + system.mesh.sum([camera_pass_cuda(system, p, None, g_p, None)
+                                    for p in plans]))
 
 
 def row_products_cuda(system: SchurSystem, x: torch.Tensor):
     plans = _plans(system, x)
-    parts = [point_pass_cuda(p, x.to(p.device), system.num_points, True) for p in plans]
+    parts = [point_pass_cuda(system, p, x.to(p.device), True) for p in plans]
     return [u for _, u in parts], system.mesh.sum([g for g, _ in parts])
 
 

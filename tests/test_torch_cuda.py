@@ -385,9 +385,11 @@ _SCHUR_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 def _schur_system(dev, dtype, families, order, num_ref=40, num_points=300, shards=1, seed=0):
     """A random SchurSystem: ``families`` as (rows, k, B, with point block),
-    rows grouped by pose ("grouped": sorted, runs of rows on one pose, as the
-    cube's) or in random order ("unsorted"); every family's constant columns
-    lie after the poses, the depth families' shared with the one before."""
+    rows grouped by pose ("grouped": sorted, runs of rows on one pose), in the
+    cube's frame-major order ("frame": sorted, begin and end pose one pose),
+    in calibrate's track-major order ("track": sorted by point) or in random
+    order ("unsorted"); every family's constant columns lie after the poses,
+    the depth families' shared with the one before."""
     import types
     import numpy as np
     from multiview_tpu_torch.parallel import sharding as sh
@@ -408,10 +410,12 @@ def _schur_system(dev, dtype, families, order, num_ref=40, num_points=300, shard
             next_col += nc
         prev = (k, nc)
         beg = g.integers(0, num_ref, n)
-        if order == "grouped":
+        if order in ("grouped", "frame"):
             beg = np.sort(beg)
-        end = np.minimum(beg + g.integers(0, 2, n), num_ref - 1)
+        end = beg if order == "frame" else np.minimum(beg + g.integers(0, 2, n), num_ref - 1)
         pidx = g.integers(0, num_points, n)
+        if order == "track":
+            pidx = np.sort(pidx)
         a = g.normal(size=(n, k, B))
         b = g.normal(size=(n, k, 3)) if with_pt else None
         for s, rows in enumerate(np.array_split(np.arange(n), shards)):
@@ -451,35 +455,89 @@ _SCHUR_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("order", ["grouped", "unsorted"])
-@pytest.mark.parametrize("case", list(_SCHUR_CASES))
-def test_schur_matvec_kernel_matches_plain_version(cuda_device, case, order, dtype):
-    from multiview_tpu_torch.solver import schur_matvec as smv
-    system, x = _schur_system(cuda_device, dtype, _SCHUR_CASES[case], order)
+def _schur_all_close(smv, system, x, dtype, launches=1):
+    """S x (``launches`` launches), the right-hand side and the
+    back-substitution's products (one launch a shard each) against the plain
+    version; returns the matvec's launch record."""
+    shards = system.mesh.size
     before = smv.LAUNCHES
-    got = smv.schur_matvec(system, x)
-    torch.cuda.synchronize()
-    assert smv.LAUNCHES == before + 3       # point pass, camera pass, epilogue
+    smv.RECORD_LAUNCH = True
+    try:
+        got = smv.schur_matvec(system, x)
+        torch.cuda.synchronize()
+        record = dict(smv.LAST_LAUNCH)
+    finally:
+        smv.RECORD_LAUNCH = False
+    assert smv.LAUNCHES == before + launches
     _schur_close(got, smv.schur_matvec_plain(system, x), dtype)
     g_c = torch.randn_like(x)
-    g_p = torch.randn((system.num_points, 3), dtype=dtype, device=cuda_device)
+    g_p = torch.randn((system.num_points, 3), dtype=dtype, device=x.device)
+    before = smv.LAUNCHES
     _schur_close(smv.schur_rhs(system, g_c, g_p), smv.schur_rhs_plain(system, g_c, g_p), dtype)
     u, jtp_u = smv.row_products(system, x)
+    assert smv.LAUNCHES == before + 2 * shards
     u_ref, jtp_ref = smv.row_products_plain(system, x)
     _schur_close(torch.cat(u), torch.cat(u_ref), dtype)
     _schur_close(jtp_u, jtp_ref, dtype)
+    return record
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["grouped", "unsorted", "frame", "track"])
+@pytest.mark.parametrize("case", list(_SCHUR_CASES))
+def test_schur_matvec_kernel_matches_plain_version(cuda_device, case, order, dtype):
+    """One launch a matvec on one shard (point pass, grid barrier, camera
+    pass), every row of these systems kept in shared memory between the
+    passes, the pose columns summed in shared memory."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    system, x = _schur_system(cuda_device, dtype, _SCHUR_CASES[case], order)
+    record = _schur_all_close(smv, system, x, dtype)
+    rows = sum(a.shape[0] for a in system.J[0][0] if a is not None)
+    assert record["passes"] == 3 and record["resident_rows"] == rows
+    assert record["window_poses"] == system.num_ref and record["x_in_shared"] == 1
+    assert record["pose_copies"] == 8               # 40 poses: a copy a warp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["grouped", "unsorted"])
+def test_schur_matvec_kernel_with_poses_beyond_its_shared_window(cuda_device, order, dtype):
+    """8000 poses: more pose columns than a block sums in shared memory (and
+    x * cam_free too long to keep there), so the poses outside a block's
+    window take global atomics."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    system, x = _schur_system(cuda_device, dtype, [(20000, 2, 29, True), (5000, 3, 30, True)],
+                              order, num_ref=8000, num_points=3000)
+    record = _schur_all_close(smv, system, x, dtype)
+    assert record["window_poses"] < system.num_ref and record["x_in_shared"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["frame", "unsorted"])
+def test_schur_matvec_kernel_rereads_what_shared_memory_cannot_hold(cuda_device, order, dtype):
+    """More rows than the grid's shared memory holds between the passes:
+    the camera pass rereads the others, in reverse order."""
+    from multiview_tpu_torch.solver import schur_matvec as smv
+    rows = 200000 if dtype == torch.float32 else 120000
+    system, x = _schur_system(cuda_device, dtype, [(rows, 2, 29, True), (3000, 3, 30, False)],
+                              order, num_ref=160, num_points=2400)
+    record = _schur_all_close(smv, system, x, dtype)
+    assert 0 < record["resident_rows"] < rows
+    assert record["pose_copies"] == 1               # 160 poses: one copy a block
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_schur_matvec_kernel_on_logical_shards(cuda_device, dtype):
-    """Two shards on one card: the kernel per shard, the sums over the mesh."""
+    """Two shards on one card: a point-pass launch and a camera-pass launch a
+    shard, the sums over the mesh between and after them."""
     from multiview_tpu_torch.solver import schur_matvec as smv
     system, x = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], "unsorted",
                               shards=2)
-    _schur_close(smv.schur_matvec(system, x), smv.schur_matvec_plain(system, x), dtype)
+    record = _schur_all_close(smv, system, x, dtype, launches=4)
+    assert record["passes"] == 2
 
 
 @pytest.mark.cuda
@@ -507,10 +565,9 @@ def test_schur_matvec_kernel_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
-    """A solve on the card: every matvec is one point pass, one camera pass
-    and one epilogue of csrc/schur_mv.cu; per LM iteration one more camera
-    pass and epilogue (the right-hand side) and one point pass (the
-    back-substitution)."""
+    """A solve on the card: every matvec is one launch of csrc/schur_mv.cu;
+    per LM iteration one more for the right-hand side and one for the
+    back-substitution's product."""
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.solver import schur, schur_matvec as smv
     from multiview_tpu_torch.utils import synthetic as syn
@@ -526,7 +583,7 @@ def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
                                   cg_iterations=40, cg_tolerance=0.1)(
         prob.pack_state(state0, include_points=False), state0.points)
     torch.cuda.synchronize()
-    assert smv.LAUNCHES - before == 3 * res.matvecs + 3 * res.iterations
+    assert smv.LAUNCHES - before == res.matvecs + 2 * res.iterations
     assert float(res.cost) < float(res.initial_cost)
 
 
@@ -593,6 +650,34 @@ def test_row_blocks_kernel_matches_plain_version_on_a_cube(cuda_device, dtype):
     got = kernel["pixel"](st, obs, model, opts)
     torch.cuda.synchronize()
     _rows_close("cube", got, plain["pixel"](*in_float64((st, obs, model, opts))), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", [2, 8])
+def test_row_blocks_kernel_matches_plain_version_on_a_cube_with_rpc(cuda_device, degree, dtype):
+    """The cube's rows through an rpc of degree 2 and of degree 8 (B = 381:
+    in float64 the largest tile a block stages, 32 rows)."""
+    import dataclasses
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.utils import synthetic as syn
+    from row_block_scenes import in_float64, rpc_coeffs
+    rb, kernel, plain = _row_families()
+    scene = syn.make_cube_scene(n_images=20, n_per_face=6, pix_noise=0.5,
+                                dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), dtype=dtype,
+                                device=cuda_device)
+    st = syn.perturb_state(scene.true_state, pose_rot=0.01, pose_trans=0.02, point_sigma=0.02)
+    obs = scene.observations.pixels[0]
+    dist = list(st.dist)
+    dist[obs.sensor] = torch.tensor(rpc_coeffs(degree), dtype=dtype, device=cuda_device)
+    st = dataclasses.replace(st, dist=tuple(dist))
+    opts = prob.BAOptions(no_rig=True)
+    before = rb.LAUNCHES
+    got = kernel["pixel"](st, obs, "rpc", opts)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES == before + 1 and got[0].shape[2] == 25 + len(rpc_coeffs(degree))
+    _rows_close(f"cube rpc {degree}", got, plain["pixel"](*in_float64((st, obs, "rpc", opts))),
+                dtype)
 
 
 @pytest.mark.cuda
