@@ -11,9 +11,10 @@ printing a result):
 
 0. set-up: require CUDA, print versions and the card, build the two matcher
    kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu), the Schur matvec kernel
-   (csrc/schur_mv.cu) and the row blocks kernel (csrc/row_blocks.cu) for
-   sm_90a, one nvcc each, started together, and the track builder's host
-   library (native/mv_native.cpp) with g++;
+   (csrc/schur_mv.cu), the row blocks kernel (csrc/row_blocks.cu), the
+   assembly kernel (csrc/lm_assembly.cu) and the CG step kernel
+   (csrc/cg_step.cu) for sm_90a, one nvcc each, started together, and the
+   track builder's host library (native/mv_native.cpp) with g++;
 1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
    D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
    FP32 oracle, for wider D) against ``knn2_plain``,
@@ -76,6 +77,23 @@ printing a result):
    planted rows of
    tests/row_block_scenes.py (every family, model and branch) in float32
    (SCHUR_RTOL) and float64 (ROW_RTOL_F64);
+3e. the assembly kernel (``solver/assembly.py``, csrc/lm_assembly.cu: the
+   gradient, Hpp, the Jacobi diagonal, Hpp^-1, dc, the preconditioner and
+   the SCHUR_JACOBI 7x7 inverses) against its plain version in float64 on
+   the first assembly of phase 3 (the cube, jacobi) and of phase 4
+   (calibrate's four families, SCHUR_JACOBI): every output within
+   SCHUR_RTOL of its max |plain| (ROW_RTOL_F64 with the tensors in float64),
+   beside the plain float32 version's own error; the launches (one on one
+   shard) and the launch's shape; ms of the kernel, the plain version, both
+   from a CUDA graph where they can be captured, the bound and its share;
+3f. the CG step kernel (``solver/cg.py``, csrc/cg_step.cu) on the first CG
+   of phases 3 and 4: 30 forced steps with the matvec kernel against the
+   plain loop and plain matvec in float64, x within SCHUR_RTOL with the
+   tensors in float64; in float32 one step within SCHUR_RTOL and 30 within
+   CG_DRIFT times the plain float32 loop's own drift; the path's own
+   early-stopped CG count against the plain float64 loop's; ms a step of the
+   kernel, the plain step, both from a CUDA graph, the bound, and an empty
+   launch measured beside them (the step's practical floor);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -83,7 +101,9 @@ printing a result):
    degree; ``calibrate`` with ``--depth_tri_weight 25 --float_scale
    --depth_to_image_transforms_to_float haz_cam``; checks the launch count,
    the attached depth rows, the cost decrease in both passes, both rig
-   transforms (1 deg / 0.05 m), the recovered depth_to_image (0.5% / 0.1 deg),
+   transforms (1 deg / 0.05 m), the recovered depth_to_image (0.5% / 0.1 deg;
+   the scale in the truth's metres: the written one times the world scale of
+   the calibration's free gauge),
    the depth clouds' alignment with the terrain (median under 5 mm) and the
    output files;
 4b. the mesh families: ``ray_mesh_intersect`` on the card (float32) at 20000
@@ -168,10 +188,12 @@ printing a result):
    kernel of this repo.
 
 Every path that runs the BA (phases 2, 2c, 3, 3b's ``cg_blocks``, 4, 4b, 6,
-6b, 6c, 8c, 9a, 9b, 9d and 10) counts the Schur matvec kernel's launches from
-0 and must have launched it; each of them and phase 3b's other three modes
-counts the row blocks kernel's launches from 0 and must have launched it and
-taken no family to the plain version.
+6b, 6c, 8c, 9a, 9b, 9d and 10) counts the Schur matvec kernel's and the CG
+step kernel's launches from 0 and must have launched both; each of them and
+phase 3b's other three modes counts the row blocks kernel's and the
+assembly kernel's launches from 0 and must have launched both (and taken no
+family to the plain version), the modes ``cg`` and ``cg_dense_j`` the CG
+step kernel's too.
 
 The last three lines of standard output are the kernel record (JSON: each
 kernel with its launches on its paths (the tensor-core kernel's is the sum
@@ -183,8 +205,10 @@ product ``torch.matmul``'s as ``library_ms``, its bound and largest error at
 the main path's chunk; the Schur matvec kernel with its launches per path
 and phase 3c's figures at the cube, ``library_ms`` null; the row blocks
 kernel with its launches per path and phase 3d's figures at the cube, every
-family's under ``by_family``, ``library_ms`` null), the card's name and
-power limit, and
+family's under ``by_family``, ``library_ms`` null; the assembly and the CG
+step kernels with their launches per path and phases 3e / 3f's figures at
+the cube, calibrate's under ``by_system``, ``library_ms`` null), the card's
+name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -321,6 +345,19 @@ SCHUR_SOURCE = "multiview_tpu_torch/csrc/schur_mv.cu"
 # reverse mode): float32 tensors at SCHUR_RTOL, float64 ones at ROW_RTOL_F64
 ROW_RTOL_F64 = 1e-9
 ROW_SOURCE = "multiview_tpu_torch/csrc/row_blocks.cu"
+# phases 3e-3f: the assembly and the CG step kernels against their plain
+# versions in float64 on the same inputs, max |diff| over max |plain| of each
+# output: float32 tensors at SCHUR_RTOL, float64 ones at ROW_RTOL_F64; the CG
+# run for CG_FORCED forced steps. CG amplifies rounding: after 30 forced
+# steps the plain float32 loop's x is 1.57e-3 (cube) and 4.7e-3 (calibrate's
+# system) of max |x| off the plain float64 loop's, and the float64 kernels'
+# 1e-10 and 3.6e-8 (measured on an H100, PERF.md). So one forced float32 step
+# is held at SCHUR_RTOL, 30 at CG_DRIFT times the plain float32 loop's own
+# drift (SCHUR_RTOL where that is less), and 30 in float64 at SCHUR_RTOL
+CG_DRIFT = 2.0
+ASM_SOURCE = "multiview_tpu_torch/csrc/lm_assembly.cu"
+CG_SOURCE = "multiview_tpu_torch/csrc/cg_step.cu"
+CG_FORCED = 30
 
 
 class Tee(io.TextIOBase):
@@ -346,32 +383,41 @@ def card_line() -> str:
     return out[0].strip()
 
 
-# launches of csrc/schur_mv.cu and of csrc/row_blocks.cu per path, each
-# counted from 0 (schur_counted)
+# launches of csrc/schur_mv.cu, csrc/row_blocks.cu, csrc/lm_assembly.cu and
+# csrc/cg_step.cu per path, each counted from 0 (schur_counted)
 SCHUR_PATHS = {}
 ROW_PATHS = {}
+ASM_PATHS = {}
+CG_PATHS = {}
 # the first SchurSystem (and its x) of a path's BA, caught for phase 3c
 SCHUR_SYSTEMS = {}
 # the first call of each row-block family of a path's BA, caught for phase 3d
 ROW_CALLS = {}
+# the arguments of the first assembly and the first CG of a path's BA, caught
+# for phases 3e-3f
+ASM_CALLS = {}
+CG_CALLS = {}
 
 
 @contextlib.contextmanager
-def schur_counted(tag, matvec: bool = True):
-    """Sets the Schur matvec kernel's and the row blocks kernel's counts to 0
-    just before a BA path and reads them just after; the path must have
-    launched the row blocks kernel and (with ``matvec``: the ``cg_blocks``
-    paths) the matvec kernel."""
-    from multiview_tpu_torch.solver import row_blocks as rb, schur_matvec as smv
-    smv.LAUNCHES = rb.LAUNCHES = 0
+def schur_counted(tag, matvec: bool = True, cg_steps: bool = True):
+    """Sets the counts of the BA's four kernels to 0 just before a BA path
+    and reads them just after; the path must have launched the row blocks
+    kernel, the assembly kernel, (with ``matvec``: the ``cg_blocks`` paths)
+    the matvec kernel and (with ``cg_steps``: every mode but
+    ``dense_schur``) the CG step kernel."""
+    from multiview_tpu_torch.solver import (assembly as asm, cg, row_blocks as rb,
+                                            schur_matvec as smv)
+    smv.LAUNCHES = rb.LAUNCHES = asm.LAUNCHES = cg.LAUNCHES = 0
     yield
-    if matvec:
-        SCHUR_PATHS[tag] = smv.LAUNCHES
-        if smv.LAUNCHES <= 0:
-            raise AssertionError(f"{tag}: the BA launched csrc/schur_mv.cu no time")
-    ROW_PATHS[tag] = rb.LAUNCHES
-    if rb.LAUNCHES <= 0:
-        raise AssertionError(f"{tag}: the BA launched csrc/row_blocks.cu no time")
+    for paths, mod, source, required in ((SCHUR_PATHS, smv, "schur_mv.cu", matvec),
+                                         (ROW_PATHS, rb, "row_blocks.cu", True),
+                                         (ASM_PATHS, asm, "lm_assembly.cu", True),
+                                         (CG_PATHS, cg, "cg_step.cu", cg_steps)):
+        if required:
+            paths[tag] = mod.LAUNCHES
+            if mod.LAUNCHES <= 0:
+                raise AssertionError(f"{tag}: the BA launched csrc/{source} no time")
 
 
 @contextlib.contextmanager
@@ -408,7 +454,8 @@ def first_schur_system(key):
     original = smv.schur_matvec
 
     def spy(system, x):
-        SCHUR_SYSTEMS.setdefault(key, (system, x))
+        # the CG kernel updates its p in place: keep this one's values
+        SCHUR_SYSTEMS.setdefault(key, (system, x.clone()))
         return original(system, x)
 
     smv.schur_matvec = spy
@@ -416,6 +463,28 @@ def first_schur_system(key):
         yield
     finally:
         smv.schur_matvec = original
+
+
+@contextlib.contextmanager
+def first_assembly_and_cg(key):
+    """Keeps the arguments of the first ``assembly.assemble`` and the first
+    ``cg.pcg`` the path's BA calls."""
+    from multiview_tpu_torch.solver import assembly as asm, cg
+    originals = (asm.assemble, cg.pcg)
+
+    def spy_asm(*args):
+        ASM_CALLS.setdefault(key, args)
+        return originals[0](*args)
+
+    def spy_cg(*args):
+        CG_CALLS.setdefault(key, args)
+        return originals[1](*args)
+
+    asm.assemble, cg.pcg = spy_asm, spy_cg
+    try:
+        yield
+    finally:
+        asm.assemble, cg.pcg = originals
 
 
 def descriptors(gen, p, n, d, device):
@@ -716,6 +785,7 @@ def calibrate_with_depth(torch, mm, card, tag, workdir: Path, out: Path, rig_tru
     """``calibrate`` with the depth camera on the three-sensor workspace and
     phase 4's checks; returns the run."""
     import numpy as np
+    from bench_torch import checks as bench_checks
     from multiview_tpu_torch.geometry import pose as P
 
     ws = workdir / "ws3"
@@ -725,8 +795,14 @@ def calibrate_with_depth(torch, mm, card, tag, workdir: Path, out: Path, rig_tru
         "--depth_to_image_transforms_to_float", "haz_cam", "--save_nvm"] + extra, mesh=mesh)
     errs = rig_errors(torch, run, rig_true, ("sci_cam", "haz_cam"))
     d2i = np.asarray(next(s for s in run["rig"].sensors if s.name == "haz_cam").depth_to_image)
-    scale = float(np.linalg.det(d2i[:3, :3]) ** (1.0 / 3.0))
-    rot = P.matrix_to_quat(torch.as_tensor(d2i[:3, :3] / scale))
+    raw_scale = float(np.linalg.det(d2i[:3, :3]) ** (1.0 / 3.0))
+    # in the truth's metres, as the benchmark's check reads it: with floating
+    # poses and --float_scale the calibration's world scale is free, and the
+    # written scale carries it
+    world = bench_checks.gauge(bench_checks.read_camera_poses(out / "cameras.txt"),
+                               bench_checks.read_camera_poses(ws / "cameras.txt"))[0]
+    scale = raw_scale * world
+    rot = P.matrix_to_quat(torch.as_tensor(d2i[:3, :3] / raw_scale))
     rot_deg = float(np.degrees(np.linalg.norm(P.quat_log(rot).numpy())))
     n_pts, med, p95 = depth_alignment(torch, out, ws)
     st = run["stages"]
@@ -737,14 +813,17 @@ def calibrate_with_depth(torch, mm, card, tag, workdir: Path, out: Path, rig_tru
           f"{run['depth_rows']}; costs {run['costs']}; tensor-core matcher launches "
           f"{run['launches']} (FMA kernel 0); rig error (deg, m) {errs}; depth_to_image of "
           f"haz_cam from scale {D2I_GUESS_SCALE} / 1.006 deg to scale {scale:.5f} / "
-          f"{rot_deg:.4f} deg off the truth; depth alignment over {n_pts} cloud points: "
+          f"{rot_deg:.4f} deg off the truth (written scale {raw_scale:.5f}, world scale "
+          f"{world:.5f}); depth alignment over {n_pts} cloud points: "
           f"median {med:.5f} m, 95th percentile {p95:.5f} m; {ba_summary(run['ba'])} "
           f"[{card}]", flush=True)
     for line in run["passes"]:
         print(f"[{label}] {line}", flush=True)
     if run["depth_rows"] <= 0:
         raise AssertionError(f"{tag}: no depth measurement was attached")
-    # measured on an H100: 0.12% and 0.007 deg off; the bars leave a factor of four
+    # measured on an H100: 0.012-0.015% (written: 0.11-0.78%, the world scale
+    # 1.001-1.008) and 0.007 deg off; the bars leave a factor of four over
+    # the written scale of earlier runs
     if not (abs(scale - 1.0) < 0.005 and rot_deg < 0.1):
         raise AssertionError(f"{tag}: depth_to_image not recovered: scale {scale}, "
                              f"{rot_deg} deg")
@@ -761,7 +840,7 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     triangulated points, depth_to_image and its scale floated from a guess
     that is off the truth. On one card ``--sharded`` shards nothing, as the
     reference's does on one chip."""
-    with first_schur_system("rig"), first_row_blocks("rig"):
+    with first_schur_system("rig"), first_row_blocks("rig"), first_assembly_and_cg("rig"):
         run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
                                    rig_true, ["--sharded"])
     sharded = "Sharded observations" in run["text"]
@@ -965,7 +1044,8 @@ def phase3(torch, card):
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    with schur_counted("phase 3"), first_schur_system("cube"), first_row_blocks("cube"):
+    with schur_counted("phase 3"), first_schur_system("cube"), first_row_blocks("cube"), \
+            first_assembly_and_cg("cube"):
         res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
         forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
                                                   state0.points)
@@ -996,7 +1076,7 @@ def phase3b(torch, card, p3):
     cam0 = prob.pack_state(state0, include_points=False)
     for mode in ("cg_blocks", "cg", "cg_dense_j", "dense_schur"):
         with schur_counted("phase 3b" if mode == "cg_blocks" else f"phase 3b ({mode})",
-                           matvec=mode == "cg_blocks"):
+                           matvec=mode == "cg_blocks", cg_steps=mode != "dense_schur"):
             res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
                                                   state0.points, reps=2)
         # dense_schur solves each step exactly: its trajectory is the one of
@@ -1390,6 +1470,269 @@ def phase3d(torch, card):
               f"[{card}]", flush=True)
     print(f"[phase3d] ptxas (registers, spill stores, spill loads) of every kernel of "
           f"csrc/row_blocks.cu: {json.dumps(regs)}", flush=True)
+    return out
+
+
+def in64(torch, x):
+    """Tensors (in lists, tuples, NamedTuples) in float64; the rest as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(in64(torch, v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(in64(torch, v) for v in x)
+    return x
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| (ref in float64)."""
+    return float((got.double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+
+
+def assembly_bound(args):
+    """(bound ms, "bytes" | "operations", bytes) of one assembly: every input
+    read once (the camera and point blocks, the residuals where the gradient
+    is asked, the int64 indices, cam_free, lam), every output written once
+    (g_c, g_p where asked, Hpp, pt_diag, Hpp^-1, the diagonal, dc, the
+    preconditioner, the 7x7 inverses where asked), over the memory rate; its
+    operations over the FP32 rate: a camera row 4 k B (gradient and
+    diagonal), a point row 18 k, a SCHUR_JACOBI row and side 2 (7 + 28 + 21)
+    k + 294, a point 60, a pose 2 7^3."""
+    mesh, shards, J, r, cam_free, lam, num_ref, num_points, block = args[:9]
+    item = cam_free.element_size()
+    C, P, R = cam_free.shape[0], num_points, num_ref
+    nbytes = item * (C + 1 + 4 * C + 24 * P + (C + 3 * P if r is not None else 0)
+                     + (49 * R if block else 0))
+    flop = 60 * P + (2 * 343 * R if block else 0)
+    for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
+        if r is not None:
+            nbytes += item * r[s].numel()
+        for a, b in zip(jc, jp):
+            if a is not None:
+                n, k, B = a.shape
+                nbytes += item * a.numel() + 8 * (2 * n + B - 14)
+                flop += 4 * n * k * B + (2 * (2 * (7 + 28 + 21) * k + 294) * n if block else 0)
+            if b is not None:
+                n, k, _ = b.shape
+                nbytes += item * b.numel() + 8 * n
+                flop += 18 * n * k
+    t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def phase3e(torch, card):
+    """The assembly kernel (csrc/lm_assembly.cu) against its plain version on
+    the first assembly of phase 3's solve (the benchmark's cube, 384000 rows,
+    jacobi) and of phase 4's (calibrate's four families, SCHUR_JACOBI). The
+    reference is the plain version in float64 on the same inputs (the kernel
+    computes in float64 and rounds its outputs); every output (g_c, g_p, Hpp,
+    the Jacobi diagonal, pt_diag, Hpp^-1, dc, the preconditioner, the 7x7
+    inverses) within SCHUR_RTOL of its max |plain| with the path's float32
+    tensors and ROW_RTOL_F64 with them in float64, beside the plain float32
+    version's own error. Per assembly: the launches (one on one shard), the
+    launch's shape, ms of the kernel, the plain version, the plain version
+    from a CUDA graph (or why it was not captured) and the kernel from a
+    graph (or why not), the bound (``assembly_bound``) and its share. Returns
+    the records by system."""
+    from multiview_tpu_torch.solver import assembly as asm
+
+    out = {}
+    for label in ("cube", "rig"):
+        args = ASM_CALLS[label][:9]
+        mesh, shards, J, r, cam_free, lam, num_ref, num_points, block = args
+        args64 = tuple(in64(torch, a) for a in args)
+        before, asm.RECORD_LAUNCH = asm.LAUNCHES, True
+        try:
+            got = asm.assemble_cuda(*args)
+            torch.cuda.synchronize()
+            launch = dict(asm.LAST_LAUNCH)
+        finally:
+            asm.RECORD_LAUNCH = False
+        launches = asm.LAUNCHES - before
+        if mesh.size == 1 and launches != 1:
+            raise AssertionError(f"phase 3e {label}: the assembly took {launches} launches")
+        ref, ref32 = asm.assemble_plain(*args64), asm.assemble_plain(*args)
+        got64 = asm.assemble_cuda(*args64)
+        torch.cuda.synchronize()
+        names = [n for n, v in zip(ref._fields, ref) if v is not None]
+        for n in ref._fields:
+            g = getattr(got, n)
+            if (g is None) != (getattr(ref, n) is None) or (
+                    g is not None and not bool(torch.isfinite(g).all())):
+                raise AssertionError(f"phase 3e {label}: {n} is None on one side only or "
+                                     f"not finite")
+        rel = {n: rel_err(getattr(got, n), getattr(ref, n)) for n in names}
+        rel64 = {n: rel_err(getattr(got64, n), getattr(ref, n)) for n in names}
+        plain_own = {n: rel_err(getattr(ref32, n), getattr(ref, n)) for n in names}
+        err = max(float((getattr(got, n).double() - getattr(ref, n)).abs().max())
+                  for n in names)
+        runs = [("kernel", lambda: asm.assemble_cuda(*args)),
+                ("plain", lambda: asm.assemble_plain(*args))]
+        notes = []
+        for key, fn in (("plain_graph", lambda: asm.assemble_plain(*args)),
+                        ("kernel_graph", lambda: asm.assemble_cuda(*args))):
+            try:
+                runs.append((key, graphed(torch, fn)))
+            except Exception as e:      # a capture that fails is reported
+                torch.cuda.synchronize()
+                notes.append(f"{key} not captured: {type(e).__name__}: "
+                             f"{str(e).splitlines()[0][:160]}")
+        times = {}
+        for key, fn in runs + runs[::-1]:            # in turns, the better of two
+            ms = per_call_ms(torch, fn, reps=20)
+            times[key] = min(times.get(key, ms), ms)
+        bound_ms, bound_by, nbytes = assembly_bound(args)
+        rows = sum((b if a is None else a).shape[0] for fams, (jc, jp) in zip(shards, J)
+                   for a, b in zip(jc, jp))
+        fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())   # noqa: E731
+        opt = lambda k: f"{times[k]:.4f}" if k in times else "not measured"   # noqa: E731
+        print(f"[phase3e] {label}: {mesh.size} shard(s), {len(shards[0])} families, {rows} "
+              f"rows, {num_points} points, {cam_free.shape[0]} camera parameters, "
+              f"{'SCHUR_JACOBI' if block else 'jacobi'}, {cam_free.dtype}: {launches} "
+              f"launch(es), cooperative grid {launch['grid']} x {launch['threads']} threads, "
+              f"{launch['shared_bytes']} B of shared memory, per-warp copies of the camera "
+              f"sums {bool(launch['camera_copies'])} and of the pose blocks "
+              f"{bool(launch['block_copies'])}; max |diff| / max |plain in float64|: kernel "
+              f"{fmt(rel)} (in float64: {fmt(rel64)}); the plain version in float32 "
+              f"{fmt(plain_own)}; ms an assembly: kernel {times['kernel']:.4f}, plain "
+              f"{times['plain']:.4f}, plain from a CUDA graph {opt('plain_graph')}, kernel "
+              f"from a CUDA graph {opt('kernel_graph')}{'; ' if notes else ''}{'; '.join(notes)}; "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), share "
+              f"{bound_ms / times['kernel']:.4f} [{card}]", flush=True)
+        if not (all(v <= SCHUR_RTOL for v in rel.values())
+                and all(v <= ROW_RTOL_F64 for v in rel64.values())):
+            raise AssertionError(f"phase 3e {label}: the assembly kernel disagrees with its "
+                                 f"plain version: {rel} (bar {SCHUR_RTOL}), in float64 {rel64} "
+                                 f"(bar {ROW_RTOL_F64})")
+        out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                      "plain_graph_ms": times.get("plain_graph"),
+                      "kernel_graph_ms": times.get("kernel_graph"), "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err,
+                      "library_ms": None, "launches_an_assembly": launches, "launch": launch,
+                      "rel": rel, "rel_float64": rel64, "plain_float32_rel": plain_own}
+    return out
+
+
+def cg_step_bound(n: int, nposes: int, item: int):
+    """(bound ms, "bytes" | "operations") of one CG step after its matvec:
+    x, r, p, Ap, the preconditioner, the 7x7 inverses and the state read
+    once, x, r, p and the state written once, over the memory rate; three
+    dots, three axpys and M^-1 r (13 operations a pose entry, 1 a scalar
+    one) over the FP32 rate."""
+    nbytes = item * (8 * n + 49 * nposes) + 64
+    flop = 12 * n + 13 * 7 * nposes + (n - 7 * nposes)
+    t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase3f(torch, card):
+    """The CG step kernel (csrc/cg_step.cu) against the plain loop on the
+    first CG of phase 3's solve (the cube, jacobi) and of phase 4's
+    (calibrate's system, SCHUR_JACOBI): CG_FORCED forced steps
+    (``debug_force_cg``) of the kernel, its matvec csrc/schur_mv.cu, against
+    the plain loop with the plain matvec in float64 on the same inputs: x
+    within SCHUR_RTOL of max |plain| with the tensors in float64; with the
+    path's float32 tensors one step within SCHUR_RTOL and all of them within
+    CG_DRIFT times the plain float32 loop's own error (CG's drift in
+    float32, printed beside); then
+    the path's own early-stopped CG, its count against the plain float64
+    loop's. Per step: the launches (the start and one a step), ms of the
+    kernel's step, the plain version's step (the update, the mask, the stop
+    test and the count, around the same matvec result), the plain step from
+    a CUDA graph, the kernel from a graph, the bound (``cg_step_bound``)
+    and, the step's practical floor, one empty launch on the card, measured
+    here. Returns the records by system."""
+    import dataclasses
+    from multiview_tpu_torch.solver import cg, schur_matvec as smv
+
+    dev = torch.device("cuda", 0)
+    empty_ms = min(per_call_ms(torch, lambda: cg.empty_launch(dev), reps=200) for _ in range(3))
+    empty_graph = graphed(torch, lambda: cg.empty_launch(dev))
+    empty_graph_ms = min(per_call_ms(torch, empty_graph, reps=200) for _ in range(3))
+    out = {}
+    for label in ("cube", "rig"):
+        system = SCHUR_SYSTEMS[label][0]
+        _, M, rhs, iterations, tolerance, check_every, _ = CG_CALLS[label]
+        sys64 = dataclasses.replace(system, J=in64(torch, system.J),
+                                    cam_free=system.cam_free.double(), dc=system.dc.double(),
+                                    hpp_inv=system.hpp_inv.double(), _plans=None)
+        M64, rhs64 = in64(torch, M), rhs.double()
+
+        def kernel_cg(s, m, b, force=CG_FORCED):
+            return cg.pcg_cuda(lambda v: smv.schur_matvec_cuda(s, v), m, b, iterations,
+                               tolerance, check_every, force)
+
+        def plain_cg(s, m, b, force=CG_FORCED):
+            return cg.pcg_plain(lambda v: smv.schur_matvec_plain(s, v), m, b, iterations,
+                                tolerance, check_every, force)
+
+        before = cg.LAUNCHES
+        x, _ = kernel_cg(system, M, rhs)
+        torch.cuda.synchronize()
+        launches = cg.LAUNCHES - before
+        if launches != 1 + CG_FORCED:
+            raise AssertionError(f"phase 3f {label}: {CG_FORCED} forced steps took {launches} "
+                                 f"launches")
+        x64, _ = kernel_cg(sys64, M64, rhs64)
+        ref, _ = plain_cg(sys64, M64, rhs64)
+        ref32, _ = plain_cg(system, M, rhs)
+        rel, rel64, plain_own = rel_err(x, ref), rel_err(x64, ref), rel_err(ref32, ref)
+        err = float((x.double() - ref).abs().max())
+        rel1 = rel_err(kernel_cg(system, M, rhs, 1)[0], plain_cg(sys64, M64, rhs64, 1)[0])
+        _, k_kernel = kernel_cg(system, M, rhs, None)
+        _, k_plain = plain_cg(sys64, M64, rhs64, None)
+        k_kernel, k_plain = int(k_kernel), int(k_plain)
+        # one step's work around a fixed matvec result
+        state = cg.CudaCG(M, rhs, tolerance)
+        state.start()
+        Ap = smv.schur_matvec_cuda(system, state.p)
+        x0, r0, p0 = rhs * 0, rhs.clone(), M.apply(rhs)
+        rz0 = (r0 * p0).sum()
+        stop2 = tolerance ** 2 * (rhs * rhs).sum()
+        active = torch.ones((), dtype=torch.bool, device=dev)
+
+        def plain_step():
+            act = active & ((r0 * r0).sum() > stop2)
+            new = cg.update_plain(M, x0, r0, p0, rz0, Ap)
+            return [torch.where(act, a, b) for a, b in zip(new, (x0, r0, p0, rz0))] + [act]
+
+        runs = [("kernel", lambda: state.step(Ap, forced=True)), ("plain", plain_step),
+                ("plain_graph", graphed(torch, plain_step)),
+                ("kernel_graph", graphed(torch, lambda: state.step(Ap, forced=True)))]
+        times = {}
+        for key, fn in runs + runs[::-1]:            # in turns, the better of two
+            ms = per_call_ms(torch, fn, reps=100)
+            times[key] = min(times.get(key, ms), ms)
+        nposes = 0 if M.pose_inv is None else M.pose_inv.shape[0]
+        bound_ms, bound_by = cg_step_bound(rhs.shape[0], nposes, rhs.element_size())
+        print(f"[phase3f] {label}: {rhs.shape[0]} camera parameters, "
+              f"{'SCHUR_JACOBI' if M.pose_inv is not None else 'jacobi'}, {rhs.dtype}: "
+              f"{CG_FORCED} forced steps in {launches} launches; x max |diff| / max |plain "
+              f"in float64|: kernel {rel:.3g} (in float64 {rel64:.3g}; one step {rel1:.3g}); "
+              f"the plain loop in float32 {plain_own:.3g}; the path's CG (tolerance {tolerance:g}, checked every "
+              f"{check_every}): {k_kernel} steps with the kernels, {k_plain} with the plain "
+              f"loop in float64; ms a step: kernel {times['kernel']:.4f}, plain "
+              f"{times['plain']:.4f}, plain from a CUDA graph {times['plain_graph']:.4f}, "
+              f"kernel from a CUDA graph {times['kernel_graph']:.4f}; bound {bound_ms:.6f} ms "
+              f"by {bound_by}; an empty launch {empty_ms:.4f} ms, from a graph "
+              f"{empty_graph_ms:.4f} ms; the step's share of the empty launch "
+              f"{empty_ms / times['kernel']:.4f}, from graphs "
+              f"{empty_graph_ms / times['kernel_graph']:.4f} [{card}]", flush=True)
+        bar = max(SCHUR_RTOL, CG_DRIFT * plain_own)
+        if not (rel1 <= SCHUR_RTOL and rel <= bar and rel64 <= SCHUR_RTOL):
+            raise AssertionError(f"phase 3f {label}: the CG kernel's x is off the plain loop's: "
+                                 f"one step {rel1:.3g} (bar {SCHUR_RTOL}), {CG_FORCED} steps "
+                                 f"{rel:.3g} (bar {bar:.3g}), in float64 "
+                                 f"{rel64:.3g} (bar {SCHUR_RTOL})")
+        out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                      "plain_graph_ms": times["plain_graph"],
+                      "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "empty_launch_ms": empty_ms,
+                      "empty_launch_graph_ms": empty_graph_ms, "rel_one_step": rel1,
+                      "max_abs_err": err, "library_ms": None,
+                      "launches_forced": launches, "rel": rel, "rel_float64": rel64,
+                      "plain_float32_rel": plain_own, "cg_kernel": k_kernel,
+                      "cg_plain_float64": k_plain}
     return out
 
 
@@ -2333,7 +2676,8 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
     import torch.distributed as dist
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
-    from multiview_tpu_torch.solver import row_blocks as rb, schur_matvec as smv
+    from multiview_tpu_torch.solver import (assembly as asm, cg, row_blocks as rb,
+                                            schur_matvec as smv)
 
     if not pdist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo"):
         raise AssertionError("phase 9d: the worker joined no group")
@@ -2353,7 +2697,8 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
              cost=float(res.cost), initial_cost=float(res.initial_cost),
              iterations=res.iterations, cg=int(res.cg_iters_total), lam=float(res.lam),
              size=mesh.size, gathered=gathered, device=str(res.cam.device),
-             schur_launches=smv.LAUNCHES, row_launches=rb.LAUNCHES)
+             schur_launches=smv.LAUNCHES, row_launches=rb.LAUNCHES, asm_launches=asm.LAUNCHES,
+             cg_launches=cg.LAUNCHES)
     dist.destroy_process_group()
     return 0
 
@@ -2394,13 +2739,14 @@ def phase9d(torch, card, workdir: Path):
         if p.returncode != 0:
             raise AssertionError(f"phase 9d: a rank failed:\n{log[-3000:]}")
     r0, r1 = (dict(np.load(o)) for o in outs)
-    SCHUR_PATHS["phase 9d (2 gloo ranks)"] = int(r0["schur_launches"] + r1["schur_launches"])
-    ROW_PATHS["phase 9d (2 gloo ranks)"] = int(r0["row_launches"] + r1["row_launches"])
-    if not all(r[k] > 0 for r in (r0, r1) for k in ("schur_launches", "row_launches")):
-        raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu or csrc/row_blocks.cu "
-                             "no time")
-    same = all(np.array_equal(r0[k], r1[k]) for k in r0
-               if k not in ("schur_launches", "row_launches"))
+    counts = {"schur_launches": SCHUR_PATHS, "row_launches": ROW_PATHS,
+              "asm_launches": ASM_PATHS, "cg_launches": CG_PATHS}
+    for key, paths in counts.items():
+        paths["phase 9d (2 gloo ranks)"] = int(r0[key] + r1[key])
+    if not all(r[k] > 0 for r in (r0, r1) for k in counts):
+        raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu, csrc/row_blocks.cu, "
+                             "csrc/lm_assembly.cu or csrc/cg_step.cu no time")
+    same = all(np.array_equal(r0[k], r1[k]) for k in r0 if k not in counts)
 
     dev = torch.device("cuda", 0)
     scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
@@ -2475,7 +2821,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()} [{card}]", flush=True)
     t0 = time.perf_counter()
-    sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu", "row_blocks.cu"]
+    sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu", "row_blocks.cu", "lm_assembly.cu",
+               "cg_step.cu"]
     cuda_build.build_libraries(sources)        # one nvcc each, started together
     print(f"[phase0] built csrc/{{{','.join(sources)}}} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2520,6 +2867,8 @@ def main() -> int:
     phase3b(torch, card, phase3(torch, card))
     p3c = phase3c(torch, card)
     p3d = phase3d(torch, card)
+    p3e = phase3e(torch, card)
+    p3f = phase3f(torch, card)
     phase5(torch, dev, card)
     t0 = time.perf_counter()
     phase9a(torch, card)
@@ -2553,7 +2902,24 @@ def main() -> int:
          "launches": sum(ROW_PATHS.values()), "launches_by_path": ROW_PATHS,
          **{k: p3d["cube"][k] for k in keys}, "plain_graph_ms": p3d["cube"]["plain_graph_ms"],
          "kernel_graph_ms": p3d["cube"]["kernel_graph_ms"],
-         "by_family": p3d["families"]}]}))
+         "by_family": p3d["families"]},
+        # no single PyTorch call computes the assembly: library_ms is null
+        {"name": "lm_assembly", "route": "cuda", "source": ASM_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:960-1081 (the gradient, Hpp, the Jacobi "
+                     "diagonal, the SCHUR_JACOBI blocks) and :295-330 (inv3x3_spd), XLA code: "
+                     "no pallas_call",
+         "launches": sum(ASM_PATHS.values()), "launches_by_path": ASM_PATHS,
+         **{k: p3e["cube"][k] for k in keys}, "share": p3e["cube"]["bound_ms"] / p3e["cube"]["ms"],
+         "plain_graph_ms": p3e["cube"]["plain_graph_ms"],
+         "kernel_graph_ms": p3e["cube"]["kernel_graph_ms"], "by_system": p3e},
+        # no single PyTorch call computes a CG step: library_ms is null
+        {"name": "cg_step", "route": "cuda", "source": CG_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:1200-1233 (cg_body, cg_cond) and "
+                     ":1084-1094 (precond_apply), XLA code: no pallas_call",
+         "launches": sum(CG_PATHS.values()), "launches_by_path": CG_PATHS,
+         **{k: p3f["cube"][k] for k in keys}, "share": p3f["cube"]["bound_ms"] / p3f["cube"]["ms"],
+         "plain_graph_ms": p3f["cube"]["plain_graph_ms"],
+         "kernel_graph_ms": p3f["cube"]["kernel_graph_ms"], "by_system": p3f}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

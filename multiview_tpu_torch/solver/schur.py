@@ -20,8 +20,14 @@ explicit per-row block Jacobians:
   matvec, its right-hand side and the back-substitution's product
   (``solver/schur_matvec.py``) run the hand-written kernel
   ``csrc/schur_mv.cu`` on the card and those gathers and sums on the CPU;
-- Hpp [P,3,3], the Jacobi diagonal and the 7x7 SCHUR_JACOBI pose blocks are
-  assembled once per LM iteration, Hpp+lam*D inverted in closed form.
+- the gradient, Hpp [P,3,3], the Jacobi diagonal and the 7x7 SCHUR_JACOBI
+  pose blocks are assembled once per LM iteration, Hpp+lam*D inverted in
+  closed form and the pose blocks by LU (``solver/assembly.py``: on the card
+  the hand-written kernel ``csrc/lm_assembly.cu``, one launch an LM
+  iteration on one shard);
+- the preconditioned CG (``solver/cg.py``) runs its vector work in the
+  hand-written kernel ``csrc/cg_step.cu`` on the card, one launch a step
+  after the matvec, and as the plain loop on the CPU.
 
 The other linear solvers of the reference (``cg``, ``cg_dense_j``,
 ``dense_schur``) share that loop; ``make_schur_solver`` says how each
@@ -55,7 +61,7 @@ import torch
 
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
-from multiview_tpu_torch.solver import schur_matvec as smv
+from multiview_tpu_torch.solver import assembly, cg, schur_matvec as smv
 from multiview_tpu_torch.solver.row_blocks import (  # noqa: F401  (re-exported)
     depth_row_blocks, pixel_row_blocks, prior_row_blocks)
 
@@ -90,32 +96,6 @@ def cam_layout(template: prob.RigState) -> CamLayout:
     d2i = sec(template.depth_to_image.numel())
     ds = sec(template.depth_scale.numel())
     return CamLayout(w, r, o, f, c, d, d2i, ds, off)
-
-
-def inv3x3_spd(A):
-    """Batched closed-form inverse of damped SPD 3x3 blocks [P,3,3] by the
-    diagonally normalized adjugate (A = D An D, An unit-diagonal); blocks
-    with det <= 0 (rounding noise on numerically singular blocks) get a zero
-    inverse."""
-    d = torch.sqrt(torch.clamp_min(torch.diagonal(A, dim1=-2, dim2=-1), 1e-32))
-    S = d[..., :, None] * d[..., None, :]
-    M = A / S
-    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    dd, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    c00 = e * i - f * h
-    c10 = f * g - dd * i
-    c20 = dd * h - e * g
-    det = a * c00 + b * c10 + c * c20
-    ok = det > 0.0
-    inv_det = torch.where(ok, torch.ones_like(det), torch.zeros_like(det)) / \
-        torch.where(ok, det, torch.ones_like(det))
-    adj = torch.stack([
-        torch.stack([c00, c * h - b * i, b * f - c * e], dim=-1),
-        torch.stack([c10, a * i - c * g, c * dd - a * f], dim=-1),
-        torch.stack([c20, b * g - a * h, a * e - b * dd], dim=-1),
-    ], dim=-2)
-    return adj * inv_det[..., None, None] / S
 
 
 # ----------------------------------------------------------------------------
@@ -219,7 +199,8 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                                        device=device)
     if preconditioner == "auto":
         preconditioner = "jacobi" if cg_tolerance >= 0.01 else "schur_jacobi"
-    use_block_precond = preconditioner == "schur_jacobi"
+    # SCHUR_JACOBI's 7x7 pose blocks (DENSE_SCHUR solves exactly: no CG)
+    block_precond = preconditioner == "schur_jacobi" and linear_solver != "dense_schur"
 
     def const_cols(s: int, dev) -> torch.Tensor:
         d = int(template.dist[s].numel())
@@ -303,7 +284,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         camera- and point-space vectors are replicated on the lead device,
         and every sum of row-space partials goes through ``mesh.sum``. Dots
         of replicated vectors are taken once, never summed over shards."""
-        free_pose = cam_free[:num_ref * 7].reshape(num_ref, 7)
         devs = mesh.devices
         matvecs = 0
 
@@ -396,47 +376,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         def residual_fn(cam_vec, pts):
             return prob.all_residuals(unpack(cam_vec, pts), obs, models, opts)
 
-        def pcg(schur_mv, precond_apply, rhs):
-            """(x, CG count) of preconditioned CG on the reduced system, from
-            0, stopping where |r|^2 <= cg_tolerance^2 |rhs|^2 (the
-            reference's test) or after ``cg_iterations`` steps. The test is
-            evaluated every iteration as a mask and read on the host every
-            ``CG_CHECK_EVERY`` iterations. ``rr`` is a replicated vector (its
-            partial sums went through ``mesh.sum``), so every shard and rank
-            reads the same test and leaves at the same step."""
-            x = torch.zeros_like(rhs)
-            rr = rhs
-            p = precond_apply(rr)
-            rz = dot(rr, p)
-
-            def step(x, rr, p, rz):
-                Ap = schur_mv(p)
-                denom = dot(p, Ap)
-                pos = denom > 0
-                alpha = torch.where(pos, rz / torch.where(pos, denom, torch.ones_like(denom)),
-                                    torch.zeros_like(denom))
-                rr_n = rr - alpha * Ap
-                zz = precond_apply(rr_n)
-                rz_n = dot(rr_n, zz)
-                beta = rz_n / torch.where(rz > 0, rz, torch.ones_like(rz))
-                return x + alpha * p, rr_n, zz + beta * p, rz_n
-
-            if debug_force_cg is not None:
-                for _ in range(debug_force_cg):
-                    x, rr, p, rz = step(x, rr, p, rz)
-                return x, torch.full((), debug_force_cg, dtype=torch.int64, device=device)
-            stop2 = cg_tolerance ** 2 * dot(rhs, rhs)
-            active = torch.ones((), dtype=torch.bool, device=device)
-            cg_k = torch.zeros((), dtype=torch.int64, device=device)
-            for k in range(cg_iterations):
-                active = active & (dot(rr, rr) > stop2)
-                if k % CG_CHECK_EVERY == 0 and not bool(active):     # host sync
-                    break
-                new = step(x, rr, p, rz)
-                x, rr, p, rz = (torch.where(active, a, b) for a, b in zip(new, (x, rr, p, rz)))
-                cg_k = cg_k + active.to(torch.int64)
-            return x, cg_k
-
         def dense_schur_solve(J, hpp_inv, cam_free, dc, rhs):
             """DENSE_SCHUR: S = B - E Hpp^-1 E^T from the dense camera blocks,
             frozen rows and columns replaced by the unit diagonal, damped by
@@ -470,6 +409,8 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         nu = torch.as_tensor(2.0, dtype=dtype, device=device)
         cg_total = torch.zeros((), dtype=torch.int64, device=device)
         iterations = 0
+        # set on the card where a SCHUR_JACOBI block is singular; read at the host syncs
+        singular = assembly.new_flag(device)
 
         for _ in range(debug_unroll_lm or max_iterations):
             # the products with J and J^T of this iteration: the row blocks,
@@ -490,71 +431,27 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     return vjp_fn(u[0])[1]
 
                 gc_raw, g_p = vjp_fn(r_lin)
+                g_c = gc_raw * cam_free
             else:
                 Jx, JTc, JTp = (functools.partial(fn, J) for fn in (Jmv, JTmv_c, JTmv_p))
-                gc_raw, g_p = JTc(r), JTp(r)
-            g_c = gc_raw * cam_free
 
-            hpp_parts, diag_parts = [], []
-            for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
-                hpp = torch.zeros((num_points, 3, 3), dtype=dtype, device=devs[s])
-                for f, b in zip(fams, jp):
-                    if b is not None:
-                        hpp.index_add_(0, f.point_idx, torch.einsum("nki,nkj->nij", b, b))
-                hpp_parts.append(hpp)
-                diag_parts.append(smv.reduce_cols([(f, torch.sum(a * a, dim=1))
-                                                   for f, a in zip(fams, jc) if a is not None],
-                                                  num_ref, layout.total, dtype, devs[s]))
-            hpp = mesh.sum(hpp_parts)
-            cam_diag = torch.clamp(mesh.sum(diag_parts), 1e-12, 1e32)
-            pt_diag = torch.clamp(torch.diagonal(hpp, dim1=-2, dim2=-1), 1e-12, 1e32)
-            hpp_inv = inv3x3_spd(hpp + torch.diag_embed(lam * pt_diag))
+            # the gradient (but in "cg"), Hpp, the Jacobi diagonal, Hpp^-1, dc
+            # and the preconditioner: csrc/lm_assembly.cu on the card, plain
+            # on the CPU
+            asm = assembly.assemble(mesh, shards, J, None if linear_solver == "cg" else r,
+                                    cam_free, lam, num_ref, num_points, block_precond, singular)
+            if linear_solver != "cg":
+                g_c, g_p = asm.g_c, asm.g_p
+            cam_diag, pt_diag, hpp_inv, dc = asm.cam_diag, asm.pt_diag, asm.hpp_inv, asm.dc
 
             def solve3(rhs):
                 return smv.solve3(hpp_inv, rhs)
-
-            dc = lam * cam_diag * cam_free + (1.0 - cam_free)
-            precond = 1.0 / (cam_diag * cam_free + dc)
 
             if linear_solver == "dense_schur":
                 dc_step = dense_schur_solve(J, hpp_inv, cam_free, dc, -(
                     g_c - JTc(Jx(None, solve3(g_p))) * cam_free))
                 cg_k = torch.zeros((), dtype=torch.int64, device=device)
             else:
-                if use_block_precond:
-                    # SCHUR_JACOBI: exact-per-row 7x7 pose blocks of
-                    # S = B - E Hpp^-1 E^T; non-pose parameters stay scalar. A
-                    # second round over the shards: each row's E Hpp^-1 E^T reads
-                    # the summed Hpp
-                    block_parts = []
-                    for s, (fams, (jc, jp)) in enumerate(zip(shards, J)):
-                        fp, hi = on(free_pose, s), on(hpp_inv, s)
-                        blocks = torch.zeros((num_ref, 7, 7), dtype=dtype, device=devs[s])
-                        for f, a, b in zip(fams, jc, jp):
-                            if a is None:
-                                continue
-                            for sl, idx in ((slice(0, 7), f.beg_idx), (slice(7, 14), f.end_idx)):
-                                jb = a[:, :, sl] * fp[idx][:, None, :]              # [N,k,7]
-                                bb = torch.einsum("nki,nkj->nij", jb, jb)
-                                if b is not None:
-                                    E = torch.einsum("nki,nkm->nim", jb, b)         # [N,7,3]
-                                    bb = bb - torch.einsum("nim,nmq,njq->nij", E,
-                                                           hi[f.point_idx], E)
-                                blocks.index_add_(0, idx, bb)
-                        block_parts.append(blocks)
-                    blocks = mesh.sum(block_parts) + torch.diag_embed(
-                        dc[:num_ref * 7].reshape(num_ref, 7))
-                    pose_prec_inv = torch.linalg.inv(blocks)
-                    rest_precond = precond[num_ref * 7:]
-
-                    def precond_apply(v):
-                        vp = torch.einsum("rij,rj->ri", pose_prec_inv,
-                                          v[:num_ref * 7].reshape(num_ref, 7))
-                        return torch.cat([vp.reshape(-1), v[num_ref * 7:] * rest_precond])
-                else:
-                    def precond_apply(v):
-                        return precond * v
-
                 if linear_solver == "cg_blocks":
                     # S x, its right-hand side and the back-substitution's
                     # product: csrc/schur_mv.cu on the card, plain on the CPU
@@ -586,7 +483,10 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
                     # rhs = -(g_c - E Hpp^-1 g_p)
                     rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
-                dc_step, cg_k = pcg(schur_mv, precond_apply, rhs)
+                # the CG's steps: csrc/cg_step.cu on the card, the plain loop on the CPU
+                dc_step, cg_k = cg.pcg(schur_mv, cg.Preconditioner(asm.precond, asm.pose_inv),
+                                       rhs, cg_iterations, cg_tolerance, CG_CHECK_EVERY,
+                                       debug_force_cg)
 
             # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
             if linear_solver == "cg_blocks":
@@ -629,8 +529,10 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             lam = lam_new
             cg_total = cg_total + cg_k
             iterations += 1
-            if not debug_unroll_lm and bool(done):      # the one host sync of an LM iteration
-                break
+            if not debug_unroll_lm and assembly.stop_test(done, singular):
+                break                                   # the one host sync of an LM iteration
+        if debug_unroll_lm:
+            assembly.stop_test(done, singular)          # raises on a singular block
 
         return SchurLMResult(cam, points, cost, c0, iterations, lam, cg_total, matvecs)
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -227,16 +228,7 @@ def _lib():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, dev):
-    if t.dtype != dtype:
-        raise TypeError(f"schur_mv kernel: {name} is {t.dtype}, expected {dtype}")
-    if t.device != dev:
-        raise ValueError(f"schur_mv kernel: {name} lies on {t.device}, expected {dev}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"schur_mv kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"schur_mv kernel: {name} is not contiguous")
+_check = functools.partial(cuda_build.check_tensor, "schur_mv kernel")
 
 
 def _shard_plan(system: SchurSystem, s: int) -> _ShardPlan:

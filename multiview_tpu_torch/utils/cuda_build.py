@@ -87,3 +87,16 @@ def load_library(source_name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(source_name)))
     _libs[source_name] = lib
     return lib
+
+
+def check_tensor(kernel: str, name: str, t, shape, dtype, dev) -> None:
+    """Raises where tensor ``t`` is not what ``kernel`` takes: another dtype
+    (TypeError), device, shape or a non-contiguous layout (ValueError)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {dtype}")
+    if t.device != dev:
+        raise ValueError(f"{kernel}: {name} lies on {t.device}, expected {dev}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} is not contiguous")

@@ -25,11 +25,14 @@ its device time, serialised (a traced solve is slower than an untraced
 one, both are printed). The parts are found in the function's source by
 the statements that begin them, so the same split runs on an older
 checkout: the row blocks (``blocks_at``, once before the loop and once an
-iteration), the gradient J^T r, the Hpp and Jacobi-diagonal assembly, ``inv3x3_spd``, the
-SCHUR_JACOBI blocks and their ``torch.linalg.inv``, the CG's set-up (the
-Schur system and its right-hand side), the CG, the back-substitution, and
-the LM bookkeeping (every other line). Medians over ``--reps`` traced
-solves, in ms a solve and a LM iteration.
+iteration), the assembly (since ``solver/assembly.py``: one call for the
+gradient, Hpp, the Jacobi diagonal, Hpp^-1 and the SCHUR_JACOBI inverses;
+before it the gradient J^T r, the Hpp and Jacobi-diagonal assembly,
+``inv3x3_spd``, the SCHUR_JACOBI blocks and their ``torch.linalg.inv``, each
+a part of its own), the CG's set-up (the Schur system and its right-hand
+side), the CG (``cg.pcg`` since ``solver/cg.py``, the closure ``pcg``
+before), the back-substitution, and the LM bookkeeping (every other line).
+Medians over ``--reps`` traced solves, in ms a solve and a LM iteration.
 
     python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4] [--split]
 
@@ -52,15 +55,17 @@ from pathlib import Path
 # (the statement that begins a part of the LM loop, the part); a part ends
 # where the next begins; "until" parts end after the named statement
 PARTS = [("blocks_at(", "row blocks (blocks_at)"),
+         ("assembly.assemble(", "assembly (solver/assembly.py)"),
          ("gc_raw, g_p = JTc(r), JTp(r)", "gradient (J^T r)"),
          ("hpp_parts, diag_parts", "Hpp and Jacobi diagonal"),
          ("inv3x3_spd(", "inv3x3_spd"),
          ("if use_block_precond:", "SCHUR_JACOBI blocks"),
          ("torch.linalg.inv(", "SCHUR_JACOBI torch.linalg.inv"),
          ("smv.SchurSystem(", "CG set-up"), ("smv.schur_rhs(", "CG set-up"),
-         ("= pcg(", "CG"), ("= dense_schur_solve(", "CG"),
+         ("= pcg(", "CG"), ("= cg.pcg(", "CG"), ("= dense_schur_solve(", "CG"),
          ("row_products(", "back-substitution")]
-ONE_LINE = {"row blocks (blocks_at)", "gradient (J^T r)", "inv3x3_spd",
+ONE_LINE = {"row blocks (blocks_at)", "assembly (solver/assembly.py)", "gradient (J^T r)",
+            "inv3x3_spd",
             "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution"}
 BOOKKEEPING = "LM bookkeeping"
 

@@ -744,3 +744,253 @@ def test_cg_blocks_solve_on_the_card_follows_the_cpu(cuda_device, monkeypatch):
     (cpu, cpu_cam), (card, card_cam) = out["cpu"], out["cuda"]
     torch.testing.assert_close(card.cost.cpu().double(), cpu.cost, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(card_cam, cpu_cam, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# The assembly (csrc/lm_assembly.cu) and the CG step (csrc/cg_step.cu) against
+# their plain versions in float64 on the same inputs, on the card: |kernel -
+# plain| <= tol * max |plain| for each output, tol 1e-4 with float32 tensors
+# and 1e-10 with float64 ones (the kernels compute in float64 and round their
+# outputs; atomics and the plain path sum in different orders)
+# ----------------------------------------------------------------------------
+
+
+def _in64(x):
+    """Tensors (in lists, tuples, NamedTuples) in float64; the rest as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_in64(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_in64(v) for v in x)
+    return x
+
+
+def _assembly_inputs(system, seed=1, lam=1e-3):
+    """(mesh, shards, J, r, cam_free, lam, num_ref, num_points) of a
+    ``_schur_system``: residuals drawn per shard."""
+    g = torch.Generator(device=system.cam_free.device).manual_seed(seed)
+    r = []
+    for jc, jp in system.J:
+        n = sum((b if a is None else a).shape[0] * (b if a is None else a).shape[1]
+                for a, b in zip(jc, jp))
+        r.append(torch.randn(n, generator=g, dtype=system.cam_free.dtype,
+                             device=system.cam_free.device))
+    lam = torch.tensor(lam, dtype=system.cam_free.dtype, device=system.cam_free.device)
+    return (system.mesh, system.shards, system.J, r, system.cam_free, lam, system.num_ref,
+            system.num_points)
+
+
+def _assembly_close(got, ref, dtype, label=""):
+    for name, g, r in zip(got._fields, got, ref):
+        assert (g is None) == (r is None), (label, name)
+        if r is None:
+            continue
+        assert g.shape == r.shape and g.dtype == dtype and torch.isfinite(g).all(), (label, name)
+        err = float((g.double() - r).abs().max())
+        assert err <= _SCHUR_TOL[dtype] * float(r.abs().max()), (label, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block_precond", [False, True])
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("order", ["frame", "track", "unsorted"])
+def test_assembly_kernel_matches_plain_version(cuda_device, order, shards, block_precond, dtype):
+    """Every output (g_c, g_p, Hpp, the Jacobi diagonal, pt_diag, Hpp^-1, dc,
+    the preconditioner, the 7x7 inverses): one launch on one shard; a rows
+    and a blocks launch a shard, a points and a poses launch with two."""
+    from multiview_tpu_torch.solver import assembly as asm
+    system, _ = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], order,
+                              shards=shards)
+    args = _assembly_inputs(system)
+    flag = asm.new_flag(cuda_device)
+    before = asm.LAUNCHES
+    got = asm.assemble(*args, block_precond, flag)
+    torch.cuda.synchronize()
+    launches = 1 if shards == 1 else (shards + 1) * (2 if block_precond else 1)
+    assert asm.LAUNCHES == before + launches and int(flag) == 0
+    _assembly_close(got, asm.assemble_plain(*_in64(args), block_precond), dtype)
+    # without the residuals: no gradient, the rest the same
+    nograd = asm.assemble_cuda(*args[:3], None, *args[4:], block_precond)
+    assert nograd.g_c is None and nograd.g_p is None
+    _assembly_close(nograd, asm.assemble_plain(*_in64(args[:3]), None, *_in64(args[4:]),
+                                               block_precond), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_assembly_kernel_with_a_frozen_pose_and_many_poses(cuda_device, dtype):
+    """A frozen pose (its 7x7 block is diag(dc) = I), then 8000 poses: more
+    than the per-warp copies in shared memory hold, so the sums take global
+    atomics."""
+    import dataclasses
+    from multiview_tpu_torch.solver import assembly as asm
+    system, _ = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], "track")
+    cam_free = system.cam_free.clone()
+    cam_free[7 * 3:7 * 4] = 0.0
+    args = _assembly_inputs(dataclasses.replace(system, cam_free=cam_free))
+    asm.RECORD_LAUNCH = True
+    try:
+        got = asm.assemble(*args, True)
+        torch.cuda.synchronize()
+        record = dict(asm.LAST_LAUNCH)
+    finally:
+        asm.RECORD_LAUNCH = False
+    assert record["camera_copies"] == 1 and record["block_copies"] == 1
+    torch.testing.assert_close(got.pose_inv[3].double(), torch.eye(7, dtype=torch.float64,
+                                                                   device=cuda_device))
+    _assembly_close(got, asm.assemble_plain(*_in64(args), True), dtype)
+    system, _ = _schur_system(cuda_device, dtype, [(20000, 2, 29, True), (5000, 3, 30, True)],
+                              "unsorted", num_ref=8000, num_points=3000)
+    args = _assembly_inputs(system)
+    asm.RECORD_LAUNCH = True
+    try:
+        got = asm.assemble(*args, True)
+        torch.cuda.synchronize()
+        record = dict(asm.LAST_LAUNCH)
+    finally:
+        asm.RECORD_LAUNCH = False
+    assert record["camera_copies"] == 0 and record["block_copies"] == 0
+    _assembly_close(got, asm.assemble_plain(*_in64(args), True), dtype)
+
+
+@pytest.mark.cuda
+def test_assembly_kernel_flags_a_singular_block_and_refuses_what_it_does_not_take(cuda_device):
+    """lam = 0 and a free pose no row touches: its 7x7 block is 0. The plain
+    version's torch.linalg.inv raises; the kernel sets the flag, and the LM
+    loop's stop test raises on it. A CPU residual, another dtype: raised."""
+    import dataclasses
+    from multiview_tpu_torch.solver import assembly as asm
+    system, _ = _schur_system(cuda_device, torch.float64, _SCHUR_CASES["rig_families"],
+                              "unsorted")
+    fams = [f if f.beg_idx is None else
+            type(f)(**{**vars(f), "beg_idx": f.beg_idx.clamp_min(1),
+                       "end_idx": f.end_idx.clamp_min(1)})
+            for f in system.shards[0]]
+    cam_free = system.cam_free.clone()
+    cam_free[:7] = 1.0
+    system = dataclasses.replace(system, shards=[fams], cam_free=cam_free)
+    args = list(_assembly_inputs(system, lam=0.0))
+    with pytest.raises(torch.linalg.LinAlgError):
+        asm.assemble_plain(*args, True)
+    flag = asm.new_flag(cuda_device)
+    asm.assemble(*args, True, flag)
+    done = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    assert int(flag) == 1
+    with pytest.raises(torch.linalg.LinAlgError):
+        asm.stop_test(done, flag)
+    assert asm.stop_test(done | True, asm.new_flag(cuda_device)) is True
+    bad = list(args)
+    bad[3] = [args[3][0].cpu()]
+    with pytest.raises(ValueError):
+        asm.assemble_cuda(*bad, False)
+    with pytest.raises(TypeError):
+        asm.assemble_cuda(*args[:4], args[4].float(), *args[5:], False)
+
+
+def _cg_problem(dev, dtype, n_poses=12, n_rest=40, seed=0):
+    """A random SPD system S [C, C] (C = 7 n_poses + n_rest), its right-hand
+    side, and both preconditioners from its diagonal and 7x7 blocks."""
+    import numpy as np
+    from multiview_tpu_torch.solver import cg
+    g = np.random.default_rng(seed)
+    C = 7 * n_poses + n_rest
+    a = g.normal(size=(C, C)) / np.sqrt(C)
+    S = a @ a.T + np.diag(g.uniform(0.5, 2.0, C))
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)    # noqa: E731
+    blocks = np.stack([np.linalg.inv(S[7 * i:7 * i + 7, 7 * i:7 * i + 7])
+                       for i in range(n_poses)])
+    precond = 1.0 / np.diag(S)
+    return (t(S), t(g.normal(size=C)), cg.Preconditioner(t(precond)),
+            cg.Preconditioner(t(precond), t(blocks)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["jacobi", "schur_jacobi"])
+def test_cg_step_kernel_matches_the_plain_loop(cuda_device, which, dtype):
+    """30 forced steps (10 in float32, where the lost orthogonality of CG
+    itself grows past 1e-4 of max |x|) and a solve to 1e-6 with the stop test
+    read every 2 steps: one start launch and one launch a step; the same x
+    and CG count as the plain loop in float64."""
+    from multiview_tpu_torch.solver import cg
+    S, rhs, jac, blk = _cg_problem(cuda_device, dtype)
+    M = jac if which == "jacobi" else blk
+    S64, rhs64, M64 = S.double(), rhs.double(), _in64(M)
+    forced = 10 if dtype == torch.float32 else 30
+    before = cg.LAUNCHES
+    x, k = cg.pcg(lambda v: S @ v, M, rhs, 60, 1e-8, 2, force=forced)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 1 + forced and int(k) == forced
+    ref, _ = cg.pcg_plain(lambda v: S64 @ v, M64, rhs64, 60, 1e-8, 2, force=forced)
+    _schur_close(x.double(), ref, dtype)
+    steps = []
+    before = cg.LAUNCHES
+    x, k = cg.pcg(lambda v: steps.append(1) or S @ v, M, rhs, 200, 1e-3, 2)
+    ref, k_ref = cg.pcg_plain(lambda v: S64 @ v, M64, rhs64, 200, 1e-3, 2)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 1 + len(steps)
+    assert int(k) == int(k_ref) and int(k) <= len(steps) <= int(k) + 1 < 200
+    _schur_close(x.double(), ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_step_kernel_on_a_schur_system(cuda_device, dtype):
+    """The CG of a ``_schur_system`` with its assembly: the kernels' matvec
+    and steps against the plain matvec and loop in float64, 10 forced steps,
+    SCHUR_JACOBI; the kernel's bits the same in two runs (its dots take a
+    fixed order)."""
+    from multiview_tpu_torch.solver import assembly as asm, cg, schur_matvec as smv
+    system, _ = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], "track")
+    args = _assembly_inputs(system)
+    a = asm.assemble(*args, True)
+    sys_k = smv.SchurSystem(system.mesh, system.shards, system.J, system.cam_free, a.dc,
+                            a.hpp_inv, system.num_ref)
+    sys_p = smv.SchurSystem(system.mesh, system.shards, _in64(system.J),
+                            system.cam_free.double(), a.dc.double(), a.hpp_inv.double(),
+                            system.num_ref)
+    M = cg.Preconditioner(a.precond, a.pose_inv)
+    rhs = smv.schur_rhs(sys_k, a.g_c, a.g_p)
+    x, _ = cg.pcg_cuda(lambda v: smv.schur_matvec(sys_k, v), M, rhs, 10, 1e-8, 2, force=10)
+    ref, _ = cg.pcg_plain(lambda v: smv.schur_matvec_plain(sys_p, v), _in64(M), rhs.double(),
+                          10, 1e-8, 2, force=10)
+    _schur_close(x.double(), ref, dtype)
+    # the same inputs, the same bits: the CG's matvec held fixed
+    Ap = smv.schur_matvec_plain(sys_k, rhs)
+    runs = []
+    for _ in range(2):
+        state = cg.CudaCG(M, rhs, 1e-8)
+        state.start()
+        for _ in range(5):
+            state.step(Ap, forced=True)
+        runs.append((state.x.clone(), state.p.clone(), state.state.clone()))
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cg_blocks", "cg", "cg_dense_j", "dense_schur"])
+def test_every_mode_runs_the_assembly_and_cg_kernels(cuda_device, mode):
+    """A solve on the card: one assembly launch an LM iteration (one shard),
+    one CG start an LM iteration and one CG launch a matvec (none in
+    dense_schur); SCHUR_JACOBI at cg_tolerance 1e-3."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import assembly as asm, cg, schur
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
+                                device=cuda_device)
+    state0 = syn.perturb_state(scene.true_state)
+    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
+                           include_points=False)
+    before = (asm.LAUNCHES, cg.LAUNCHES)
+    res = schur.make_schur_solver(state0, scene.observations, scene.models,
+                                  prob.BAOptions(no_rig=True), mask, max_iterations=6,
+                                  cg_iterations=40, cg_tolerance=1e-3, linear_solver=mode)(
+        prob.pack_state(state0, include_points=False), state0.points)
+    torch.cuda.synchronize()
+    assert asm.LAUNCHES - before[0] == res.iterations
+    cg_launches = 0 if mode == "dense_schur" else res.matvecs + res.iterations
+    assert cg.LAUNCHES - before[1] == cg_launches
+    assert float(res.cost) < float(res.initial_cost)
