@@ -10,11 +10,13 @@ Phases (each raises on failure; the script then exits non-zero without
 printing a result):
 
 0. set-up: require CUDA, print versions and the card, build the two matcher
-   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu), the Schur matvec kernel
-   (csrc/schur_mv.cu), the row blocks kernel (csrc/row_blocks.cu), the
-   assembly kernel (csrc/lm_assembly.cu) and the CG step kernel
-   (csrc/cg_step.cu) for sm_90a, one nvcc each, started together, and the
-   track builder's host library (native/mv_native.cpp) with g++;
+   kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu), the Schur matvec kernel and
+   the one-launch CG solve (csrc/schur_mv.cu), the row blocks kernel
+   (csrc/row_blocks.cu), the assembly kernel (csrc/lm_assembly.cu) and the
+   CG step kernel (csrc/cg_step.cu) for sm_90a, one nvcc each, started
+   together (the local headers csrc/cg_step.cuh and csrc/row_tiles.cuh are
+   compiled into the sources that include them), and the track builder's
+   host library (native/mv_native.cpp) with g++;
 1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
    D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
    FP32 oracle, for wider D) against ``knn2_plain``,
@@ -39,10 +41,12 @@ printing a result):
 3. Schur-LM bundle adjustment at the bench's size (cube scene 160 images x
    20x20 points per face, about 384k observations, float32, 10 LM x 30 CG
    at cg_tolerance 0.1): finite, decreasing cost, LM iterations per second,
-   the CG count and the matvecs run (CG stops at the reference's test: at
-   most CG_CHECK_EVERY - 1 matvecs past it per LM iteration); then the same
-   solver with ``debug_force_cg=30`` (the whole budget, every step taken):
-   its rate and final cost;
+   the CG count and the matvecs run (CG stops at the reference's test, taken
+   on the device at every step of the one-launch solve: the matvecs equal
+   the CG count); a solve with every host sync between an LM iteration's
+   start and its stop test made an error; then the same solver with
+   ``debug_force_cg=30`` (the whole budget, every step taken): its rate and
+   final cost;
 3b. the four linear solvers of ``make_schur_solver`` on phase 3's problem
    and settings (``cg_blocks``, matrix-free ``cg``, ``cg_dense_j``,
    ``dense_schur``): LM it/s, LM and CG counts, matvecs, peak memory and
@@ -84,16 +88,28 @@ printing a result):
    (calibrate's four families, SCHUR_JACOBI): every output within
    SCHUR_RTOL of its max |plain| (ROW_RTOL_F64 with the tensors in float64),
    beside the plain float32 version's own error; the launches (one on one
-   shard) and the launch's shape; ms of the kernel, the plain version, both
-   from a CUDA graph where they can be captured, the bound and its share;
-3f. the CG step kernel (``solver/cg.py``, csrc/cg_step.cu) on the first CG
-   of phases 3 and 4: 30 forced steps with the matvec kernel against the
-   plain loop and plain matvec in float64, x within SCHUR_RTOL with the
-   tensors in float64; in float32 one step within SCHUR_RTOL and 30 within
-   CG_DRIFT times the plain float32 loop's own drift; the path's own
-   early-stopped CG count against the plain float64 loop's; ms a step of the
-   kernel, the plain step, both from a CUDA graph, the bound, and an empty
-   launch measured beside them (the step's practical floor);
+   shard) and the launch's shape (the warps' pose window, tile rows, slots,
+   the rows the blocks pass found in shared memory, the bytes of rows read),
+   each pass's time from the kernel's own %globaltimer stamps; ms of the
+   kernel through the solve's ``AssemblyPlan`` and without one, the plain
+   version, both from a CUDA graph where they can be captured, the bound
+   and its share, registers, spills and stack;
+3f. the one-launch CG solve (``solver/cg_solve.py``, cg_solve_kernel of
+   csrc/schur_mv.cu) on the first CG of phases 3 and 4: 30 forced steps
+   against the plain solve in float64, x within SCHUR_RTOL with the tensors
+   in float64; in float32 one step within SCHUR_RTOL and 30 within CG_DRIFT
+   times the plain float32 solve's own drift; one launch a solve, and none
+   of the matvec or the CG step kernel; the early-stopped CG count, in
+   float32 and float64, equal to the plain float64 loop's; ms a solve and a
+   step of the kernel, the per-step path (csrc/schur_mv.cu's matvecs and
+   csrc/cg_step.cu's steps), the plain solve eager and from a CUDA graph,
+   the kernel from a graph, the bound, the bytes of rows a step reads from
+   device memory, registers and spills; the per-step path (the sharded
+   paths') against the same plain solve, at the same bars, its early-stopped
+   count equal to the plain loop's; then the CG step kernel of the
+   per-step path: ms a step of the kernel, the plain
+   step, both from a CUDA graph, the bound, and an empty launch measured
+   beside them (the step's practical floor);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -383,41 +399,53 @@ def card_line() -> str:
     return out[0].strip()
 
 
-# launches of csrc/schur_mv.cu, csrc/row_blocks.cu, csrc/lm_assembly.cu and
-# csrc/cg_step.cu per path, each counted from 0 (schur_counted)
+# launches of csrc/schur_mv.cu (the matvec's schur_kernel; the CG solve's
+# cg_solve_kernel), csrc/row_blocks.cu, csrc/lm_assembly.cu and csrc/cg_step.cu
+# per path, each counted from 0 (schur_counted)
 SCHUR_PATHS = {}
+SOLVE_PATHS = {}
 ROW_PATHS = {}
 ASM_PATHS = {}
 CG_PATHS = {}
-# the first SchurSystem (and its x) of a path's BA, caught for phase 3c
-SCHUR_SYSTEMS = {}
 # the first call of each row-block family of a path's BA, caught for phase 3d
 ROW_CALLS = {}
-# the arguments of the first assembly and the first CG of a path's BA, caught
-# for phases 3e-3f
+# the arguments of the first assembly and the first CG solve of a path's BA
+# (one shard: ``cg_solve.solve``), caught for phases 3c-3f
 ASM_CALLS = {}
-CG_CALLS = {}
+SOLVE_CALLS = {}
+# the kernels each kind of BA path launches besides the row blocks and the
+# assembly: "solve" one shard of cg_blocks (one cg_solve_kernel launch an LM
+# iteration, no matvec or CG step launch of its own), "sharded" cg_blocks on
+# several shards (the matvec's passes and a CG step launch a step), "steps"
+# the linear solvers cg and cg_dense_j (a CG step launch a step),
+# "dense" dense_schur (no CG)
+PATH_KERNELS = {"solve": {"cg_solve"}, "sharded": {"schur_mv", "cg_step"},
+                "steps": {"cg_step"}, "dense": set()}
 
 
 @contextlib.contextmanager
-def schur_counted(tag, matvec: bool = True, cg_steps: bool = True):
-    """Sets the counts of the BA's four kernels to 0 just before a BA path
-    and reads them just after; the path must have launched the row blocks
-    kernel, the assembly kernel, (with ``matvec``: the ``cg_blocks`` paths)
-    the matvec kernel and (with ``cg_steps``: every mode but
-    ``dense_schur``) the CG step kernel."""
-    from multiview_tpu_torch.solver import (assembly as asm, cg, row_blocks as rb,
+def schur_counted(tag, path: str = "solve"):
+    """Sets the counts of the BA's kernels to 0 just before a BA path and
+    reads them just after: the path must have launched the row blocks
+    kernel, the assembly kernel and the kernels of its kind
+    (``PATH_KERNELS``), and no other; on a "solve" path one CG solve launch
+    an assembly launch (one each an LM iteration)."""
+    from multiview_tpu_torch.solver import (assembly as asm, cg, cg_solve, row_blocks as rb,
                                             schur_matvec as smv)
-    smv.LAUNCHES = rb.LAUNCHES = asm.LAUNCHES = cg.LAUNCHES = 0
+    smv.LAUNCHES = rb.LAUNCHES = asm.LAUNCHES = cg.LAUNCHES = cg_solve.LAUNCHES = 0
     yield
-    for paths, mod, source, required in ((SCHUR_PATHS, smv, "schur_mv.cu", matvec),
-                                         (ROW_PATHS, rb, "row_blocks.cu", True),
-                                         (ASM_PATHS, asm, "lm_assembly.cu", True),
-                                         (CG_PATHS, cg, "cg_step.cu", cg_steps)):
-        if required:
+    wanted = PATH_KERNELS[path] | {"row_blocks", "lm_assembly"}
+    for name, paths, mod in (("schur_mv", SCHUR_PATHS, smv), ("cg_solve", SOLVE_PATHS, cg_solve),
+                             ("row_blocks", ROW_PATHS, rb), ("lm_assembly", ASM_PATHS, asm),
+                             ("cg_step", CG_PATHS, cg)):
+        if name in wanted:
             paths[tag] = mod.LAUNCHES
-            if mod.LAUNCHES <= 0:
-                raise AssertionError(f"{tag}: the BA launched csrc/{source} no time")
+        if (mod.LAUNCHES > 0) != (name in wanted):
+            raise AssertionError(f"{tag} ({path}): the BA launched the {name} kernel "
+                                 f"{mod.LAUNCHES} times")
+    if path == "solve" and cg_solve.LAUNCHES != asm.LAUNCHES:
+        raise AssertionError(f"{tag}: {cg_solve.LAUNCHES} CG solve launches for "
+                             f"{asm.LAUNCHES} LM iterations")
 
 
 @contextlib.contextmanager
@@ -447,44 +475,70 @@ def first_row_blocks(key):
             setattr(schur, n, originals[n])
 
 
-@contextlib.contextmanager
-def first_schur_system(key):
-    """Keeps the first (system, x) the path hands ``schur_matvec``."""
+def kept(x):
+    """``x`` with every tensor in it cloned (in lists, tuples, NamedTuples and
+    a ``SchurSystem``, whose kernel tables are then made anew): the
+    assembly's outputs, which a solve's CG reads, are overwritten by its next
+    LM iteration."""
+    import dataclasses
+    import torch
     from multiview_tpu_torch.solver import schur_matvec as smv
-    original = smv.schur_matvec
-
-    def spy(system, x):
-        # the CG kernel updates its p in place: keep this one's values
-        SCHUR_SYSTEMS.setdefault(key, (system, x.clone()))
-        return original(system, x)
-
-    smv.schur_matvec = spy
-    try:
-        yield
-    finally:
-        smv.schur_matvec = original
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(kept(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(kept(v) for v in x)
+    if isinstance(x, smv.SchurSystem):
+        return dataclasses.replace(x, J=kept(x.J), cam_free=kept(x.cam_free), dc=kept(x.dc),
+                                   hpp_inv=kept(x.hpp_inv), _plans=None)
+    return x
 
 
 @contextlib.contextmanager
 def first_assembly_and_cg(key):
     """Keeps the arguments of the first ``assembly.assemble`` and the first
-    ``cg.pcg`` the path's BA calls."""
-    from multiview_tpu_torch.solver import assembly as asm, cg
-    originals = (asm.assemble, cg.pcg)
+    ``cg_solve.solve`` the path's BA calls (their tensors cloned: ``kept``)."""
+    from multiview_tpu_torch.solver import assembly as asm, cg_solve
+    originals = (asm.assemble, cg_solve.solve)
 
-    def spy_asm(*args):
-        ASM_CALLS.setdefault(key, args)
-        return originals[0](*args)
+    def spy(calls, i):
+        def fn(*args):
+            if key not in calls:
+                calls[key] = kept(args)
+            return originals[i](*args)
+        return fn
 
-    def spy_cg(*args):
-        CG_CALLS.setdefault(key, args)
-        return originals[1](*args)
-
-    asm.assemble, cg.pcg = spy_asm, spy_cg
+    asm.assemble, cg_solve.solve = spy(ASM_CALLS, 0), spy(SOLVE_CALLS, 1)
     try:
         yield
     finally:
-        asm.assemble, cg.pcg = originals
+        asm.assemble, cg_solve.solve = originals
+
+
+@contextlib.contextmanager
+def no_sync_inside_lm(torch):
+    """Makes every host sync raise (``torch.cuda.set_sync_debug_mode``) from
+    the start of each LM iteration's assembly to its stop test, which reads
+    ``done``, the singular flag and the CG solves' matvecs in the loop's one
+    sync."""
+    from multiview_tpu_torch.solver import assembly as asm
+    originals = (asm.assemble, asm.stop_test)
+
+    def assemble(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        return originals[0](*args)
+
+    def stop_test(*args):
+        torch.cuda.set_sync_debug_mode(0)
+        return originals[1](*args)
+
+    asm.assemble, asm.stop_test = assemble, stop_test
+    try:
+        yield
+    finally:
+        asm.assemble, asm.stop_test = originals
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def descriptors(gen, p, n, d, device):
@@ -676,7 +730,8 @@ def run_calibrate(torch, mm, tag, ws: Path, out: Path, extra, every_pass: bool =
     mm.WGMMA_LAUNCHES = mm.FMA_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with schur_counted(tag), ba_counts() as ba, contextlib.redirect_stdout(tee):
+    with schur_counted(tag, "solve" if mesh is None else "sharded"), ba_counts() as ba, \
+            contextlib.redirect_stdout(tee):
         ret = cli(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -840,7 +895,7 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     triangulated points, depth_to_image and its scale floated from a guess
     that is off the truth. On one card ``--sharded`` shards nothing, as the
     reference's does on one chip."""
-    with first_schur_system("rig"), first_row_blocks("rig"), first_assembly_and_cg("rig"):
+    with first_row_blocks("rig"), first_assembly_and_cg("rig"):
         run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
                                    rig_true, ["--sharded"])
     sharded = "Sharded observations" in run["text"]
@@ -1039,28 +1094,30 @@ def phase3(torch, card):
     CG, then the whole budget forced. Returns the problem and both solves for
     phase 3b."""
     from multiview_tpu_torch.calib import problem as prob
-    from multiview_tpu_torch.solver import schur
 
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    with schur_counted("phase 3"), first_schur_system("cube"), first_row_blocks("cube"), \
-            first_assembly_and_cg("cube"):
+    with schur_counted("phase 3"), first_row_blocks("cube"), first_assembly_and_cg("cube"):
         res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
         forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
                                                   state0.points)
+    # no host sync between an LM iteration's start and its stop test
+    with no_sync_inside_lm(torch):
+        guarded = solver()(cam0, state0.points)
+    torch.cuda.synchronize()
     c0, c1 = float(res.initial_cost), float(res.cost)
-    slack = (schur.CG_CHECK_EVERY - 1) * res.iterations
     print(f"[phase3] cube 160x20: {n_obs} observations; CG stopped at cg_tolerance "
-          f"{BA_SETTINGS['cg_tolerance']} (checked on the host every "
-          f"{schur.CG_CHECK_EVERY} iterations): {ba_line(res, wall)}, solve times "
+          f"{BA_SETTINGS['cg_tolerance']} (tested on the device at every step, one launch "
+          f"a CG solve): {ba_line(res, wall)}; with every host sync inside an LM iteration "
+          f"made an error: {guarded.iterations} LM, {int(guarded.cg_iters_total)} CG; solve times "
           f"{[round(t, 4) for t in times]} s; debug_force_cg=30 (the whole budget): "
           f"{ba_line(forced, wall_f)}, solve times {[round(t, 4) for t in times_f]} s; "
           f"early stop / forced rate {wall_f / wall:.3f}x; final costs "
           f"{c1:.7g} / {float(forced.cost):.7g} [{card}]", flush=True)
     if not (c1 == c1 and c1 < c0):
         raise AssertionError(f"phase 3 cost not finite and decreasing: {c0} -> {c1}")
-    if not res.matvecs <= int(res.cg_iters_total) + slack:
+    if not res.matvecs == int(res.cg_iters_total):
         raise AssertionError(f"phase 3: {res.matvecs} matvecs run for {int(res.cg_iters_total)} "
                              f"CG iterations in {res.iterations} LM iterations")
     if not (forced.matvecs == int(forced.cg_iters_total) == 30 * forced.iterations):
@@ -1076,7 +1133,7 @@ def phase3b(torch, card, p3):
     cam0 = prob.pack_state(state0, include_points=False)
     for mode in ("cg_blocks", "cg", "cg_dense_j", "dense_schur"):
         with schur_counted("phase 3b" if mode == "cg_blocks" else f"phase 3b ({mode})",
-                           matvec=mode == "cg_blocks", cg_steps=mode != "dense_schur"):
+                           {"cg_blocks": "solve", "dense_schur": "dense"}.get(mode, "steps")):
             res, wall, times, peak = timed_solves(torch, solver(linear_solver=mode), cam0,
                                                   state0.points, reps=2)
         # dense_schur solves each step exactly: its trajectory is the one of
@@ -1094,11 +1151,11 @@ def phase3b(torch, card, p3):
             raise AssertionError("phase 3b: dense_schur ran CG")
 
 
-def schur_bound(system):
-    """(bound ms, "bytes" | "operations") of one S x: every input read once
-    (the camera and point blocks of the families with a camera block, their
-    int64 indices, x, cam_free, dc, Hpp^-1), the output written once, over
-    the memory rate; its multiply-adds over the FP32 rate."""
+def schur_work(system):
+    """(bytes, operations) of one S x: every input read once (the camera and
+    point blocks of the families with a camera block, their int64 indices,
+    x, cam_free, dc, Hpp^-1) and the output written once; its
+    multiply-adds."""
     item = system.cam_free.element_size()
     nbytes = item * (4 * system.total + 9 * system.num_points)
     flop = 18 * system.num_points + 3 * system.total
@@ -1112,6 +1169,13 @@ def schur_bound(system):
             if b is not None:
                 nbytes += item * b.numel() + 8 * n
                 flop += 12 * n * k
+    return nbytes, flop
+
+
+def schur_bound(system):
+    """(bound ms, "bytes" | "operations") of one S x: ``schur_work``'s
+    bytes over the memory rate, its operations over the FP32 rate."""
+    nbytes, flop = schur_work(system)
     t_bytes, t_ops = nbytes / MEM_PEAK, flop / FP32_CORES_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1178,8 +1242,9 @@ def phase3c(torch, card):
 
     out = {}
     for label in ("cube", "rig"):
-        system, x = SCHUR_SYSTEMS[label]
-        x = x.clone()
+        # the first system the path's CG solved, x its first search direction
+        system, g_c, g_p, M = SOLVE_CALLS[label][:4]
+        x = M.apply(smv.schur_rhs_plain(system, g_c, g_p))
         fams = [(tuple(a.shape), b is not None) for a, b in zip(*system.J[0]) if a is not None]
         before, smv.RECORD_LAUNCH = smv.LAUNCHES, True
         try:
@@ -1251,8 +1316,8 @@ def phase3c(torch, card):
 
 
 def ptxas_report(source: str):
-    """{mangled kernel: (registers, spill store bytes, spill load bytes)} from
-    this process's nvcc -Xptxas -v report of ``source``."""
+    """{mangled kernel: (registers, spill store bytes, spill load bytes, stack
+    frame bytes)} from this process's nvcc -Xptxas -v report of ``source``."""
     from multiview_tpu_torch.utils import cuda_build
     text = cuda_build.build_reports.get(source, (0.0, ""))[1]
     out, cur = {}, None
@@ -1260,11 +1325,12 @@ def ptxas_report(source: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = m.group(1)
-            out[cur] = [None, None, None]
+            out[cur] = [None, None, None, None]
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
         if m and cur:
-            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+            out[cur][1:] = [int(m.group(2)), int(m.group(3)), int(m.group(1))]
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             out[cur][0] = int(m.group(1))
@@ -1432,7 +1498,7 @@ def phase3d(torch, card):
                "max_abs_err": err, "rel": rel, "rel_float64": rel64,
                "plain_float32_rel": plain_own, "rel_to_plain_float32": against_f32,
                "library_ms": None,
-               "registers_spill_stores_loads": found[0] if found else None}
+               "registers_spills_stack": found[0] if found else None}
         plain_graph = (f"plain from a CUDA graph {rec['plain_graph_ms']:.4f}"
                        if rec["plain_graph_ms"] is not None else "plain not graphed")
         fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())   # noqa: E731
@@ -1443,7 +1509,7 @@ def phase3d(torch, card):
               f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, {plain_graph}, kernel from a "
               f"CUDA graph {rec['kernel_graph_ms']:.4f}{graph_note}; bound {bound_ms:.4f} ms "
               f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP), share "
-              f"{bound_ms / rec['ms']:.4f}; registers, spill stores and loads (bytes) of "
+              f"{bound_ms / rec['ms']:.4f}; registers, spill stores and loads, stack (bytes) of "
               f"{symbol}: {found[0] if found else 'not in the build report'} [{card}]",
               flush=True)
         if not (all(v <= SCHUR_RTOL for v in rel.values())
@@ -1468,7 +1534,7 @@ def phase3d(torch, card):
         print(f"[phase3d] planted rows, {dtype}: worst max |diff| / max |plain in float64| by "
               f"case {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} (bar {tol}) "
               f"[{card}]", flush=True)
-    print(f"[phase3d] ptxas (registers, spill stores, spill loads) of every kernel of "
+    print(f"[phase3d] ptxas (registers, spill stores, spill loads, stack) of every kernel of "
           f"csrc/row_blocks.cu: {json.dumps(regs)}", flush=True)
     return out
 
@@ -1520,6 +1586,25 @@ def assembly_bound(args):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+def pass_times_us(marks, grid: int, passes: int):
+    """{pass: us} from the assembly kernel's %globaltimer stamps (a row a
+    block: its start, the end of each pass it ran): the launch's spread of
+    block starts, then each pass from the last block to leave the one
+    before to the last block to leave it (the grid barrier between them
+    included)."""
+    m = marks[:grid].cpu()
+    names = [n for bit, n in ((1, "rows"), (2, "points"), (4, "blocks"), (8, "poses"))
+             if passes & bit]
+    cols = [c for bit, c in ((1, 1), (2, 2), (4, 3), (8, 4)) if passes & bit]
+    out = {"block_start_spread": (int(m[:, 0].max()) - int(m[:, 0].min())) / 1e3}
+    last = int(m[:, 0].min())
+    for n, c in zip(names, cols):
+        end = int(m[:, c].max())
+        out[n] = (end - last) / 1e3
+        last = end
+    return out
+
+
 def phase3e(torch, card):
     """The assembly kernel (csrc/lm_assembly.cu) against its plain version on
     the first assembly of phase 3's solve (the benchmark's cube, 384000 rows,
@@ -1530,27 +1615,36 @@ def phase3e(torch, card):
     inverses) within SCHUR_RTOL of its max |plain| with the path's float32
     tensors and ROW_RTOL_F64 with them in float64, beside the plain float32
     version's own error. Per assembly: the launches (one on one shard), the
-    launch's shape, ms of the kernel, the plain version, the plain version
-    from a CUDA graph (or why it was not captured) and the kernel from a
-    graph (or why not), the bound (``assembly_bound``) and its share. Returns
-    the records by system."""
+    launch's shape (the warps' pose window, rows a tile, slots, the rows the
+    blocks pass found in shared memory, the bytes of rows read from device
+    memory), each pass's time from the kernel's own %globaltimer stamps, ms
+    of the kernel through an ``AssemblyPlan`` (the LM loop's call: the table
+    refreshed, the buffers reused) and without one (table and buffers built
+    by the call), the plain version, both from a CUDA graph where they can be
+    captured, the bound (``assembly_bound``) and its share, the kernel's
+    registers, spills and stack. Returns the records by system."""
     from multiview_tpu_torch.solver import assembly as asm
 
+    regs = {k: v for k, v in ptxas_report("lm_assembly.cu").items() if "assembly_kernel" in k}
     out = {}
     for label in ("cube", "rig"):
         args = ASM_CALLS[label][:9]
         mesh, shards, J, r, cam_free, lam, num_ref, num_points, block = args
         args64 = tuple(in64(torch, a) for a in args)
-        before, asm.RECORD_LAUNCH = asm.LAUNCHES, True
+        for _ in range(3):          # warm: the first launches load the module
+            asm.assemble_cuda(*args)
+        torch.cuda.synchronize()
+        before, asm.RECORD_LAUNCH, asm.RECORD_MARKS = asm.LAUNCHES, True, True
         try:
             got = asm.assemble_cuda(*args)
             torch.cuda.synchronize()
-            launch = dict(asm.LAST_LAUNCH)
+            launch, marks = dict(asm.LAST_LAUNCH), asm.LAST_MARKS
         finally:
-            asm.RECORD_LAUNCH = False
+            asm.RECORD_LAUNCH = asm.RECORD_MARKS = False
         launches = asm.LAUNCHES - before
         if mesh.size == 1 and launches != 1:
             raise AssertionError(f"phase 3e {label}: the assembly took {launches} launches")
+        passes_us = pass_times_us(marks, launch["grid"], launch["passes"])
         ref, ref32 = asm.assemble_plain(*args64), asm.assemble_plain(*args)
         got64 = asm.assemble_cuda(*args64)
         torch.cuda.synchronize()
@@ -1566,11 +1660,13 @@ def phase3e(torch, card):
         plain_own = {n: rel_err(getattr(ref32, n), getattr(ref, n)) for n in names}
         err = max(float((getattr(got, n).double() - getattr(ref, n)).abs().max())
                   for n in names)
-        runs = [("kernel", lambda: asm.assemble_cuda(*args)),
+        plan, plan_g = asm.AssemblyPlan(), asm.AssemblyPlan()
+        runs = [("kernel", lambda: plan(*args)),
+                ("kernel_unplanned", lambda: asm.assemble_cuda(*args)),
                 ("plain", lambda: asm.assemble_plain(*args))]
         notes = []
         for key, fn in (("plain_graph", lambda: asm.assemble_plain(*args)),
-                        ("kernel_graph", lambda: asm.assemble_cuda(*args))):
+                        ("kernel_graph", lambda: plan_g(*args))):
             try:
                 runs.append((key, graphed(torch, fn)))
             except Exception as e:      # a capture that fails is reported
@@ -1586,30 +1682,38 @@ def phase3e(torch, card):
                    for a, b in zip(jc, jp))
         fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())   # noqa: E731
         opt = lambda k: f"{times[k]:.4f}" if k in times else "not measured"   # noqa: E731
+        kg = times.get("kernel_graph")
         print(f"[phase3e] {label}: {mesh.size} shard(s), {len(shards[0])} families, {rows} "
               f"rows, {num_points} points, {cam_free.shape[0]} camera parameters, "
               f"{'SCHUR_JACOBI' if block else 'jacobi'}, {cam_free.dtype}: {launches} "
               f"launch(es), cooperative grid {launch['grid']} x {launch['threads']} threads, "
-              f"{launch['shared_bytes']} B of shared memory, per-warp copies of the camera "
-              f"sums {bool(launch['camera_copies'])} and of the pose blocks "
-              f"{bool(launch['block_copies'])}; max |diff| / max |plain in float64|: kernel "
-              f"{fmt(rel)} (in float64: {fmt(rel64)}); the plain version in float32 "
-              f"{fmt(plain_own)}; ms an assembly: kernel {times['kernel']:.4f}, plain "
+              f"{launch['shared_bytes']} B of shared memory, the warps' pose window "
+              f"{launch['window_poses']} of {num_ref}, {launch['tile_rows']} rows a tile, "
+              f"{launch['slots']} slots, {launch['resident_rows']} rows found in shared memory "
+              f"by the blocks pass, {launch['row_bytes_read'] / 1e6:.2f} MB of rows read from "
+              f"device memory; us a pass (%globaltimer): {fmt(passes_us)}; max |diff| / max "
+              f"|plain in float64|: kernel {fmt(rel)} (in float64: {fmt(rel64)}); the plain "
+              f"version in float32 {fmt(plain_own)}; ms an assembly: kernel through a plan "
+              f"{times['kernel']:.4f}, without one {times['kernel_unplanned']:.4f}, plain "
               f"{times['plain']:.4f}, plain from a CUDA graph {opt('plain_graph')}, kernel "
               f"from a CUDA graph {opt('kernel_graph')}{'; ' if notes else ''}{'; '.join(notes)}; "
               f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), share "
-              f"{bound_ms / times['kernel']:.4f} [{card}]", flush=True)
+              f"{bound_ms / times['kernel']:.4f}, from a graph "
+              f"{f'{bound_ms / kg:.4f}' if kg else 'not measured'}; ptxas (registers, spill "
+              f"stores, spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
         if not (all(v <= SCHUR_RTOL for v in rel.values())
                 and all(v <= ROW_RTOL_F64 for v in rel64.values())):
             raise AssertionError(f"phase 3e {label}: the assembly kernel disagrees with its "
                                  f"plain version: {rel} (bar {SCHUR_RTOL}), in float64 {rel64} "
                                  f"(bar {ROW_RTOL_F64})")
         out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                      "unplanned_ms": times["kernel_unplanned"],
                       "plain_graph_ms": times.get("plain_graph"),
                       "kernel_graph_ms": times.get("kernel_graph"), "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err,
                       "library_ms": None, "launches_an_assembly": launches, "launch": launch,
-                      "rel": rel, "rel_float64": rel64, "plain_float32_rel": plain_own}
+                      "pass_us": passes_us, "ptxas": regs, "rel": rel, "rel_float64": rel64,
+                      "plain_float32_rel": plain_own}
     return out
 
 
@@ -1625,64 +1729,186 @@ def cg_step_bound(n: int, nposes: int, item: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cg_solve_bound(system, nposes: int, steps: int):
+    """(bound ms, "bytes" | "operations") of one CG solve of ``steps`` steps
+    with its right-hand side and back-substitution: every input read once (a
+    matvec's, ``schur_work``, and g_c, g_p, the preconditioner, the 7x7
+    inverses), the outputs written once (x, u, J_p^T u), over the memory
+    rate; the operations of steps + 1 matvecs (the right-hand side's camera
+    pass and the back-substitution's point pass make one more) and of the
+    steps' vector work (``cg_step_bound``'s) over the FP32 rate."""
+    item = system.cam_free.element_size()
+    C, P = system.total, system.num_points
+    mv_bytes, mv_flop = schur_work(system)
+    rows_k = sum((b if a is None else a).shape[0] * (b if a is None else a).shape[1]
+                 for a, b in zip(*system.J[0]))
+    nbytes = mv_bytes + item * (C + 3 * P + C + 49 * nposes + rows_k + 3 * P)
+    flop = (steps + 1) * mv_flop + steps * (12 * C + 13 * 7 * nposes + (C - 7 * nposes))
+    t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase3f(torch, card):
-    """The CG step kernel (csrc/cg_step.cu) against the plain loop on the
-    first CG of phase 3's solve (the cube, jacobi) and of phase 4's
-    (calibrate's system, SCHUR_JACOBI): CG_FORCED forced steps
-    (``debug_force_cg``) of the kernel, its matvec csrc/schur_mv.cu, against
-    the plain loop with the plain matvec in float64 on the same inputs: x
-    within SCHUR_RTOL of max |plain| with the tensors in float64; with the
-    path's float32 tensors one step within SCHUR_RTOL and all of them within
-    CG_DRIFT times the plain float32 loop's own error (CG's drift in
-    float32, printed beside); then
-    the path's own early-stopped CG, its count against the plain float64
-    loop's. Per step: the launches (the start and one a step), ms of the
-    kernel's step, the plain version's step (the update, the mask, the stop
-    test and the count, around the same matvec result), the plain step from
-    a CUDA graph, the kernel from a graph, the bound (``cg_step_bound``)
-    and, the step's practical floor, one empty launch on the card, measured
-    here. Returns the records by system."""
+    """The one-launch CG solve (``solver/cg_solve.py``, cg_solve_kernel of
+    csrc/schur_mv.cu) and the CG step kernel of the per-step path
+    (``solver/cg.py``, csrc/cg_step.cu) on the first CG of phase 3's solve
+    (the cube, jacobi) and of phase 4's (calibrate's system, SCHUR_JACOBI).
+    The solve: CG_FORCED forced steps (``debug_force_cg``) against the plain
+    solve (the plain right-hand side, loop and back-substitution) in float64
+    on the same inputs, x within SCHUR_RTOL of max |plain| with the tensors
+    in float64; with the path's float32 tensors one step within SCHUR_RTOL
+    and all of them within CG_DRIFT times the plain float32 solve's own
+    error (CG's drift in float32, printed beside); the launches of a solve
+    (one, and no matvec or CG step launch); the early-stopped CG count in
+    float32 and float64 against the plain float64 loop's (equal); ms a solve
+    and a step (the solve's time over its steps) of the kernel, of the
+    per-step path (schur_mv.cu's right-hand side, matvecs and
+    back-substitution, cg_step.cu's steps), of the plain solve eager and
+    from a CUDA graph, and of the kernel from a graph (where the capture
+    takes the cooperative launch); the bound (``cg_solve_bound``); the bytes
+    of rows a step reads from device memory (the rows not kept in shared
+    memory between the passes); its registers, spills and stack. The
+    per-step path (cg_step.cu after each schur_mv.cu matvec, tested every
+    ``check_every`` steps and masked between) against the same plain solve
+    in float64: x in float64 and one float32 step within SCHUR_RTOL,
+    CG_FORCED float32 steps within the same drift bar, its early-stopped CG
+    count equal to the plain loop's; its error is cg_step's ``max_abs_err``.
+    The step kernel: ms a step of the kernel, the plain step (the update, the mask,
+    the stop test and the count, around the same matvec result), both from a
+    CUDA graph, the bound (``cg_step_bound``) and, the step's practical
+    floor, one empty launch on the card. Returns the records by system."""
     import dataclasses
-    from multiview_tpu_torch.solver import cg, schur_matvec as smv
+    from multiview_tpu_torch.solver import cg, cg_solve, schur_matvec as smv
 
     dev = torch.device("cuda", 0)
     empty_ms = min(per_call_ms(torch, lambda: cg.empty_launch(dev), reps=200) for _ in range(3))
     empty_graph = graphed(torch, lambda: cg.empty_launch(dev))
     empty_graph_ms = min(per_call_ms(torch, empty_graph, reps=200) for _ in range(3))
+    regs = {k: v for k, v in ptxas_report("schur_mv.cu").items() if "cg_solve_kernel" in k}
     out = {}
     for label in ("cube", "rig"):
-        system = SCHUR_SYSTEMS[label][0]
-        _, M, rhs, iterations, tolerance, check_every, _ = CG_CALLS[label]
+        system, g_c, g_p, M, iterations, tolerance, check_every = SOLVE_CALLS[label][:7]
         sys64 = dataclasses.replace(system, J=in64(torch, system.J),
                                     cam_free=system.cam_free.double(), dc=system.dc.double(),
                                     hpp_inv=system.hpp_inv.double(), _plans=None)
-        M64, rhs64 = in64(torch, M), rhs.double()
+        M64, g_c64, g_p64 = in64(torch, M), g_c.double(), g_p.double()
+        nposes = 0 if M.pose_inv is None else M.pose_inv.shape[0]
 
-        def kernel_cg(s, m, b, force=CG_FORCED):
-            return cg.pcg_cuda(lambda v: smv.schur_matvec_cuda(s, v), m, b, iterations,
+        def fused(s, m, gc, gp, force=CG_FORCED):
+            return cg_solve.solve_cuda(s, gc, gp, m, iterations, tolerance, force)
+
+        def plain(s, m, gc, gp, force=CG_FORCED):
+            return cg_solve.solve_plain(s, gc, gp, m, iterations, tolerance, 1, force)
+
+        def per_step(s, m, gc, gp, force=CG_FORCED):
+            rhs = smv.schur_rhs_cuda(s, gc, gp)
+            x, k = cg.pcg_cuda(lambda v: smv.schur_matvec_cuda(s, v), m, rhs, iterations,
                                tolerance, check_every, force)
+            return x, smv.row_products_cuda(s, x), k
 
-        def plain_cg(s, m, b, force=CG_FORCED):
-            return cg.pcg_plain(lambda v: smv.schur_matvec_plain(s, v), m, b, iterations,
-                                tolerance, check_every, force)
+        counts = (cg_solve.LAUNCHES, smv.LAUNCHES, cg.LAUNCHES)
+        cg_solve.RECORD_LAUNCH = True
+        try:
+            sol = fused(system, M, g_c, g_p)
+            torch.cuda.synchronize()
+            launch = dict(cg_solve.LAST_LAUNCH)
+        finally:
+            cg_solve.RECORD_LAUNCH = False
+        launches = tuple(b - a for a, b in zip(counts, (cg_solve.LAUNCHES, smv.LAUNCHES,
+                                                         cg.LAUNCHES)))
+        if launches != (1, 0, 0) or int(sol.count) != CG_FORCED:
+            raise AssertionError(f"phase 3f {label}: {CG_FORCED} forced steps took (solve, "
+                                 f"matvec, step) launches {launches}, {int(sol.count)} steps")
+        sol64 = fused(sys64, M64, g_c64, g_p64)
+        ref = plain(sys64, M64, g_c64, g_p64)
+        ref32 = plain(system, M, g_c, g_p)
+        rel, rel64, plain_own = rel_err(sol.x, ref.x), rel_err(sol64.x, ref.x), \
+            rel_err(ref32.x, ref.x)
+        rel_jtpu = rel_err(sol64.jtp_u, ref.jtp_u)
+        err = float((sol.x.double() - ref.x).abs().max())
+        rel1 = rel_err(fused(system, M, g_c, g_p, 1).x, plain(sys64, M64, g_c64, g_p64, 1).x)
+        k_fused = int(fused(system, M, g_c, g_p, None).count)
+        k_fused64 = int(fused(sys64, M64, g_c64, g_p64, None).count)
+        k_plain = int(plain(sys64, M64, g_c64, g_p64, None).count)
+        # the per-step path (cg_step.cu after each schur_mv.cu matvec) on the same inputs
+        ps_x = per_step(system, M, g_c, g_p)[0]
+        ps_rel, ps_rel64 = rel_err(ps_x, ref.x), rel_err(per_step(sys64, M64, g_c64, g_p64)[0],
+                                                         ref.x)
+        ps_err = float((ps_x.double() - ref.x).abs().max())
+        ps_rel1 = rel_err(per_step(system, M, g_c, g_p, 1)[0],
+                          plain(sys64, M64, g_c64, g_p64, 1).x)
+        ps_k = int(per_step(system, M, g_c, g_p, None)[2])
+        runs = [("kernel", lambda: fused(system, M, g_c, g_p)),
+                ("per_step", lambda: per_step(system, M, g_c, g_p)),
+                ("plain", lambda: plain(system, M, g_c, g_p)),
+                ("plain_graph", graphed(torch, lambda: plain(system, M, g_c, g_p)))]
+        graph_note = ""
+        try:
+            runs.append(("kernel_graph", graphed(torch, lambda: fused(system, M, g_c, g_p))))
+        except Exception as e:          # a cooperative launch the capture refuses is reported
+            torch.cuda.synchronize()
+            graph_note = f" (not captured: {type(e).__name__}: {str(e).splitlines()[0][:160]})"
+        times = {}
+        for key, fn in runs + runs[::-1]:            # in turns, the better of two
+            ms = per_call_ms(torch, fn, reps=10)
+            times[key] = min(times.get(key, ms), ms)
+        bound_ms, bound_by = cg_solve_bound(system, nposes, CG_FORCED)
+        per = {k: v / CG_FORCED for k, v in times.items()}
+        kg = times.get("kernel_graph")
+        print(f"[phase3f] {label} solve: {system.total} camera parameters, "
+              f"{'SCHUR_JACOBI' if nposes else 'jacobi'}, {g_c.dtype}: {CG_FORCED} forced "
+              f"steps in (solve, matvec, step) launches {launches}, grid {launch['grid']}, "
+              f"{launch['tile_rows']} rows a tile, {launch['slots']} slots, "
+              f"{launch['resident_rows']} rows in shared memory at a pass's start, "
+              f"x * cam_free in shared memory {bool(launch['x_in_shared'])}, "
+              f"{launch['row_bytes_a_step'] / 1e6:.3f} MB of rows read from device memory a "
+              f"step; x max |diff| / max |plain in float64|: kernel {rel:.3g} (in float64 "
+              f"{rel64:.3g}, J_p^T u {rel_jtpu:.3g}; one step {rel1:.3g}); the plain solve in "
+              f"float32 {plain_own:.3g}; early-stopped CG (tolerance {tolerance:g}, tested "
+              f"every step): {k_fused} steps in float32, {k_fused64} in float64, {k_plain} "
+              f"with the plain loop in float64; ms a solve (a step): kernel "
+              f"{times['kernel']:.4f} ({per['kernel']:.5f}), per-step path "
+              f"{times['per_step']:.4f} ({per['per_step']:.5f}), plain {times['plain']:.4f} "
+              f"({per['plain']:.5f}), plain from a CUDA graph {times['plain_graph']:.4f} "
+              f"({per['plain_graph']:.5f}), kernel from a CUDA graph "
+              f"{f'{kg:.4f}' if kg else 'not measured'}{graph_note}; bound {bound_ms:.4f} ms "
+              f"by {bound_by}, share {bound_ms / times['kernel']:.4f}; ptxas (registers, spill "
+              f"stores, spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
+        bar = max(SCHUR_RTOL, CG_DRIFT * plain_own)
+        if not (rel1 <= SCHUR_RTOL and rel <= bar and rel64 <= SCHUR_RTOL
+                and rel_jtpu <= SCHUR_RTOL):
+            raise AssertionError(f"phase 3f {label}: the CG solve's x is off the plain "
+                                 f"solve's: one step {rel1:.3g} (bar {SCHUR_RTOL}), "
+                                 f"{CG_FORCED} steps {rel:.3g} (bar {bar:.3g}), in float64 "
+                                 f"{rel64:.3g}, J_p^T u {rel_jtpu:.3g} (bar {SCHUR_RTOL})")
+        if not k_fused == k_fused64 == k_plain:
+            raise AssertionError(f"phase 3f {label}: CG counts {k_fused} (float32), "
+                                 f"{k_fused64} (float64) against the plain loop's {k_plain}")
+        print(f"[phase3f] {label} per-step path (cg_step.cu, schur_mv.cu) against the plain "
+              f"solve in float64: x max |diff| / max |plain|: {CG_FORCED} steps {ps_rel:.3g} "
+              f"(bar {bar:.3g}), in float64 {ps_rel64:.3g}, one step {ps_rel1:.3g} (bar "
+              f"{SCHUR_RTOL}); max |diff| {ps_err:.3g}; early-stopped CG (tested every "
+              f"{check_every} steps, masked between) {ps_k} steps against the plain loop's "
+              f"{k_plain} [{card}]", flush=True)
+        if not (ps_rel1 <= SCHUR_RTOL and ps_rel <= bar and ps_rel64 <= SCHUR_RTOL):
+            raise AssertionError(f"phase 3f {label}: the per-step path's x is off the plain "
+                                 f"solve's: one step {ps_rel1:.3g} (bar {SCHUR_RTOL}), "
+                                 f"{CG_FORCED} steps {ps_rel:.3g} (bar {bar:.3g}), in float64 "
+                                 f"{ps_rel64:.3g} (bar {SCHUR_RTOL})")
+        if ps_k != k_plain:
+            raise AssertionError(f"phase 3f {label}: the per-step path's CG count {ps_k} "
+                                 f"against the plain loop's {k_plain}")
+        record = {"ms": times["kernel"], "plain_ms": times["plain"],
+                  "per_step_path_ms": times["per_step"], "plain_graph_ms": times["plain_graph"],
+                  "kernel_graph_ms": kg, "ms_a_step": per, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
+                  "steps": CG_FORCED, "launches": launches, "launch": launch, "rel": rel,
+                  "rel_float64": rel64, "rel_one_step": rel1, "plain_float32_rel": plain_own,
+                  "cg_kernel": k_fused, "cg_kernel_float64": k_fused64,
+                  "cg_plain_float64": k_plain, "ptxas": regs}
 
-        before = cg.LAUNCHES
-        x, _ = kernel_cg(system, M, rhs)
-        torch.cuda.synchronize()
-        launches = cg.LAUNCHES - before
-        if launches != 1 + CG_FORCED:
-            raise AssertionError(f"phase 3f {label}: {CG_FORCED} forced steps took {launches} "
-                                 f"launches")
-        x64, _ = kernel_cg(sys64, M64, rhs64)
-        ref, _ = plain_cg(sys64, M64, rhs64)
-        ref32, _ = plain_cg(system, M, rhs)
-        rel, rel64, plain_own = rel_err(x, ref), rel_err(x64, ref), rel_err(ref32, ref)
-        err = float((x.double() - ref).abs().max())
-        rel1 = rel_err(kernel_cg(system, M, rhs, 1)[0], plain_cg(sys64, M64, rhs64, 1)[0])
-        _, k_kernel = kernel_cg(system, M, rhs, None)
-        _, k_plain = plain_cg(sys64, M64, rhs64, None)
-        k_kernel, k_plain = int(k_kernel), int(k_plain)
-        # one step's work around a fixed matvec result
+        # the per-step path's kernel: one step's work around a fixed matvec result
+        rhs = smv.schur_rhs_cuda(system, g_c, g_p)
         state = cg.CudaCG(M, rhs, tolerance)
         state.start()
         Ap = smv.schur_matvec_cuda(system, state.p)
@@ -1696,43 +1922,29 @@ def phase3f(torch, card):
             new = cg.update_plain(M, x0, r0, p0, rz0, Ap)
             return [torch.where(act, a, b) for a, b in zip(new, (x0, r0, p0, rz0))] + [act]
 
-        runs = [("kernel", lambda: state.step(Ap, forced=True)), ("plain", plain_step),
-                ("plain_graph", graphed(torch, plain_step)),
-                ("kernel_graph", graphed(torch, lambda: state.step(Ap, forced=True)))]
-        times = {}
-        for key, fn in runs + runs[::-1]:            # in turns, the better of two
+        step_runs = [("kernel", lambda: state.step(Ap, forced=True)), ("plain", plain_step),
+                     ("plain_graph", graphed(torch, plain_step)),
+                     ("kernel_graph", graphed(torch, lambda: state.step(Ap, forced=True)))]
+        step_times = {}
+        for key, fn in step_runs + step_runs[::-1]:
             ms = per_call_ms(torch, fn, reps=100)
-            times[key] = min(times.get(key, ms), ms)
-        nposes = 0 if M.pose_inv is None else M.pose_inv.shape[0]
-        bound_ms, bound_by = cg_step_bound(rhs.shape[0], nposes, rhs.element_size())
-        print(f"[phase3f] {label}: {rhs.shape[0]} camera parameters, "
-              f"{'SCHUR_JACOBI' if M.pose_inv is not None else 'jacobi'}, {rhs.dtype}: "
-              f"{CG_FORCED} forced steps in {launches} launches; x max |diff| / max |plain "
-              f"in float64|: kernel {rel:.3g} (in float64 {rel64:.3g}; one step {rel1:.3g}); "
-              f"the plain loop in float32 {plain_own:.3g}; the path's CG (tolerance {tolerance:g}, checked every "
-              f"{check_every}): {k_kernel} steps with the kernels, {k_plain} with the plain "
-              f"loop in float64; ms a step: kernel {times['kernel']:.4f}, plain "
-              f"{times['plain']:.4f}, plain from a CUDA graph {times['plain_graph']:.4f}, "
-              f"kernel from a CUDA graph {times['kernel_graph']:.4f}; bound {bound_ms:.6f} ms "
-              f"by {bound_by}; an empty launch {empty_ms:.4f} ms, from a graph "
-              f"{empty_graph_ms:.4f} ms; the step's share of the empty launch "
-              f"{empty_ms / times['kernel']:.4f}, from graphs "
-              f"{empty_graph_ms / times['kernel_graph']:.4f} [{card}]", flush=True)
-        bar = max(SCHUR_RTOL, CG_DRIFT * plain_own)
-        if not (rel1 <= SCHUR_RTOL and rel <= bar and rel64 <= SCHUR_RTOL):
-            raise AssertionError(f"phase 3f {label}: the CG kernel's x is off the plain loop's: "
-                                 f"one step {rel1:.3g} (bar {SCHUR_RTOL}), {CG_FORCED} steps "
-                                 f"{rel:.3g} (bar {bar:.3g}), in float64 "
-                                 f"{rel64:.3g} (bar {SCHUR_RTOL})")
-        out[label] = {"ms": times["kernel"], "plain_ms": times["plain"],
-                      "plain_graph_ms": times["plain_graph"],
-                      "kernel_graph_ms": times["kernel_graph"], "bound_ms": bound_ms,
-                      "bound_by": bound_by, "empty_launch_ms": empty_ms,
-                      "empty_launch_graph_ms": empty_graph_ms, "rel_one_step": rel1,
-                      "max_abs_err": err, "library_ms": None,
-                      "launches_forced": launches, "rel": rel, "rel_float64": rel64,
-                      "plain_float32_rel": plain_own, "cg_kernel": k_kernel,
-                      "cg_plain_float64": k_plain}
+            step_times[key] = min(step_times.get(key, ms), ms)
+        step_bound, step_by = cg_step_bound(rhs.shape[0], nposes, rhs.element_size())
+        print(f"[phase3f] {label} step kernel (the per-step path): ms a step: kernel "
+              f"{step_times['kernel']:.4f}, plain {step_times['plain']:.4f}, plain from a CUDA "
+              f"graph {step_times['plain_graph']:.4f}, kernel from a CUDA graph "
+              f"{step_times['kernel_graph']:.4f}; bound {step_bound:.6f} ms by {step_by}; an "
+              f"empty launch {empty_ms:.4f} ms, from a graph {empty_graph_ms:.4f} ms; the "
+              f"step's share of the empty launch {empty_ms / step_times['kernel']:.4f}, from "
+              f"graphs {empty_graph_ms / step_times['kernel_graph']:.4f} [{card}]", flush=True)
+        out[label] = {"solve": record, "step": {
+            "ms": step_times["kernel"], "plain_ms": step_times["plain"],
+            "plain_graph_ms": step_times["plain_graph"],
+            "kernel_graph_ms": step_times["kernel_graph"], "bound_ms": step_bound,
+            "bound_by": step_by, "empty_launch_ms": empty_ms,
+            "empty_launch_graph_ms": empty_graph_ms, "library_ms": None,
+            "max_abs_err": ps_err, "rel": ps_rel, "rel_float64": ps_rel64,
+            "rel_one_step": ps_rel1, "cg_per_step_path": ps_k}}
     return out
 
 
@@ -2541,7 +2753,7 @@ def phase9a(torch, card):
                                      for i in range(torch.cuda.device_count())])))
     out = {"wall_unsharded": wall1}
     for what, mesh in meshes:
-        with schur_counted(f"phase 9a ({what})"):
+        with schur_counted(f"phase 9a ({what})", "sharded"):
             got, wall = timed(sh.shard_observations(scene.observations, mesh))
         gap = solve_gap(ref, got)
         print(f"[phase9a] cube 160x20, 10 LM x 30 CG, float32: unsharded wall {wall1:.4f} s "
@@ -2676,7 +2888,7 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
     import torch.distributed as dist
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.parallel import distributed as pdist, sharding as sh
-    from multiview_tpu_torch.solver import (assembly as asm, cg, row_blocks as rb,
+    from multiview_tpu_torch.solver import (assembly as asm, cg, cg_solve, row_blocks as rb,
                                             schur_matvec as smv)
 
     if not pdist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo"):
@@ -2698,7 +2910,7 @@ def phase9d_worker(rank: int, world: int, port: int, out: str) -> int:
              iterations=res.iterations, cg=int(res.cg_iters_total), lam=float(res.lam),
              size=mesh.size, gathered=gathered, device=str(res.cam.device),
              schur_launches=smv.LAUNCHES, row_launches=rb.LAUNCHES, asm_launches=asm.LAUNCHES,
-             cg_launches=cg.LAUNCHES)
+             cg_launches=cg.LAUNCHES, solve_launches=cg_solve.LAUNCHES)
     dist.destroy_process_group()
     return 0
 
@@ -2743,10 +2955,13 @@ def phase9d(torch, card, workdir: Path):
               "asm_launches": ASM_PATHS, "cg_launches": CG_PATHS}
     for key, paths in counts.items():
         paths["phase 9d (2 gloo ranks)"] = int(r0[key] + r1[key])
-    if not all(r[k] > 0 for r in (r0, r1) for k in counts):
+    if not all(r[k] > 0 for r in (r0, r1) for k in counts) or r0["solve_launches"] or \
+            r1["solve_launches"]:
         raise AssertionError("phase 9d: a rank launched csrc/schur_mv.cu, csrc/row_blocks.cu, "
-                             "csrc/lm_assembly.cu or csrc/cg_step.cu no time")
-    same = all(np.array_equal(r0[k], r1[k]) for k in r0 if k not in counts)
+                             "csrc/lm_assembly.cu or csrc/cg_step.cu no time, or the one-launch "
+                             "CG solve, which one shard alone runs")
+    same = all(np.array_equal(r0[k], r1[k]) for k in r0
+               if k not in counts and k != "solve_launches")
 
     dev = torch.device("cuda", 0)
     scene, state0, make = ba_problem(torch, dev, *MP_CUBE)
@@ -2761,7 +2976,7 @@ def phase9d(torch, card, workdir: Path):
     try:
         backend = dist.get_backend()
         mesh = sh.make_mesh([dev] * SHARDS, group=dist.group.WORLD)
-        with schur_counted("phase 9d (nccl)"):
+        with schur_counted("phase 9d (nccl)", "sharded"):
             nccl = solver(cam0, state0.points, sh.shard_observations(scene.observations, mesh))
         torch.cuda.synchronize()
     finally:
@@ -2912,14 +3127,31 @@ def main() -> int:
          **{k: p3e["cube"][k] for k in keys}, "share": p3e["cube"]["bound_ms"] / p3e["cube"]["ms"],
          "plain_graph_ms": p3e["cube"]["plain_graph_ms"],
          "kernel_graph_ms": p3e["cube"]["kernel_graph_ms"], "by_system": p3e},
-        # no single PyTorch call computes a CG step: library_ms is null
+        # no single PyTorch call computes a CG solve: library_ms is null; the
+        # times are of one solve of CG_FORCED steps with its right-hand side
+        # and back-substitution
+        {"name": "cg_solve", "route": "cuda", "source": SCHUR_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:1200-1233 (the CG's while_loop: cg_body, "
+                     "cg_cond), :1084-1094 (precond_apply), :1147 (schur_mv), XLA code: no "
+                     "pallas_call",
+         "launches": sum(SOLVE_PATHS.values()), "launches_by_path": SOLVE_PATHS,
+         **{k: p3f["cube"]["solve"][k] for k in keys},
+         "share": p3f["cube"]["solve"]["bound_ms"] / p3f["cube"]["solve"]["ms"],
+         "steps": CG_FORCED, "per_step_path_ms": p3f["cube"]["solve"]["per_step_path_ms"],
+         "plain_graph_ms": p3f["cube"]["solve"]["plain_graph_ms"],
+         "kernel_graph_ms": p3f["cube"]["solve"]["kernel_graph_ms"],
+         "by_system": {k: v["solve"] for k, v in p3f.items()}},
+        # no single PyTorch call computes a CG step: library_ms is null; the
+        # sharded paths launch it
         {"name": "cg_step", "route": "cuda", "source": CG_SOURCE,
          "replaces": "multiview_tpu/solver/schur.py:1200-1233 (cg_body, cg_cond) and "
                      ":1084-1094 (precond_apply), XLA code: no pallas_call",
          "launches": sum(CG_PATHS.values()), "launches_by_path": CG_PATHS,
-         **{k: p3f["cube"][k] for k in keys}, "share": p3f["cube"]["bound_ms"] / p3f["cube"]["ms"],
-         "plain_graph_ms": p3f["cube"]["plain_graph_ms"],
-         "kernel_graph_ms": p3f["cube"]["kernel_graph_ms"], "by_system": p3f}]}))
+         **{k: p3f["cube"]["step"][k] for k in keys},
+         "share": p3f["cube"]["step"]["bound_ms"] / p3f["cube"]["step"]["ms"],
+         "plain_graph_ms": p3f["cube"]["step"]["plain_graph_ms"],
+         "kernel_graph_ms": p3f["cube"]["step"]["kernel_graph_ms"],
+         "by_system": {k: v["step"] for k, v in p3f.items()}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,19 +25,22 @@
 //   camera pass   v_n = u_n - J_p[n] w[p];  out[c] += cam_free[c] (J_c^T v)[c]
 // The epilogue is folded into the camera pass: out starts at dc * x and each
 // sum is added scaled by its column's cam_free. Which launch runs what:
-//   one shard:    S x is one launch of both passes; the right-hand side one
-//                 launch of the camera pass with u = 0 (x null, dc null); the
-//                 back-substitution's product one launch of the point pass
-//                 with u stored.
+//   one shard:    a whole CG solve of cg_blocks is one launch of
+//                 cg_solve_kernel (below): the right-hand side, every step's
+//                 matvec and update, the back-substitution's product. Called
+//                 alone, S x is one launch of both passes of schur_kernel; the
+//                 right-hand side one launch of the camera pass with u = 0 (x
+//                 null, dc null); the back-substitution's product one launch
+//                 of the point pass with u stored.
 //   more shards:  a shard's g_p must be summed over the shards (and the
 //                 processes) between the passes (ShardMesh.sum in
 //                 solver/schur_matvec.py), so S x is a point-pass launch and
 //                 a camera-pass launch a shard (dc * x added on the first
 //                 shard of all only; the shards' outs summed).
 //
-// Rows. Each block walks a contiguous span of 32-row chunks, family by family,
-// in tiles of tile_rows rows (one thread a row), staged into shared memory
-// with 16-byte cp.async copies (J_c, J_p, beg, end, pidx of the tile: each one
+// Rows (row_tiles.cuh). Each block walks a contiguous span of 32-row chunks,
+// family by family, in tiles of tile_rows rows (one thread a row), staged into
+// shared memory with 16-byte cp.async copies (J_c, J_p, beg, end, pidx of the tile: each one
 // contiguous span), two tiles in flight while a third is computed. The tiles
 // go round a ring of `slots` slots that fills the block's shared memory, so
 // when the point pass ends its last `slots` tiles are still there: the camera
@@ -91,6 +94,9 @@
 
 #include <algorithm>
 
+#include "cg_step.cuh"
+#include "row_tiles.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -98,8 +104,11 @@ namespace {
 constexpr int kMaxFamilies = 32;   // families of one launch (the wrapper refuses more)
 constexpr int kFields = 10;        // int64 fields of one family in the host table
 constexpr int kThreads = 256;      // threads of a block
-constexpr int kChunk = 32;         // rows of the unit the rows are split among the blocks by
-constexpr int kPrefetch = 2;       // tiles in flight while one is computed
+using row_tiles::align16;
+using row_tiles::block_span;
+using row_tiles::kChunk;
+using row_tiles::locate;
+using row_tiles::TileRef;
 constexpr int kPoseCols = 7;
 constexpr int kFirstConst = 14;    // camera columns before the constant ones
 constexpr unsigned kFull = 0xffffffffu;
@@ -144,16 +153,6 @@ struct Params {
   int off_xcf, off_g, off_const, off_slots, slot_bytes;
 };
 
-struct TileRef {
-  int f;
-  int rows;
-  long long row0;
-};
-
-__host__ __device__ __forceinline__ int align16(long long b) {
-  return static_cast<int>((b + 15) & ~15ll);
-}
-
 // The byte offsets of a tile's arrays in its slot: J_c, J_p, beg, end, pidx
 struct SlotLayout {
   int jp, beg, end, pidx, bytes;
@@ -170,88 +169,13 @@ __host__ __device__ __forceinline__ SlotLayout slot_layout(int tile_rows, int k,
   return l;
 }
 
-// The first chunk whose bytes start at or after `at` (of all the chunks'
-// bytes, family by family)
-template <typename Fam>
-__host__ __device__ __forceinline__ long long chunk_at(const Fam* fams, int count, long long at) {
-  long long seen = 0;
-  for (int fi = 0; fi < count; ++fi) {
-    const long long w = fams[fi].weight * kChunk;
-    const long long span = (fams[fi].n + kChunk - 1) / kChunk * w;
-    if (at < seen + span) return fams[fi].first_chunk + (at - seen + w - 1) / w;
-    seen += span;
-  }
-  return count > 0 ? fams[count - 1].first_chunk + (fams[count - 1].n + kChunk - 1) / kChunk : 0;
-}
-
-// The chunk span [c0, c1) of block g of G: as many bytes each
-template <typename Fam>
-__host__ __device__ __forceinline__ void block_span(const Fam* fams, int count, long long weight,
-                                                    long long g, long long G, long long& c0,
-                                                    long long& c1) {
-  c0 = chunk_at(fams, count, weight * g / G);
-  c1 = chunk_at(fams, count, weight * (g + 1) / G);
-}
-
-// The tile at index i of a span (f = -1 past its end), or with i < 0 the
-// number of tiles of the span (in .rows)
-template <typename Fam>
-__host__ __device__ __forceinline__ TileRef locate(const Fam* fams, int count, long long c0,
-                                                   long long c1, int tile_rows, int i) {
-  int seen = 0;
-  for (int fi = 0; fi < count; ++fi) {
-    const long long fc0 = fams[fi].first_chunk;
-    const long long fc1 = fc0 + (fams[fi].n + kChunk - 1) / kChunk;
-    const long long a = c0 > fc0 ? c0 : fc0;
-    const long long b = c1 < fc1 ? c1 : fc1;
-    if (a >= b) continue;
-    const long long r0 = (a - fc0) * kChunk;
-    const long long r1 = (b - fc0) * kChunk < fams[fi].n ? (b - fc0) * kChunk : fams[fi].n;
-    const int nt = static_cast<int>((r1 - r0 + tile_rows - 1) / tile_rows);
-    if (i >= 0 && i < seen + nt) {
-      const long long row0 = r0 + static_cast<long long>(i - seen) * tile_rows;
-      return {fi, static_cast<int>(r1 - row0 < tile_rows ? r1 - row0 : tile_rows), row0};
-    }
-    seen += nt;
-  }
-  return {-1, i < 0 ? seen : 0, 0};
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// bytes (a multiple of 4) from global to shared by every thread of the block:
-// 16-byte copies where both ends allow, 4-byte ones for the rest
-__device__ __forceinline__ void copy_async(unsigned char* dst, const unsigned char* src,
-                                           long long bytes) {
-  long long done = 0;
-  if (((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) &
-       15ull) == 0) {
-    const long long n16 = bytes >> 4;
-    for (long long i = threadIdx.x; i < n16; i += blockDim.x) cp_async16(dst + 16 * i, src + 16 * i);
-    done = n16 << 4;
-  }
-  for (long long i = done + 4 * threadIdx.x; i < bytes; i += 4ll * blockDim.x)
-    cp_async4(dst + i, src + i);
-}
-
 template <typename T>
 __device__ __forceinline__ void issue_tile(const Params<T>& p, const TileRef& t,
                                            unsigned char* slot) {
   const Family& f = p.f[t.f];
   const int kb = f.k * f.b;
   const SlotLayout l = slot_layout(p.tile_rows, f.k, f.b, f.j_pt != nullptr, sizeof(T));
+  using row_tiles::copy_async;
   copy_async(slot, static_cast<const unsigned char*>(f.j_cam) + t.row0 * kb * sizeof(T),
              static_cast<long long>(t.rows) * kb * sizeof(T));
   copy_async(slot + l.beg, reinterpret_cast<const unsigned char*>(f.beg + t.row0), t.rows * 8ll);
@@ -264,34 +188,14 @@ __device__ __forceinline__ void issue_tile(const Params<T>& p, const TileRef& t,
   }
 }
 
-// Walks the block's tiles through the ring: step j takes tile j (tile
-// T - 1 - j with `reverse`); the first `resident` steps find their tile in
-// its slot already (left there by the point pass). body(tile, slot) is called
-// by every thread, between two __syncthreads.
+// Walks the block's tiles [c0, c1) through the ring (row_tiles::walk)
 template <typename T, typename Body>
 __device__ __forceinline__ void walk(const Params<T>& p, long long c0, long long c1, int tiles,
                                      bool reverse, int resident, unsigned char* slots, Body body) {
-  auto tile_of = [&](int j) { return reverse ? tiles - 1 - j : j; };
-  auto issue = [&](int j) {
-    if (j < tiles && j >= resident) {
-      const int i = tile_of(j);
-      issue_tile(p, locate(p.f, p.count, c0, c1, p.tile_rows, i),
-                 slots + static_cast<long long>(i % p.slots) * p.slot_bytes);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int j = 0; j < kPrefetch; ++j) issue(j);
-  for (int j = 0; j < tiles; ++j) {
-    issue(j + kPrefetch);
-    cp_async_wait<kPrefetch>();
-    __syncthreads();
-    const int i = tile_of(j);
-    body(locate(p.f, p.count, c0, c1, p.tile_rows, i),
-         slots + static_cast<long long>(i % p.slots) * p.slot_bytes);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+  row_tiles::walk(
+      tiles, reverse, resident, p.slots, p.slot_bytes, slots,
+      [&](int i) { return locate(p.f, p.count, c0, c1, p.tile_rows, i); },
+      [&](const TileRef& t, unsigned char* slot) { issue_tile(p, t, slot); }, body);
 }
 
 // Sums V = 2^q values over the 32 lanes with a reduce-scatter: 16 / 2 + ... + 1
@@ -370,7 +274,9 @@ __device__ __forceinline__ Fam<T> fam_of(const Family& f) {
 
 template <typename T>
 __device__ __forceinline__ T xcf_at(const Ctx<T>& c, long long col) {
-  return c.xcf ? c.xcf[col] : __ldg(c.x + col) * __ldg(c.cf + col);
+  // x may have been written by other blocks of this launch (the fused CG
+  // solve's p): read it from L2
+  return c.xcf ? c.xcf[col] : __ldcg(c.x + col) * __ldg(c.cf + col);
 }
 
 // u = J (cam_free * x) of one row, J [K, b] row-major
@@ -625,64 +531,83 @@ __device__ __forceinline__ void camera_rows(const Ctx<T>& c, int rows, int b, in
   }
 }
 
+// w = Hpp^-1 g of one point
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constant__ Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Ctx<T> c;
-  c.x = p.x;
-  c.cf = p.cf;
-  c.hpp_inv = p.hpp_inv;
-  c.g_p = p.g_p;
-  c.w = p.w;
-  c.out = p.out;
-  c.xcf = (p.full_x && p.x) ? reinterpret_cast<const T*>(smem + p.off_xcf) : nullptr;
-  c.g = reinterpret_cast<T*>(smem + p.off_g);
-  c.cst = reinterpret_cast<T*>(smem + p.off_const);
-  c.xconst = c.cst + p.max_const;
-  c.wposes = p.wposes;
-  c.copies = p.copies;
-  c.gw = c.g + (c.copies > 1 ? (threadIdx.x >> 5) * c.wposes * kPoseCols : 0);
-  T* const u_out = p.u_out;
-  const T* const dc = p.dc;
-  const long long total = p.total, num_points = p.num_points;
-  const int max_const = p.max_const;
-  unsigned char* slots = smem + p.off_slots;
-  const int tid = threadIdx.x;
-  long long c0, c1;
-  block_span(p.f, p.count, p.weight, blockIdx.x, gridDim.x, c0, c1);
-  const int tiles = locate(p.f, p.count, c0, c1, p.tile_rows, -1).rows;
-  const bool point = p.passes & kPointPass, camera = p.passes & kCameraPass;
+__device__ __forceinline__ void hpp_solve(const T* H, const T (&g)[3], T* w) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    w[r] = __ldg(H + 3 * r) * g[0] + __ldg(H + 3 * r + 1) * g[1] + __ldg(H + 3 * r + 2) * g[2];
+}
 
-  // phase 0: zero g_p, start out, stage x * cam_free and zero the block's sums
-  const long long gt = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
+// w = Hpp^-1 g_p, once a point, before the camera pass reads it (g_p summed
+// by this launch's point pass: read from L2)
+template <typename T>
+__device__ __forceinline__ void solve_points(const Ctx<T>& c, long long num_points) {
   const long long gs = static_cast<long long>(gridDim.x) * blockDim.x;
-  if (point)
-    for (long long i = gt; i < num_points * 3; i += gs) c.g_p[i] = T(0);
-  if (camera)
-    for (long long i = gt; i < total; i += gs) c.out[i] = dc ? dc[i] * c.x[i] : T(0);
-  if (c.xcf) {
-    T* xcf = reinterpret_cast<T*>(smem + p.off_xcf);
-#pragma unroll 4
-    for (long long i = tid; i < total; i += blockDim.x) xcf[i] = __ldg(c.x + i) * __ldg(c.cf + i);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < num_points; i += gs) {
+    const T g[3] = {__ldcg(c.g_p + i * 3), __ldcg(c.g_p + i * 3 + 1), __ldcg(c.g_p + i * 3 + 2)};
+    hpp_solve(c.hpp_inv + i * 9, g, c.w + i * 3);
   }
-  for (int i = tid; i < c.copies * c.wposes * kPoseCols; i += blockDim.x) c.g[i] = T(0);
-  for (int i = tid; i < max_const; i += blockDim.x) c.cst[i] = T(0);
-  c.p0 = 0;
-  if (c.wposes < p.num_ref && tiles > 0) {
-    const TileRef t0 = locate(p.f, p.count, c0, c1, p.tile_rows, 0);
-    const long long first = p.f[t0.f].beg[t0.row0];
-    c.p0 = first < 0 ? 0 : first > p.num_ref - c.wposes ? p.num_ref - c.wposes : first;
-  }
-  int cur = -1;
-  Fam<T> fc{};
+}
+
+// One block's state over the passes of a launch: its span of tiles, its
+// sums in shared memory and the camera pass's running sums in registers.
+// c.x (null: u = 0) and c.out are the caller's to set before each pass.
+template <typename T>
+struct Passes {
+  const Params<T>& p;
+  Ctx<T> c;
+  unsigned char* slots;
+  long long c0, c1;
+  int tiles, cur;
+  Fam<T> fc;
   Sums<T> sum;
+
+  // xcf: x * cam_free kept whole in shared memory, or null
+  __device__ Passes(const Params<T>& q, unsigned char* smem, const T* xcf) : p(q) {
+    c.x = p.x;
+    c.cf = p.cf;
+    c.hpp_inv = p.hpp_inv;
+    c.g_p = p.g_p;
+    c.w = p.w;
+    c.out = p.out;
+    c.xcf = xcf;
+    c.g = reinterpret_cast<T*>(smem + p.off_g);
+    c.cst = reinterpret_cast<T*>(smem + p.off_const);
+    c.xconst = c.cst + p.max_const;
+    c.wposes = p.wposes;
+    c.copies = p.copies;
+    c.gw = c.g + (c.copies > 1 ? (threadIdx.x >> 5) * c.wposes * kPoseCols : 0);
+    slots = smem + p.off_slots;
+    block_span(p.f, p.count, p.weight, blockIdx.x, gridDim.x, c0, c1);
+    tiles = locate(p.f, p.count, c0, c1, p.tile_rows, -1).rows;
+    c.p0 = 0;
+    if (c.wposes < p.num_ref && tiles > 0) {
+      const TileRef t0 = locate(p.f, p.count, c0, c1, p.tile_rows, 0);
+      const long long first = p.f[t0.f].beg[t0.row0];
+      c.p0 = first < 0 ? 0 : first > p.num_ref - c.wposes ? p.num_ref - c.wposes : first;
+    }
+    cur = -1;
+    fc = Fam<T>{};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) sum.c[j] = T(0);
+    for (int j = 0; j < 16; ++j) sum.c[j] = T(0);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) sum.b[j] = sum.e[j] = T(0);
+    for (int j = 0; j < 8; ++j) sum.b[j] = sum.e[j] = T(0);
+  }
+
+  // the tiles the next walk finds in shared memory (left there by the last)
+  __device__ int resident() const { return min(tiles, p.slots); }
+
+  // the block's pose-column copies and constant-column sums start at 0
+  __device__ void zero_sums() {
+    for (int i = threadIdx.x; i < c.copies * c.wposes * kPoseCols; i += blockDim.x) c.g[i] = T(0);
+    for (int i = threadIdx.x; i < p.max_const; i += blockDim.x) c.cst[i] = T(0);
+  }
+
   // the family of the next tile: its constant columns' x * cam_free (and, in
   // the camera pass, the previous family's sums added to out)
-  auto on_family = [&](int fi, bool flush) {
+  __device__ void on_family(int fi, bool flush) {
     if (fi == cur) return;
     if (flush && cur >= 0) {
       // the threads' sums of the constant columns 0-15: a reduce-scatter a
@@ -695,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constan
     }
     __syncthreads();
     if (flush && cur >= 0) {
-      for (int i = tid; i < fc.nconst; i += blockDim.x) {
+      for (int i = threadIdx.x; i < fc.nconst; i += blockDim.x) {
         const long long col = fc.cols[i];
         atomicAdd(c.out + col, __ldg(c.cf + col) * c.cst[i]);
         c.cst[i] = T(0);
@@ -704,29 +629,17 @@ __global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constan
     cur = fi;
     if (fi >= 0) {
       fc = fam_of<T>(p.f[fi]);
-      for (int i = tid; i < fc.nconst; i += blockDim.x)
+      for (int i = threadIdx.x; i < fc.nconst; i += blockDim.x)
         c.xconst[i] = c.x ? xcf_at(c, fc.cols[i]) : T(0);
     }
     __syncthreads();
-  };
-  // w = Hpp^-1 g_p, once a point, before the camera pass reads it
-  auto solve_points = [&]() {
-    if (!c.g_p) return;
-    for (long long i = gt; i < num_points; i += gs) {
-      const T* H = c.hpp_inv + i * 9;
-      const T g[3] = {__ldcg(c.g_p + i * 3), __ldcg(c.g_p + i * 3 + 1), __ldcg(c.g_p + i * 3 + 2)};
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        c.w[i * 3 + r] = __ldg(H + 3 * r) * g[0] + __ldg(H + 3 * r + 1) * g[1] + __ldg(H + 3 * r + 2) * g[2];
-    }
-  };
-  if (camera && !point) solve_points();
-  cg::grid_group grid = cg::this_grid();
-  __syncthreads();
-  grid.sync();
+  }
 
-  if (point) {
-    walk(p, c0, c1, tiles, false, 0, slots, [&](const TileRef& t, unsigned char* slot) {
+  // g_p += J_p^T u over the block's rows, u = J_c (cam_free * x) stored in
+  // u_out where it is not null
+  __device__ void point_pass(int resident_tiles, T* u_out) {
+    walk(p, c0, c1, tiles, false, resident_tiles, slots,
+         [&](const TileRef& t, unsigned char* slot) {
       on_family(t.f, false);
       const int k = fc.k, b = fc.b;
       const SlotLayout l = slot_layout(p.tile_rows, k, b, fc.with_pt, sizeof(T));
@@ -742,63 +655,267 @@ __global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constan
         point_rows<3>(c, t.rows, b, jc, jp, beg, end, pidx, u_dst, fc.with_pt);
     });
     __syncthreads();
+  }
+
+  // out += cam_free * J_c^T (u - J_p w) over the block's rows, the tiles in
+  // reverse; u read back from u_back (null: recomputed from c.x, or 0)
+  __device__ void camera_pass(int resident_tiles, const T* u_back) {
+    const bool with_gp = c.g_p != nullptr;
+    walk(p, c0, c1, tiles, true, resident_tiles, slots, [&](const TileRef& t, unsigned char* slot) {
+      on_family(t.f, true);
+      const int k = fc.k, b = fc.b, nconst = fc.nconst;
+      const bool pt_side = with_gp && fc.with_pt;
+      const T* const u_src = u_back ? u_back + fc.u_offset + t.row0 * k : nullptr;
+      const SlotLayout l = slot_layout(p.tile_rows, k, b, fc.with_pt, sizeof(T));
+      const T* jc = reinterpret_cast<const T*>(slot);
+      const T* jp = reinterpret_cast<const T*>(slot + l.jp);
+      const long long* beg = reinterpret_cast<const long long*>(slot + l.beg);
+      const long long* end = reinterpret_cast<const long long*>(slot + l.end);
+      const long long* pidx = reinterpret_cast<const long long*>(slot + l.pidx);
+      if (k == 2)
+        camera_rows<2>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
+      else
+        camera_rows<3>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
+    });
+    flush_pose(c, sum.kb, sum.b);
+    flush_pose(c, sum.ke, sum.e);
+    on_family(-1, true);
+    // the block's pose-column copies added to out once, and cleared for the
+    // next camera pass
+    for (int i = threadIdx.x; i < c.wposes * kPoseCols; i += blockDim.x) {
+      T v = T(0);
+      for (int w = 0; w < c.copies; ++w) {
+        v += c.g[w * c.wposes * kPoseCols + i];
+        c.g[w * c.wposes * kPoseCols + i] = T(0);
+      }
+      if (v != T(0)) {
+        const long long col = c.p0 * kPoseCols + i;
+        atomicAdd(c.out + col, __ldg(c.cf + col) * v);
+      }
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constant__ Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const xcf = (p.full_x && p.x) ? reinterpret_cast<T*>(smem + p.off_xcf) : nullptr;
+  Passes<T> b(p, smem, xcf);
+  const bool point = p.passes & kPointPass, camera = p.passes & kCameraPass;
+
+  // phase 0: zero g_p, start out, stage x * cam_free and zero the block's sums
+  const long long gt = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long gs = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (point)
+    for (long long i = gt; i < p.num_points * 3; i += gs) p.g_p[i] = T(0);
+  if (camera)
+    for (long long i = gt; i < p.total; i += gs) p.out[i] = p.dc ? p.dc[i] * p.x[i] : T(0);
+  if (xcf) {
+#pragma unroll 4
+    for (long long i = threadIdx.x; i < p.total; i += blockDim.x)
+      xcf[i] = __ldg(p.x + i) * __ldg(p.cf + i);
+  }
+  b.zero_sums();
+  if (camera && !point) solve_points(b.c, p.num_points);
+  cg::grid_group grid = cg::this_grid();
+  __syncthreads();
+  grid.sync();
+
+  if (point) {
+    b.point_pass(0, p.u_out);
     if (camera) {
       grid.sync();
-      solve_points();
+      solve_points(b.c, p.num_points);
       grid.sync();
     }
   }
   if (!camera) return;
-
-  const bool with_gp = c.g_p != nullptr;
   // u of this launch's point pass, read back (else recomputed from x)
-  const T* const u_back = point ? u_out : nullptr;
-  walk(p, c0, c1, tiles, true, point ? min(tiles, p.slots) : 0, slots,
-       [&](const TileRef& t, unsigned char* slot) {
-    on_family(t.f, true);
-    const int k = fc.k, b = fc.b, nconst = fc.nconst;
-    const bool pt_side = with_gp && fc.with_pt;
-    const T* const u_src = u_back ? u_back + fc.u_offset + t.row0 * k : nullptr;
-    const SlotLayout l = slot_layout(p.tile_rows, k, b, fc.with_pt, sizeof(T));
-    const T* jc = reinterpret_cast<const T*>(slot);
-    const T* jp = reinterpret_cast<const T*>(slot + l.jp);
-    const long long* beg = reinterpret_cast<const long long*>(slot + l.beg);
-    const long long* end = reinterpret_cast<const long long*>(slot + l.end);
-    const long long* pidx = reinterpret_cast<const long long*>(slot + l.pidx);
-    if (k == 2)
-      camera_rows<2>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
-    else
-      camera_rows<3>(c, t.rows, b, nconst, jc, jp, beg, end, pidx, u_src, pt_side, sum);
-  });
-  flush_pose(c, sum.kb, sum.b);
-  flush_pose(c, sum.ke, sum.e);
-  on_family(-1, true);
-  for (int i = tid; i < c.wposes * kPoseCols; i += blockDim.x) {
-    T v = T(0);
-    for (int w = 0; w < c.copies; ++w) v += c.g[w * c.wposes * kPoseCols + i];
-    if (v != T(0)) {
-      const long long col = c.p0 * kPoseCols + i;
-      atomicAdd(c.out + col, __ldg(c.cf + col) * v);
-    }
-  }
+  b.camera_pass(point ? b.resident() : 0, point ? p.u_out : nullptr);
 }
 
-// Per-device launch state: SM count and co-resident blocks an SM
+// ----------------------------------------------------------------------------
+// The whole CG of one LM iteration on one shard, in one cooperative launch
+// ----------------------------------------------------------------------------
+//
+// It replaces, on one shard, the per-step path (a launch of schur_kernel a
+// matvec, a launch of cg_step.cu a step, the host reading the stop test every
+// few steps) and the two launches around it; the counterpart of the
+// reference's jax.lax.while_loop (multiview_tpu/solver/schur.py:1200-1233),
+// whose test runs on the device. The launch runs:
+//   1. the right-hand side: w = Hpp^-1 g_p, the camera pass with u = 0 into
+//      ap[1], then in every block rhs = -(g_c + ap[1]);
+//   2. the start of cg_step.cuh (x = 0, r = rhs, p = z = M^-1 r, the test);
+//   3. while the test holds (a forced solve: `force` steps, no test) and
+//      fewer than `iterations` steps ran: the matvec's point pass, w = Hpp^-1
+//      g_p, its camera pass into ap[k % 2] (g_p cleared for the next point
+//      pass meanwhile), then the step of cg_step.cuh;
+//   4. the back-substitution's point pass on the final x: u = J_c (cam_free *
+//      x) and J_p^T u into g_p.
+// A step crosses three grid barriers (a fourth where x * cam_free does not
+// fit in shared memory). The step's vector work runs in every block alike:
+// the dots take cg_step.cuh's fixed order in each, so every block reads the
+// same alpha, beta and stop test, the blocks leave the loop together, and the
+// bits are those of cg_step.cu from the same Ap. Each block reads the step's
+// r, p and Ap from L2 (C entries: 1143 at the cube), recomputes the new r and
+// z = M^-1 r where it reads them, stages the next matvec's x * cam_free into
+// its own shared memory and stores its share of x, r, p and the next Ap's
+// start dc * p (every gridDim.x-th stride of kThreads entries); r, p and Ap
+// are double-buffered, so no block overwrites what another still reads. So
+// the start of the next matvec (phase 0 of schur_kernel) needs no barrier of
+// its own. The rows stay in shared memory between the passes: the camera pass
+// walks the tiles in reverse and the point pass forward, each starting on the
+// tiles the other left there, so a system whose rows fit in the blocks'
+// shared memory (calibrate's) reads them from device memory once a solve.
+
+template <typename T>
+struct SolveParams {
+  Params<T> m;              // the system; m.g_p, m.w, m.u_out the passes' scratch
+  const T* g_c;             // [total] the reduced gradient's camera part
+  const T* g_in;            // [num_points, 3] the points' gradient
+  cg_step::Precond<T> pc;
+  T* x;                     // [total] the solution
+  T* r[2];                  // [total] each: the residual, double-buffered
+  T* pv[2];                 // the search direction
+  T* ap[2];                 // S p (ap[1] first holds the right-hand side's camera sum)
+  double* state;            // [4]: rz, stop2, active, the step count
+  double tol2;
+  int iterations, force;
+};
+
+// cg_step.cuh's vectors in the fused solve (see above); cur: the buffer of
+// the step's r, p and Ap, -1 at the start (r = rhs, computed where read)
+template <typename T>
+struct Fused {
+  const SolveParams<T>& q;
+  T* xcf;
+  int cur = -1;
+  double alpha = 0.0;
+  __device__ bool mine(long long i) const {
+    return (i / cg_step::kThreads) % gridDim.x == blockIdx.x;
+  }
+  __device__ int nxt() const { return cur < 0 ? 0 : cur ^ 1; }
+  __device__ T rhs(long long i) const { return -(__ldg(q.g_c + i) + __ldcg(q.ap[1] + i)); }
+  __device__ void set_start(long long i, T r) const {
+    if (mine(i)) {
+      q.r[0][i] = r;
+      q.x[i] = T(0);
+    }
+  }
+  __device__ void sync() const {}
+  __device__ T r(long long i) const { return cur < 0 ? rhs(i) : __ldcg(q.r[cur] + i); }
+  __device__ T p(long long i) const { return __ldcg(q.pv[cur] + i); }
+  __device__ T ap(long long i) const { return __ldcg(q.ap[cur] + i); }
+  __device__ T x(long long i) const { return mine(i) ? __ldcg(q.x + i) : T(0); }
+  __device__ void set_xr(long long i, T x, T r) const {
+    if (mine(i)) {
+      q.x[i] = x;
+      q.r[nxt()][i] = r;
+    }
+  }
+  __device__ T r_new(long long i) const { return cg_step::r_next(r(i), alpha, ap(i)); }
+  __device__ void set_z(long long, T) const {}
+  __device__ T z(long long i) const {
+    return static_cast<T>(cg_step::apply(q.pc, i, [&](long long j) { return r_new(j); }));
+  }
+  __device__ void set_p(long long i, T pn) const {
+    const int o = nxt();
+    if (mine(i)) {
+      q.pv[o][i] = pn;
+      q.ap[o][i] = __ldg(q.m.dc + i) * pn;
+    }
+    if (xcf) xcf[i] = pn * __ldg(q.m.cf + i);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    cg_solve_kernel(const __grid_constant__ SolveParams<T> q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double sh[cg_step::kWarps];
+  const Params<T>& p = q.m;
+  T* const xcf = p.full_x ? reinterpret_cast<T*>(smem + p.off_xcf) : nullptr;
+  Passes<T> b(p, smem, xcf);
+  cg::grid_group grid = cg::this_grid();
+  const long long gt = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long gs = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long n = p.total, P = p.num_points;
+
+  // 1. the right-hand side's camera pass: w = Hpp^-1 g, its sum from 0
+  for (long long i = gt; i < P; i += gs) {
+    const T g[3] = {__ldg(q.g_in + i * 3), __ldg(q.g_in + i * 3 + 1), __ldg(q.g_in + i * 3 + 2)};
+    hpp_solve(p.hpp_inv + i * 9, g, p.w + i * 3);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) p.g_p[i * 3 + j] = T(0);
+  }
+  for (long long i = gt; i < n; i += gs) q.ap[1][i] = T(0);
+  b.zero_sums();
+  __syncthreads();
+  grid.sync();
+  b.c.x = nullptr;
+  b.c.out = q.ap[1];
+  b.camera_pass(0, nullptr);
+  grid.sync();
+
+  // 2. the start, in every block alike
+  Fused<T> v{q, xcf};
+  cg_step::State s = cg_step::start(v, q.pc, n, q.tol2, sh);
+  __syncthreads();
+  if (!xcf) grid.sync();           // the point pass reads p from device memory
+
+  // 3. the steps
+  const bool forced = q.force >= 0;
+  const int limit = forced ? q.force : q.iterations;
+  int k = 0;
+  for (; k < limit && (forced || s.active); ++k) {
+    const int cur = k & 1;
+    b.c.x = q.pv[cur];
+    b.c.out = q.ap[cur];
+    b.point_pass(b.resident(), p.u_out);
+    grid.sync();
+    solve_points(b.c, P);
+    grid.sync();
+    for (long long i = gt; i < 3 * P; i += gs) p.g_p[i] = T(0);
+    b.camera_pass(b.resident(), p.u_out);
+    grid.sync();
+    v.cur = cur;
+    cg_step::step(v, q.pc, n, !forced, s, sh);
+    __syncthreads();
+    if (!xcf) grid.sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    q.state[0] = s.rz;
+    q.state[1] = s.stop2;
+    q.state[2] = s.active ? 1.0 : 0.0;
+    q.state[3] = static_cast<double>(k);
+  }
+
+  // 4. the back-substitution's product
+  grid.sync();                     // every block's share of x
+  b.c.x = q.x;
+  if (xcf)
+    for (long long i = threadIdx.x; i < n; i += blockDim.x)
+      xcf[i] = __ldcg(q.x + i) * __ldg(p.cf + i);
+  __syncthreads();
+  b.point_pass(b.resident(), p.u_out);
+}
+
+// Per-device launch state: SM count and co-resident blocks an SM of each
+// kernel (schur_kernel float, double; cg_solve_kernel float, double)
 struct DeviceState {
   int sms = 0;
-  int blocks[2] = {0, 0};   // float, double
+  int blocks[4] = {0, 0, 0, 0};
 };
 DeviceState g_devices[64];
 
+// Reads the host table into p's families and lays out its shared memory:
+// x * cam_free (where whole), the pose-column copy, the constant columns'
+// sums and x, then the ring of tile slots
 template <typename T>
-cudaError_t run(const long long* table, int families, int passes, const void* x, const void* cf,
-                const void* dc, const void* hpp_inv, long long num_points, long long total,
-                long long num_ref, void* g_p, void* w, void* out, void* u, long long* info,
-                cudaStream_t stream) {
+cudaError_t plan(const long long* table, int families, long long num_points, long long total,
+                 long long num_ref, Params<T>& p) {
   if (families < 0 || families > kMaxFamilies) return cudaErrorInvalidValue;
-  Params<T> p{};
   p.count = families;
-  p.passes = passes;
   int max_const = 0;
   long long chunks = 0, weight = 0;
   for (int i = 0; i < families; ++i) {
@@ -823,22 +940,11 @@ cudaError_t run(const long long* table, int families, int passes, const void* x,
     max_const = std::max(max_const, f.b - kFirstConst);
   }
   p.weight = weight;
-  p.x = static_cast<const T*>(x);
-  p.cf = static_cast<const T*>(cf);
-  p.dc = static_cast<const T*>(dc);
-  p.hpp_inv = static_cast<const T*>(hpp_inv);
-  p.g_p = static_cast<T*>(g_p);
-  p.out = static_cast<T*>(out);
-  p.u_out = static_cast<T*>(u);
-  p.w = static_cast<T*>(w);
-  if ((passes & kCameraPass) && g_p && !w) return cudaErrorInvalidValue;
   p.num_points = num_points;
   p.total = total;
   p.num_ref = num_ref;
   p.max_const = max_const;
   const int elem = sizeof(T);
-  // shared memory: x * cam_free (where whole), the pose-column copy, the
-  // constant columns' sums and x, then the ring of tile slots
   p.full_x = total * elem <= kXBudget;
   p.wposes = static_cast<int>(std::min<long long>(num_ref, kGBudget / (kPoseCols * elem)));
   p.off_xcf = 0;
@@ -863,42 +969,34 @@ cudaError_t run(const long long* table, int families, int passes, const void* x,
   p.tile_rows = rows;
   p.slot_bytes = std::max(slot_bytes(rows), 16);
   p.slots = avail / p.slot_bytes;
+  return cudaSuccess;
+}
 
+// The grid of a cooperative launch of `kernel` (the blocks that fit on the
+// card at once); `which` indexes DeviceState::blocks
+template <typename K>
+cudaError_t grid_of(K kernel, int which, int& grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   DeviceState& ds = g_devices[dev];
-  int& nb = ds.blocks[elem == 8];
+  int& nb = ds.blocks[which];
   if (nb == 0) {
     err = cudaDeviceGetAttribute(&ds.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(schur_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, schur_kernel<T>, kThreads, kSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, kThreads, kSmem);
     if (err != cudaSuccess) return err;
     if (nb < 1) return cudaErrorCooperativeLaunchTooLarge;
   }
-  const int grid = nb * ds.sms;
-  if (info) {
-    // the launch's shape, and the rows the camera pass finds in shared memory
-    long long resident = 0;
-    for (int g = 0; g < grid; ++g) {
-      long long a, b;
-      block_span(p.f, families, p.weight, g, grid, a, b);
-      const int tiles = locate(p.f, families, a, b, rows, -1).rows;
-      for (int i = std::max(0, tiles - p.slots); i < tiles; ++i)
-        resident += locate(p.f, families, a, b, rows, i).rows;
-    }
-    info[0] = grid;
-    info[1] = kThreads;
-    info[2] = rows;
-    info[3] = p.slots;
-    info[4] = (passes & kPointPass) && (passes & kCameraPass) ? resident : 0;
-    info[5] = p.wposes;
-    info[6] = p.full_x;
-    info[7] = p.copies;
-  }
+  grid = nb * ds.sms;
+  return cudaSuccess;
+}
+
+template <typename K, typename P>
+cudaError_t launch_cooperative(K kernel, const P& params, int grid, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
   cfg.blockDim = dim3(kThreads);
@@ -909,9 +1007,114 @@ cudaError_t run(const long long* table, int families, int passes, const void* x,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, schur_kernel<T>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, params);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The launch's shape (see mv_schur and mv_cg_solve): the rows the walks find
+// in shared memory at their start (the first min(tiles, slots) tiles of each
+// block's span with `first`, else the last ones), and the bytes of rows a
+// point pass and a camera pass read from device memory when each starts on
+// the tiles the other left
+template <typename T>
+void report(const Params<T>& p, int grid, bool first, long long* info) {
+  long long resident = 0, reread = 0;
+  for (int g = 0; g < grid; ++g) {
+    long long a, b;
+    block_span(p.f, p.count, p.weight, g, grid, a, b);
+    const int tiles = locate(p.f, p.count, a, b, p.tile_rows, -1).rows;
+    const int kept = std::min(tiles, p.slots);
+    for (int i = 0; i < tiles; ++i) {
+      const TileRef t = locate(p.f, p.count, a, b, p.tile_rows, i);
+      if (first ? i < kept : i >= tiles - kept) resident += t.rows;
+      // the point pass reads tiles kept.., the camera pass ..tiles - kept
+      reread += ((i >= kept) + (i < tiles - kept)) * static_cast<long long>(t.rows) *
+                p.f[t.f].weight;
+    }
+  }
+  info[0] = grid;
+  info[1] = kThreads;
+  info[2] = p.tile_rows;
+  info[3] = p.slots;
+  info[4] = resident;
+  info[5] = p.wposes;
+  info[6] = p.full_x;
+  info[7] = p.copies;
+  info[8] = reread;
+}
+
+template <typename T>
+cudaError_t run(const long long* table, int families, int passes, const void* x, const void* cf,
+                const void* dc, const void* hpp_inv, long long num_points, long long total,
+                long long num_ref, void* g_p, void* w, void* out, void* u, long long* info,
+                cudaStream_t stream) {
+  Params<T> p{};
+  cudaError_t err = plan(table, families, num_points, total, num_ref, p);
+  if (err != cudaSuccess) return err;
+  p.passes = passes;
+  p.x = static_cast<const T*>(x);
+  p.cf = static_cast<const T*>(cf);
+  p.dc = static_cast<const T*>(dc);
+  p.hpp_inv = static_cast<const T*>(hpp_inv);
+  p.g_p = static_cast<T*>(g_p);
+  p.out = static_cast<T*>(out);
+  p.u_out = static_cast<T*>(u);
+  p.w = static_cast<T*>(w);
+  if ((passes & kCameraPass) && g_p && !w) return cudaErrorInvalidValue;
+  int grid = 0;
+  err = grid_of(schur_kernel<T>, sizeof(T) == 8, grid);
+  if (err != cudaSuccess) return err;
+  if (info) {
+    long long shape[9];
+    report(p, grid, false, shape);
+    // the rows the camera pass finds in shared memory (after its point pass)
+    if (!((passes & kPointPass) && (passes & kCameraPass))) shape[4] = 0;
+    std::copy(shape, shape + 8, info);
+  }
+  return launch_cooperative(schur_kernel<T>, p, grid, stream);
+}
+
+template <typename T>
+cudaError_t run_solve(const long long* table, int families, const void* cf, const void* dc,
+                      const void* hpp_inv, const void* g_c, const void* g_in,
+                      const void* precond, const void* pose_inv, long long nposes,
+                      long long num_points, long long total, long long num_ref, int iterations,
+                      int force, double tol2, void* x, void* r, void* pv, void* ap, void* u,
+                      void* g_p, void* w, double* state, long long* info, cudaStream_t stream) {
+  if (total < 1 || nposes < 0 || 7 * nposes > total || (nposes > 0 && !pose_inv) ||
+      iterations < 0 || force < -1 || !g_c || !g_in || !precond || !x || !r || !pv || !ap ||
+      !u || !g_p || !w || !state)
+    return cudaErrorInvalidValue;
+  SolveParams<T> q{};
+  cudaError_t err = plan(table, families, num_points, total, num_ref, q.m);
+  if (err != cudaSuccess) return err;
+  Params<T>& p = q.m;
+  p.passes = kPointPass | kCameraPass;
+  p.cf = static_cast<const T*>(cf);
+  p.dc = static_cast<const T*>(dc);
+  p.hpp_inv = static_cast<const T*>(hpp_inv);
+  p.g_p = static_cast<T*>(g_p);
+  p.w = static_cast<T*>(w);
+  p.u_out = static_cast<T*>(u);
+  q.g_c = static_cast<const T*>(g_c);
+  q.g_in = static_cast<const T*>(g_in);
+  q.pc = {static_cast<const T*>(precond), static_cast<const T*>(pose_inv), nposes};
+  q.x = static_cast<T*>(x);
+  for (int i = 0; i < 2; ++i) {
+    q.r[i] = static_cast<T*>(r) + i * total;
+    q.pv[i] = static_cast<T*>(pv) + i * total;
+    q.ap[i] = static_cast<T*>(ap) + i * total;
+  }
+  q.state = state;
+  q.tol2 = tol2;
+  q.iterations = iterations;
+  q.force = force;
+  int grid = 0;
+  err = grid_of(cg_solve_kernel<T>, 2 + (sizeof(T) == 8), grid);
+  if (err != cudaSuccess) return err;
+  if (info) report(p, grid, true, info);
+  return launch_cooperative(cg_solve_kernel<T>, q, grid, stream);
 }
 
 }  // namespace
@@ -945,5 +1148,41 @@ extern "C" int mv_schur(int elem, const long long* table, int families, int pass
   if (elem == 8)
     return run<double>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
                        num_ref, g_p, w, out, u, info, s);
+  return cudaErrorInvalidValue;
+}
+
+// The whole CG of one LM iteration on one shard: one cooperative launch on
+// `stream`, without synchronising; returns the first CUDA error (0 for none).
+// `table`, `elem`, cam_free [total], dc [total], hpp_inv [num_points, 3, 3]
+// as mv_schur takes them; g_c [total] and g_p_in [num_points, 3] the
+// gradient (rhs = -(g_c - cam_free * J_c^T J_p Hpp^-1 g_p_in)); precond
+// [total] and pose_inv [nposes, 7, 7] (null with nposes 0) the
+// preconditioner. It runs CG from x = 0 while |r|^2 > tol2 |rhs|^2 and fewer
+// than `iterations` steps ran, or, with force >= 0, exactly `force` steps
+// with no test. Outputs: x [total]; state [4] float64: rz, stop2, whether a
+// next step would run, the steps run. Scratch: r, p, ap [2 total] each, u
+// [sum n k] (zeros where a family has no camera block), g_p and w
+// [num_points, 3]; u ends as J_c (cam_free * x) and g_p as J_p^T u (the
+// back-substitution's product). `info` (null: not asked) receives the grid, the threads a block,
+// the rows a tile, the ring's slots, the rows a point pass finds in shared
+// memory at its start, the pose window, whether x * cam_free is kept whole in
+// shared memory, the copies of the pose columns, and the bytes of rows a step
+// reads from device memory.
+extern "C" int mv_cg_solve(int elem, const long long* table, int families, const void* cam_free,
+                           const void* dc, const void* hpp_inv, const void* g_c,
+                           const void* g_p_in, const void* precond, const void* pose_inv,
+                           long long nposes, long long num_points, long long total,
+                           long long num_ref, int iterations, int force, double tol2, void* x,
+                           void* r, void* p, void* ap, void* u, void* g_p, void* w,
+                           double* state, long long* info, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem == 4)
+    return run_solve<float>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
+                            pose_inv, nposes, num_points, total, num_ref, iterations, force, tol2,
+                            x, r, p, ap, u, g_p, w, state, info, s);
+  if (elem == 8)
+    return run_solve<double>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
+                             pose_inv, nposes, num_points, total, num_ref, iterations, force,
+                             tol2, x, r, p, ap, u, g_p, w, state, info, s);
   return cudaErrorInvalidValue;
 }

@@ -14,7 +14,10 @@ from one LM iteration's row blocks, residuals and damping ``lam``,
 kernel ``csrc/lm_assembly.cu`` (``assemble_cuda``: one cooperative launch on
 one shard; with several shards a rows-pass launch a shard, a points-pass
 launch, a blocks-pass launch a shard and a poses-pass launch, the shards'
-sums added between them); it computes in float64 and rounds its outputs. On
+sums added between them); it computes in float64 and rounds its outputs. An
+``AssemblyPlan`` kept over a solve holds the kernel's table, checked once,
+and its outputs and scratch, allocated once; each LM iteration refreshes
+only the pointers of its J and r. On
 CPU tensors it runs the plain composition the solver held before the kernel
 existed (``assemble_plain``); nothing on the card gives way to it.
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -44,10 +48,18 @@ SOURCE = "lm_assembly.cu"
 # kernel launches of csrc/lm_assembly.cu, one each
 LAUNCHES = 0
 # with RECORD_LAUNCH set, the shape of the last launch (LAST_LAUNCH): grid,
-# threads a block, dynamic shared memory, whether the camera sums and the pose
-# blocks' sums took a copy a warp in shared memory, chunks of 32 rows
+# threads a block, dynamic shared memory, the poses of the warps' window
+# copies in shared memory, rows a tile, the ring's slots, chunks of 32 rows,
+# the rows the blocks pass found in shared memory, the bytes of rows read
+# from device memory
 RECORD_LAUNCH = False
 LAST_LAUNCH: dict = {}
+# with RECORD_MARKS set, LAST_MARKS: the last launch's %globaltimer stamps,
+# [_MAX_GRID, 5] int64, a row a block (its start and the end of each pass it
+# ran; rows past the grid and passes not run stay 0)
+RECORD_MARKS = False
+LAST_MARKS: Optional[torch.Tensor] = None
+_MAX_GRID = 1024
 _FIELDS = 10            # int64 fields of one family in the kernel's table
 _MAX_FAMILIES = 32      # families a shard the kernel takes
 _ROWS, _POINTS, _BLOCKS, _POSES = 1, 2, 4, 8  # the kernel's passes
@@ -163,7 +175,7 @@ def _lib():
     lib = cuda_build.load_library(SOURCE)
     if lib.mv_lm_assembly.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_lm_assembly.argtypes = [i32, p, i32, i32, p, p, i64, i64, i64] + [p] * 15
+        lib.mv_lm_assembly.argtypes = [i32, p, i32, i32, i32, p, p, i64, i64, i64] + [p] * 16
         lib.mv_lm_assembly.restype = ctypes.c_int
     return lib
 
@@ -171,69 +183,112 @@ def _lib():
 _check = functools.partial(cuda_build.check_tensor, "lm_assembly kernel")
 
 
-def _table(fams, jc, jp, r: Optional[torch.Tensor], dtype, dev, s: int):
-    """The kernel's table of one shard's families (and the count)."""
-    i64 = torch.int64
-    fields, off = [], 0
-    for i, (f, a, b) in enumerate(zip(fams, jc, jp)):
-        if a is None and b is None:
-            raise ValueError(f"lm_assembly kernel: shard {s}'s family {i} has no block")
-        n, k = (b if a is None else a).shape[:2]
-        if k not in (2, 3):
-            raise ValueError(f"lm_assembly kernel: shard {s}'s family {i} has {k} components "
-                             f"a row, expected 2 or 3")
-        B = 0
-        if a is not None:
-            if a.dim() != 3 or a.shape[2] < 14:
-                raise ValueError(f"lm_assembly kernel: family {i}'s camera block has shape "
-                                 f"{tuple(a.shape)}, expected [N, k, B >= 14]")
-            B = a.shape[2]
-            _check(f"family {i}'s camera block", a, (n, k, B), dtype, dev)
-            _check(f"family {i}'s beg_idx", f.beg_idx, (n,), i64, dev)
-            _check(f"family {i}'s end_idx", f.end_idx, (n,), i64, dev)
-            _check(f"family {i}'s const_cols", f.const_cols, (B - 14,), i64, dev)
-        if b is not None:
-            _check(f"family {i}'s point block", b, (n, k, 3), dtype, dev)
-            _check(f"family {i}'s point_idx", f.point_idx, (n,), i64, dev)
-        fields += [0 if a is None else a.data_ptr(), 0 if b is None else b.data_ptr(),
-                   0 if a is None else f.beg_idx.data_ptr(),
-                   0 if a is None else f.end_idx.data_ptr(),
-                   0 if a is None else f.const_cols.data_ptr(),
-                   0 if b is None else f.point_idx.data_ptr(),
-                   0 if r is None else r.data_ptr() + off * r.element_size(), n, k, B]
-        off += n * k
-    if len(fams) > _MAX_FAMILIES:
-        raise ValueError(f"lm_assembly kernel: shard {s} has {len(fams)} families, more than "
-                         f"the kernel's {_MAX_FAMILIES}")
-    if r is not None:
-        _check(f"shard {s}'s residuals", r, (off,), dtype, dev)
-    return (ctypes.c_longlong * max(len(fields), 1))(*fields), len(fams)
+class _ShardTable:
+    """One shard's families in the kernel's table (``_FIELDS`` int64 each),
+    their tensors checked once; ``refresh`` points it at one LM iteration's
+    J and r (the index tensors stay those of the solve)."""
+
+    def __init__(self, fams, jc, jp, r: Optional[torch.Tensor], dtype, dev, s: int):
+        i64 = torch.int64
+        fields, self.shapes, off = [], [], 0
+        for i, (f, a, b) in enumerate(zip(fams, jc, jp)):
+            if a is None and b is None:
+                raise ValueError(f"lm_assembly kernel: shard {s}'s family {i} has no block")
+            n, k = (b if a is None else a).shape[:2]
+            if k not in (2, 3):
+                raise ValueError(f"lm_assembly kernel: shard {s}'s family {i} has {k} components "
+                                 f"a row, expected 2 or 3")
+            B = 0
+            if a is not None:
+                if a.dim() != 3 or a.shape[2] < 14:
+                    raise ValueError(f"lm_assembly kernel: family {i}'s camera block has shape "
+                                     f"{tuple(a.shape)}, expected [N, k, B >= 14]")
+                B = a.shape[2]
+                _check(f"family {i}'s camera block", a, (n, k, B), dtype, dev)
+                _check(f"family {i}'s beg_idx", f.beg_idx, (n,), i64, dev)
+                _check(f"family {i}'s end_idx", f.end_idx, (n,), i64, dev)
+                _check(f"family {i}'s const_cols", f.const_cols, (B - 14,), i64, dev)
+            if b is not None:
+                _check(f"family {i}'s point block", b, (n, k, 3), dtype, dev)
+                _check(f"family {i}'s point_idx", f.point_idx, (n,), i64, dev)
+            fields += [0, 0, 0 if a is None else f.beg_idx.data_ptr(),
+                       0 if a is None else f.end_idx.data_ptr(),
+                       0 if a is None else f.const_cols.data_ptr(),
+                       0 if b is None else f.point_idx.data_ptr(), 0, n, k, B]
+            self.shapes.append((None if a is None else tuple(a.shape),
+                                None if b is None else tuple(b.shape), off))
+            off += n * k
+        if len(fams) > _MAX_FAMILIES:
+            raise ValueError(f"lm_assembly kernel: shard {s} has {len(fams)} families, more "
+                             f"than the kernel's {_MAX_FAMILIES}")
+        if r is not None:
+            _check(f"shard {s}'s residuals", r, (off,), dtype, dev)
+        self.rows = off
+        self.table = (ctypes.c_longlong * max(len(fields), 1))(*fields)
+        self.families = len(fams)
+        self.refresh(jc, jp, r)
+
+    def refresh(self, jc, jp, r: Optional[torch.Tensor]) -> None:
+        """The J and r pointers of this iteration's tensors (each of the
+        solve's shape, contiguous: ``torch.where`` of two such makes one)."""
+        if r is not None and (r.numel() != self.rows or not r.is_contiguous()):
+            raise ValueError(f"lm_assembly kernel: {r.numel()} residuals for the table's "
+                             f"{self.rows}, or not contiguous")
+        t = self.table
+        for i, ((sa, sb, off), a, b) in enumerate(zip(self.shapes, jc, jp)):
+            for shape, x in ((sa, a), (sb, b)):
+                if (x is None) != (shape is None) or (x is not None and (
+                        tuple(x.shape) != shape or not x.is_contiguous())):
+                    raise ValueError(f"lm_assembly kernel: family {i}'s block is not of the "
+                                     f"solve's shape {shape}, or not contiguous")
+            t[i * _FIELDS] = 0 if a is None else a.data_ptr()
+            t[i * _FIELDS + 1] = 0 if b is None else b.data_ptr()
+            t[i * _FIELDS + 6] = 0 if r is None else r.data_ptr() + off * r.element_size()
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(passes: int, table, families: int, dev, cam_free, lam, num_points: int,
-            num_ref: int, acc=None, blocks=None, hinv=None, out: Optional[dict] = None,
-            singular=None) -> None:
+_OUTPUTS = ("g_c", "g_p", "hpp", "cam_diag", "pt_diag", "hpp_inv", "dc", "precond", "pose_inv")
+_INFO = ("grid", "threads", "shared_bytes", "window_poses", "tile_rows", "slots", "chunks",
+         "resident_rows", "row_bytes_read")
+
+
+def _launch(passes: int, zero_first: bool, table: _ShardTable, dev, cam_free, lam,
+            num_points: int, num_ref: int, acc=None, blocks=None, hinv=None,
+            out: Optional[dict] = None, singular=None) -> None:
     """One cooperative launch of csrc/lm_assembly.cu on ``dev``."""
-    global LAUNCHES, LAST_LAUNCH
+    global LAUNCHES, LAST_LAUNCH, LAST_MARKS
     out = out or {}
-    info = (ctypes.c_longlong * 6)() if RECORD_LAUNCH else None
-    names = ("g_c", "g_p", "hpp", "cam_diag", "pt_diag", "hpp_inv", "dc", "precond", "pose_inv")
+    info = (ctypes.c_longlong * len(_INFO))() if RECORD_LAUNCH else None
+    marks = torch.zeros((_MAX_GRID, 5), dtype=torch.int64, device=dev) if RECORD_MARKS else None
     with torch.cuda.device(dev):
         err = _lib().mv_lm_assembly(
-            cam_free.element_size(), table, families, passes, cam_free.data_ptr(),
-            lam.data_ptr(), num_points, cam_free.shape[0], num_ref, _ptr(acc), _ptr(blocks),
-            _ptr(hinv), *(_ptr(out.get(k)) for k in names), _ptr(singular), info,
-            torch.cuda.current_stream(dev).cuda_stream)
+            cam_free.element_size(), table.table, table.families, passes, int(zero_first),
+            cam_free.data_ptr(), lam.data_ptr(), num_points, cam_free.shape[0], num_ref,
+            _ptr(acc), _ptr(blocks), _ptr(hinv), *(_ptr(out.get(k)) for k in _OUTPUTS),
+            _ptr(singular), _ptr(marks), info, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lm_assembly kernel (passes {passes}) failed with cudaError {err}")
     LAUNCHES += 1
     if info is not None:
-        LAST_LAUNCH = dict(zip(("grid", "threads", "shared_bytes", "camera_copies",
-                                "block_copies", "chunks"), list(info)), passes=passes)
+        LAST_LAUNCH = dict(zip(_INFO, list(info)), passes=passes)
+    if marks is not None:
+        LAST_MARKS = marks
+
+
+_EMPTY = types.SimpleNamespace(table=(ctypes.c_longlong * 1)(), families=0)
+
+
+def _require_card(lead, devs) -> None:
+    """Raises where the lead shard or a shard does not lie on a CUDA device."""
+    if lead.type != "cuda":
+        raise ValueError(f"lm_assembly kernel: the lead shard lies on {lead}, not on a CUDA "
+                         f"device")
+    for s, d in enumerate(devs):
+        if d.type != "cuda":
+            raise ValueError(f"lm_assembly kernel: shard {s} lies on {d}, not on a CUDA device")
 
 
 def new_flag(device) -> torch.Tensor:
@@ -241,72 +296,109 @@ def new_flag(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
+class AssemblyPlan:
+    """What the kernel's launches of one solve share: each shard's table,
+    its tensors checked once (each launch refreshes only the J and r
+    pointers), the outputs and the float64 scratch, allocated once (the
+    single-shard launch leaves its scratch at 0 for the next). The outputs
+    of one call are overwritten by the next: read them before it. Built at
+    the first call on the card; a call with other families, mesh, dtype or
+    sizes builds it anew."""
+
+    def __init__(self):
+        self._key = self._cam_free = self._singular = None
+
+    def _build(self, key, mesh: ShardMesh, shards, J, r, cam_free, num_ref: int,
+               num_points: int, block_precond: bool) -> None:
+        lead = _device(mesh.lead)
+        dtype, C, P, R = cam_free.dtype, cam_free.shape[0], num_points, num_ref
+        self.devs = [_device(d) for d in mesh.devices]
+        _require_card(lead, self.devs)
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"lm_assembly kernel: float32 or float64, got {dtype}")
+        self.tables = [_ShardTable(fams, jc, jp, None if r is None else r[s], dtype,
+                                   self.devs[s], s)
+                       for s, (fams, (jc, jp)) in enumerate(zip(shards, J))]
+        f64 = torch.float64
+        self.out = {"hpp": torch.empty((P, 3, 3), dtype=dtype, device=lead),
+                    "cam_diag": torch.empty(C, dtype=dtype, device=lead),
+                    "pt_diag": torch.empty((P, 3), dtype=dtype, device=lead),
+                    "hpp_inv": torch.empty((P, 3, 3), dtype=dtype, device=lead),
+                    "dc": torch.empty(C, dtype=dtype, device=lead),
+                    "precond": torch.empty(C, dtype=dtype, device=lead)}
+        if r is not None:
+            self.out["g_c"] = torch.empty(C, dtype=dtype, device=lead)
+            self.out["g_p"] = torch.empty((P, 3), dtype=dtype, device=lead)
+        if block_precond:
+            self.out["pose_inv"] = torch.empty((R, 7, 7), dtype=dtype, device=lead)
+        self.hinv = torch.empty(P * 9, dtype=f64, device=lead) if block_precond else None
+        acc_len = 2 * C + 9 * P
+        if mesh.size == 1:
+            # the launch finds its sums at 0 and leaves them so
+            self.acc = [torch.zeros(acc_len, dtype=f64, device=lead)]
+            self.blocks = [torch.zeros(R * 28, dtype=f64, device=lead)] if block_precond \
+                else [None]
+        else:
+            self.acc = [torch.empty(acc_len, dtype=f64, device=d) for d in self.devs]
+            self.blocks = [torch.empty(R * 28, dtype=f64, device=d) if block_precond else None
+                           for d in self.devs]
+        self._mesh, self._shards, self._key = mesh, shards, key
+
+    def __call__(self, mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
+                 cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
+                 block_precond: bool, singular: Optional[torch.Tensor] = None) -> Assembly:
+        key = (cam_free.dtype, r is None, block_precond, cam_free.shape[0], num_points, num_ref)
+        if not (self._key == key and self._mesh is mesh and self._shards is shards):
+            self._build(key, mesh, shards, J, r, cam_free, num_ref, num_points, block_precond)
+        else:
+            for s, (table, (jc, jp)) in enumerate(zip(self.tables, J)):
+                table.refresh(jc, jp, None if r is None else r[s])
+        lead, P, R = _device(mesh.lead), num_points, num_ref
+        # cam_free and the flag stay over a solve: checked when they change;
+        # lam is new each LM iteration: its dtype, device and shape
+        if cam_free is not self._cam_free:
+            _check("cam_free", cam_free, (cam_free.shape[0],), cam_free.dtype, lead)
+            self._cam_free = cam_free
+        if not (lam.dtype == cam_free.dtype and lam.device == lead and lam.dim() == 0):
+            _check("lam", lam, (), cam_free.dtype, lead)
+        if block_precond:
+            if singular is None:
+                singular = new_flag(lead)
+            if singular is not self._singular:
+                _check("the singular flag", singular, (), torch.int32, lead)
+                self._singular = singular
+        out, hinv = self.out, self.hinv
+        if mesh.size == 1:
+            # one shard over every process: one launch of every pass
+            passes = _ROWS | _POINTS | ((_BLOCKS | _POSES) if block_precond else 0)
+            _launch(passes, False, self.tables[0], lead, cam_free, lam, P, R, self.acc[0],
+                    self.blocks[0], hinv, out, singular)
+        else:
+            for table, acc, d in zip(self.tables, self.acc, self.devs):
+                _launch(_ROWS, True, table, d, cam_free.to(d), lam.to(d), P, R, acc)
+            acc = mesh.sum(self.acc)
+            _launch(_POINTS, True, _EMPTY, lead, cam_free, lam, P, R, acc, None, hinv, out)
+            if block_precond:
+                for table, part, d in zip(self.tables, self.blocks, self.devs):
+                    _launch(_BLOCKS, True, table, d, cam_free.to(d), lam.to(d), P, R, None, part,
+                            hinv.to(d))
+                _launch(_POSES, True, _EMPTY, lead, cam_free, lam, P, R, acc,
+                        mesh.sum(self.blocks), None, out, singular)
+        return Assembly(*(out.get(k) for k in _OUTPUTS))
+
+
 def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
                   cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
-                  block_precond: bool, singular: Optional[torch.Tensor] = None) -> Assembly:
+                  block_precond: bool, singular: Optional[torch.Tensor] = None,
+                  plan: Optional[AssemblyPlan] = None) -> Assembly:
     """The assembly on the card: one cooperative launch on one shard, else a
     launch a pass and shard with ``mesh.sum`` between them. ``singular`` (an
     int32 0-d tensor on the lead device, from ``new_flag``) is set to 1 where
     a 7x7 block is singular; without it the kernel sets a flag of its own
-    that nothing reads."""
-    lead = _device(mesh.lead)
-    dtype, C, P, R = cam_free.dtype, cam_free.shape[0], num_points, num_ref
-    if lead.type != "cuda":
-        raise ValueError(f"lm_assembly kernel: the lead shard lies on {lead}, not on a CUDA "
-                         f"device")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"lm_assembly kernel: float32 or float64, got {dtype}")
-    _check("cam_free", cam_free, (C,), dtype, lead)
-    _check("lam", lam, (), dtype, lead)
-    if block_precond:
-        if singular is None:
-            singular = new_flag(lead)
-        _check("the singular flag", singular, (), torch.int32, lead)
-    devs = [_device(d) for d in mesh.devices]
-    for s, d in enumerate(devs):
-        if d.type != "cuda":
-            raise ValueError(f"lm_assembly kernel: shard {s} lies on {d}, not on a CUDA device")
-    tables = [_table(fams, jc, jp, None if r is None else r[s], dtype, devs[s], s)
-              for s, (fams, (jc, jp)) in enumerate(zip(shards, J))]
-    f64 = torch.float64
-    out = {"hpp": torch.empty((P, 3, 3), dtype=dtype, device=lead),
-           "cam_diag": torch.empty(C, dtype=dtype, device=lead),
-           "pt_diag": torch.empty((P, 3), dtype=dtype, device=lead),
-           "hpp_inv": torch.empty((P, 3, 3), dtype=dtype, device=lead),
-           "dc": torch.empty(C, dtype=dtype, device=lead),
-           "precond": torch.empty(C, dtype=dtype, device=lead)}
-    if r is not None:
-        out["g_c"] = torch.empty(C, dtype=dtype, device=lead)
-        out["g_p"] = torch.empty((P, 3), dtype=dtype, device=lead)
-    if block_precond:
-        out["pose_inv"] = torch.empty((R, 7, 7), dtype=dtype, device=lead)
-    hinv = torch.empty(P * 9, dtype=f64, device=lead) if block_precond else None
-    acc_len = 2 * C + 9 * P
-    if mesh.size == 1:
-        # one shard over every process: one launch of every pass
-        acc = torch.empty(acc_len, dtype=f64, device=lead)
-        blocks = torch.empty(R * 28, dtype=f64, device=lead) if block_precond else None
-        passes = _ROWS | _POINTS | ((_BLOCKS | _POSES) if block_precond else 0)
-        _launch(passes, *tables[0], lead, cam_free, lam, P, R, acc, blocks, hinv, out, singular)
-    else:
-        accs = []
-        for (table, n), d in zip(tables, devs):
-            accs.append(torch.empty(acc_len, dtype=f64, device=d))
-            _launch(_ROWS, table, n, d, cam_free.to(d), lam.to(d), P, R, accs[-1])
-        acc = mesh.sum(accs)
-        empty = (ctypes.c_longlong * 1)()
-        _launch(_POINTS, empty, 0, lead, cam_free, lam, P, R, acc, None, hinv, out)
-        if block_precond:
-            parts = []
-            for (table, n), d in zip(tables, devs):
-                parts.append(torch.empty(R * 28, dtype=f64, device=d))
-                _launch(_BLOCKS, table, n, d, cam_free.to(d), lam.to(d), P, R, None, parts[-1],
-                        hinv.to(d))
-            _launch(_POSES, empty, 0, lead, cam_free, lam, P, R, acc, mesh.sum(parts), None,
-                    out, singular)
-    return Assembly(out.get("g_c"), out.get("g_p"), out["hpp"], out["cam_diag"],
-                    out["pt_diag"], out["hpp_inv"], out["dc"], out["precond"],
-                    out.get("pose_inv"))
+    that nothing reads. ``plan`` (an ``AssemblyPlan`` kept over a solve)
+    reuses its table and buffers; without it the call builds its own."""
+    return (plan or AssemblyPlan())(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
+                                    block_precond, singular)
 
 
 # ----------------------------------------------------------------------------
@@ -316,24 +408,34 @@ def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]
 
 def assemble(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
              cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
-             block_precond: bool, singular: Optional[torch.Tensor] = None) -> Assembly:
+             block_precond: bool, singular: Optional[torch.Tensor] = None,
+             plan: Optional[AssemblyPlan] = None) -> Assembly:
     """One LM iteration's assembly: ``shards`` per local shard of ``mesh`` its
     families, ``J`` per shard (camera blocks [N,k,B] or None, point blocks
     [N,k,3] or None) in family order, ``r`` per shard the flat residuals
     (None: no gradient), ``cam_free`` [C] and the 0-d ``lam`` on the lead
     device; ``block_precond``: also SCHUR_JACOBI's 7x7 inverses. The plain
-    version for CPU tensors, the kernel for CUDA ones."""
-    fn = assemble_plain if cam_free.device.type == "cpu" else assemble_cuda
-    return fn(mesh, shards, J, r, cam_free, lam, num_ref, num_points, block_precond, singular)
+    version for CPU tensors, the kernel for CUDA ones (``plan``: see
+    ``assemble_cuda``; the plain version takes none)."""
+    if cam_free.device.type == "cpu":
+        return assemble_plain(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
+                              block_precond, singular)
+    return assemble_cuda(mesh, shards, J, r, cam_free, lam, num_ref, num_points, block_precond,
+                         singular, plan)
 
 
-def stop_test(done: torch.Tensor, singular: torch.Tensor) -> bool:
+def stop_test(done: torch.Tensor, singular: torch.Tensor, count: Optional[torch.Tensor] = None):
     """``bool(done)`` and the singular-block flag in one host sync; raises
     ``torch.linalg.LinAlgError`` where the kernel found a singular 7x7 block
-    (as ``torch.linalg.inv`` does on the CPU)."""
-    state = int(done.to(torch.int32) + 2 * singular.to(done.device))
+    (as ``torch.linalg.inv`` does on the CPU). With ``count`` (a 0-d int64
+    tensor on done's device) it is read in the same sync, and
+    ``(bool(done), int(count))`` is returned."""
+    state = done.to(torch.int64) + 2 * singular.to(done.device)
+    if count is not None:
+        state = state + 4 * count
+    state = int(state)
     if state & 2:
         raise torch.linalg.LinAlgError(
             "lm_assembly kernel: a SCHUR_JACOBI 7x7 pose block is singular (a zero pivot); "
             "its inverse could not be completed")
-    return bool(state & 1)
+    return bool(state & 1) if count is None else (bool(state & 1), state >> 2)

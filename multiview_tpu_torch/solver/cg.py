@@ -14,11 +14,14 @@ one on the rest), both from ``solver/assembly.py``.
 
 On CUDA tensors the vector work of a step runs the hand-written kernel
 ``csrc/cg_step.cu``: one start launch, then one launch a step after the
-caller's matvec (``pcg_cuda``); its dots are taken in a fixed order, so two
-processes with the same inputs get the same bits. On CPU tensors it runs the
-plain loop (``pcg_plain``) that the solver held before the kernel existed;
-nothing on the card gives way to it. ``LAUNCHES`` counts the kernel's
-launches."""
+caller's matvec (``pcg_cuda``); its dots are taken in a fixed order
+(``csrc/cg_step.cuh``), so two processes with the same inputs get the same
+bits. On CPU tensors it runs the plain loop (``pcg_plain``) that the solver
+held before the kernel existed; nothing on the card gives way to it.
+``LAUNCHES`` counts the kernel's launches. This per-step path serves several
+shards and the linear solvers whose matvec is not ``csrc/schur_mv.cu``'s; one
+shard of ``cg_blocks`` runs its whole CG in one launch
+(``solver/cg_solve.py``), with the same step arithmetic."""
 
 from __future__ import annotations
 

@@ -20,20 +20,25 @@ explicit per-row block Jacobians:
   matvec, its right-hand side and the back-substitution's product
   (``solver/schur_matvec.py``) run the hand-written kernel
   ``csrc/schur_mv.cu`` on the card and those gathers and sums on the CPU;
+  on one shard the whole CG of an LM iteration with both products is one
+  launch of that kernel's ``cg_solve_kernel`` (``solver/cg_solve.py``), the
+  stop test taken on the device at every step;
 - the gradient, Hpp [P,3,3], the Jacobi diagonal and the 7x7 SCHUR_JACOBI
   pose blocks are assembled once per LM iteration, Hpp+lam*D inverted in
   closed form and the pose blocks by LU (``solver/assembly.py``: on the card
   the hand-written kernel ``csrc/lm_assembly.cu``, one launch an LM
   iteration on one shard);
-- the preconditioned CG (``solver/cg.py``) runs its vector work in the
-  hand-written kernel ``csrc/cg_step.cu`` on the card, one launch a step
-  after the matvec, and as the plain loop on the CPU.
+- elsewhere (several shards, the other linear solvers) the preconditioned
+  CG (``solver/cg.py``) runs its vector work in the hand-written kernel
+  ``csrc/cg_step.cu`` on the card, one launch a step after the matvec, and
+  as the plain loop on the CPU.
 
 The other linear solvers of the reference (``cg``, ``cg_dense_j``,
 ``dense_schur``) share that loop; ``make_schur_solver`` says how each
-differs. CG stops at the reference's test, read on the host every
-``CG_CHECK_EVERY`` iterations; the LM loop syncs with the host once per
-iteration for its stop test. Every residual family of the problem
+differs. CG stops at the reference's test: on the device at every step in
+the one-launch solve, else read on the host every ``CG_CHECK_EVERY``
+iterations; the LM loop syncs with the host once per iteration for its stop
+test. Every residual family of the problem
 is supported: pixel reprojection, depth against the triangulated point,
 depth against the mesh (camera side only: it touches no point) and xyz
 priors (point side only).
@@ -61,7 +66,7 @@ import torch
 
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
-from multiview_tpu_torch.solver import assembly, cg, schur_matvec as smv
+from multiview_tpu_torch.solver import assembly, cg, cg_solve, schur_matvec as smv
 from multiview_tpu_torch.solver.row_blocks import (  # noqa: F401  (re-exported)
     depth_row_blocks, pixel_row_blocks, prior_row_blocks)
 
@@ -106,9 +111,11 @@ def cam_layout(template: prob.RigState) -> CamLayout:
 LINEAR_SOLVERS = ("cg", "cg_blocks", "cg_dense_j", "dense_schur")
 
 # CG's stop test is read on the host once every this many iterations (one
-# sync each); the iterations in between that follow convergence are masked
-# to no-ops, so x and the CG count are those of a test at every iteration,
-# and a solve runs at most CG_CHECK_EVERY - 1 matvecs past convergence
+# sync each) where the host drives the CG step by step (several shards, the
+# other linear solvers, the CPU); the iterations in between that follow
+# convergence are masked to no-ops, so x and the CG count are those of a test
+# at every iteration, and a solve runs at most CG_CHECK_EVERY - 1 matvecs
+# past convergence. The one-launch CG solve on the card tests every step
 CG_CHECK_EVERY = 2
 
 
@@ -411,6 +418,12 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         iterations = 0
         # set on the card where a SCHUR_JACOBI block is singular; read at the host syncs
         singular = assembly.new_flag(device)
+        # the assembly kernel's table and buffers, kept over the solve
+        asm_plan = assembly.AssemblyPlan()
+        # the matvecs of the one-launch CG solves on the card (their CG
+        # steps), read at the host syncs
+        solve_matvecs = torch.zeros((), dtype=torch.int64, device=device)
+        on_card = 0
 
         for _ in range(debug_unroll_lm or max_iterations):
             # the products with J and J^T of this iteration: the row blocks,
@@ -439,7 +452,8 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             # and the preconditioner: csrc/lm_assembly.cu on the card, plain
             # on the CPU
             asm = assembly.assemble(mesh, shards, J, None if linear_solver == "cg" else r,
-                                    cam_free, lam, num_ref, num_points, block_precond, singular)
+                                    cam_free, lam, num_ref, num_points, block_precond, singular,
+                                    asm_plan)
             if linear_solver != "cg":
                 g_c, g_p = asm.g_c, asm.g_p
             cam_diag, pt_diag, hpp_inv, dc = asm.cam_diag, asm.pt_diag, asm.hpp_inv, asm.dc
@@ -447,6 +461,8 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             def solve3(rhs):
                 return smv.solve3(hpp_inv, rhs)
 
+            M = cg.Preconditioner(asm.precond, asm.pose_inv)
+            solved = None
             if linear_solver == "dense_schur":
                 dc_step = dense_schur_solve(J, hpp_inv, cam_free, dc, -(
                     g_c - JTc(Jx(None, solve3(g_p))) * cam_free))
@@ -462,7 +478,18 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                         matvecs += 1
                         return smv.schur_matvec(system, x)
 
-                    rhs = smv.schur_rhs(system, g_c, g_p)
+                    if mesh.size == 1:
+                        # the right-hand side, the CG and the back-substitution's
+                        # product: one launch of csrc/schur_mv.cu's
+                        # cg_solve_kernel on the card, the plain loop on the CPU
+                        solved = cg_solve.solve(system, g_c, g_p, M, cg_iterations,
+                                                cg_tolerance, CG_CHECK_EVERY, debug_force_cg,
+                                                schur_mv)
+                        dc_step, cg_k = solved.x, solved.count
+                        if dc_step.device.type != "cpu":
+                            solve_matvecs = solve_matvecs + cg_k   # a matvec a step
+                    else:
+                        rhs = smv.schur_rhs(system, g_c, g_p)
                 else:
                     # the camera side on dense blocks in "cg_dense_j", by
                     # the linearization in "cg"; the point side is the row blocks'
@@ -483,13 +510,15 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
 
                     # rhs = -(g_c - E Hpp^-1 g_p)
                     rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
-                # the CG's steps: csrc/cg_step.cu on the card, the plain loop on the CPU
-                dc_step, cg_k = cg.pcg(schur_mv, cg.Preconditioner(asm.precond, asm.pose_inv),
-                                       rhs, cg_iterations, cg_tolerance, CG_CHECK_EVERY,
-                                       debug_force_cg)
+                if solved is None:
+                    # the CG's steps: csrc/cg_step.cu on the card, the plain loop on the CPU
+                    dc_step, cg_k = cg.pcg(schur_mv, M, rhs, cg_iterations, cg_tolerance,
+                                           CG_CHECK_EVERY, debug_force_cg)
 
             # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
-            if linear_solver == "cg_blocks":
+            if solved is not None:
+                u, jtp_u = solved.u, solved.jtp_u
+            elif linear_solver == "cg_blocks":
                 u, jtp_u = smv.row_products(system, dc_step)
             else:
                 u = Jx(dc_step * cam_free, None)
@@ -529,11 +558,16 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             lam = lam_new
             cg_total = cg_total + cg_k
             iterations += 1
-            if not debug_unroll_lm and assembly.stop_test(done, singular):
-                break                                   # the one host sync of an LM iteration
+            if not debug_unroll_lm:
+                # the one host sync of an LM iteration
+                stop, on_card = assembly.stop_test(done, singular, solve_matvecs)
+                if stop:
+                    break
         if debug_unroll_lm:
-            assembly.stop_test(done, singular)          # raises on a singular block
+            # raises on a singular block
+            _, on_card = assembly.stop_test(done, singular, solve_matvecs)
 
-        return SchurLMResult(cam, points, cost, c0, iterations, lam, cg_total, matvecs)
+        return SchurLMResult(cam, points, cost, c0, iterations, lam, cg_total,
+                             matvecs + on_card)
 
     return lm_solve

@@ -225,6 +225,11 @@ def _lib():
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.mv_schur.argtypes = [i32, p, i32, i32, p, p, p, p, i64, i64, i64, p, p, p, p, p, p]
         lib.mv_schur.restype = ctypes.c_int
+        # cg_solve_kernel's entry (solver/cg_solve.py)
+        f64 = ctypes.c_double
+        lib.mv_cg_solve.argtypes = ([i32, p, i32] + [p] * 7 + [i64] * 4 + [i32, i32, f64]
+                                    + [p] * 10)
+        lib.mv_cg_solve.restype = ctypes.c_int
     return lib
 
 

@@ -2,8 +2,10 @@
 with a plain C interface, at first use, and load them with ``ctypes``.
 
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``multiview_tpu_torch/_build/`` under a name keyed by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
+``multiview_tpu_torch/_build/`` under a name keyed by a hash of the source,
+the local headers it includes (``#include "..."`` under ``csrc/``, followed
+into the headers they include) and the flags, so an edited source or header
+rebuilds every library that uses it and an unchanged one is reused.
 ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
 ``/usr/local/cuda/bin``; a missing compiler is an error, never a fallback.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,10 +46,37 @@ def find_nvcc() -> str:
                        "needed to build the CUDA kernels of multiview_tpu_torch")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source_name: str, csrc: Path = CSRC_DIR) -> Tuple[str, ...]:
+    """The headers under ``csrc`` that ``source_name`` includes with
+    ``#include "..."``, directly or through another of them, in the order
+    first reached; a named header that does not exist there is an error."""
+    seen, todo = [], [source_name]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall((csrc / todo.pop()).read_bytes()):
+            name = name.decode()
+            if not (csrc / name).is_file():
+                raise FileNotFoundError(f"{source_name} includes {name!r}, which is not in {csrc}")
+            if name not in seen:
+                seen.append(name)
+                todo.append(name)
+    return tuple(seen)
+
+
+def build_key(source_name: str, csrc: Path = CSRC_DIR) -> str:
+    """The hash a library's file name carries: the source, its local
+    headers and the flags."""
+    h = hashlib.sha256((csrc / source_name).read_bytes())
+    for name in local_headers(source_name, csrc):
+        h.update(name.encode() + b"\0" + (csrc / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def library_path(source_name: str) -> Path:
-    src = CSRC_DIR / source_name
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}_{key[:16]}.so"
+    return BUILD_DIR / f"{Path(source_name).stem}_{build_key(source_name)[:16]}.so"
 
 
 def _start_build(source_name: str, out: Path):

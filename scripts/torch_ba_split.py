@@ -31,7 +31,11 @@ before it the gradient J^T r, the Hpp and Jacobi-diagonal assembly,
 ``inv3x3_spd``, the SCHUR_JACOBI blocks and their ``torch.linalg.inv``, each
 a part of its own), the CG's set-up (the Schur system and its right-hand
 side), the CG (``cg.pcg`` since ``solver/cg.py``, the closure ``pcg``
-before), the back-substitution, and the LM bookkeeping (every other line).
+before), the back-substitution, since ``solver/cg_solve.py`` the CG solve
+of one shard (``cg_solve.solve``: the right-hand side, the CG and the
+back-substitution's product in one launch on the card), and the LM
+bookkeeping (every other line). A part's statement that spans several
+lines is the part's on all of them.
 Medians over ``--reps`` traced solves, in ms a solve and a LM iteration.
 
     python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4] [--split]
@@ -63,10 +67,12 @@ PARTS = [("blocks_at(", "row blocks (blocks_at)"),
          ("torch.linalg.inv(", "SCHUR_JACOBI torch.linalg.inv"),
          ("smv.SchurSystem(", "CG set-up"), ("smv.schur_rhs(", "CG set-up"),
          ("= pcg(", "CG"), ("= cg.pcg(", "CG"), ("= dense_schur_solve(", "CG"),
-         ("row_products(", "back-substitution")]
+         ("row_products(", "back-substitution"),
+         ("cg_solve.solve(", "CG solve (right-hand side, CG, back-substitution)")]
 ONE_LINE = {"row blocks (blocks_at)", "assembly (solver/assembly.py)", "gradient (J^T r)",
             "inv3x3_spd",
-            "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution"}
+            "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution",
+            "CG solve (right-hand side, CG, back-substitution)"}
 BOOKKEEPING = "LM bookkeeping"
 
 
@@ -88,13 +94,22 @@ def solve_code(schur):
     code = next(c for c in schur.make_schur_solver.__code__.co_consts
                 if inspect.iscode(c) and c.co_name == "_solve")
     lines, first = inspect.getsourcelines(code)
-    parts, current = {}, BOOKKEEPING
+    parts, current, open_part, depth = {}, BOOKKEEPING, None, 0
     for i, text in enumerate(lines):
+        if open_part is not None:
+            # the rest of a one-line part's statement
+            parts[first + i] = open_part
+            depth += text.count("(") - text.count(")")
+            open_part = open_part if depth > 0 else None
+            continue
         hit = next((part for marker, part in PARTS
                     if marker in text and not text.lstrip().startswith("def ")), None)
         if hit is not None and hit not in ONE_LINE:
             current = hit
         parts[first + i] = hit if hit in ONE_LINE else current
+        if hit in ONE_LINE:
+            depth = text.count("(") - text.count(")")
+            open_part = hit if depth > 0 else None
         if hit in ("inv3x3_spd", "SCHUR_JACOBI torch.linalg.inv"):
             current = BOOKKEEPING
     return code, parts

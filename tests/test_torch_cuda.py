@@ -339,12 +339,16 @@ def test_sharded_solve_on_cuda_shards(cuda_device):
 
 @pytest.mark.cuda
 def test_cg_stops_early_on_the_card(cuda_device, monkeypatch):
-    """On cuda:0 CG stops at the reference's test: the matvecs run stay
-    within one check interval of the CG count per LM iteration, and the
-    masked loop run to the whole budget takes the same LM and CG counts to
-    the same result (within float32 rounding: ``index_add_`` sums in no
-    fixed order on the card)."""
+    """On cuda:0 CG stops at the reference's test. On one shard the test is
+    taken on the device at every step of the one-launch solve: the matvecs
+    run equal the CG count, far below the budget. On two logical shards (the
+    per-step path, csrc/cg_step.cu after each matvec) the host reads the
+    test every ``CG_CHECK_EVERY`` steps: the matvecs stay within one check
+    interval of the CG count per LM iteration, and the masked loop run to
+    the whole budget takes the same LM and CG counts to the same result
+    (within float32 rounding: the kernels' atomics sum in no fixed order)."""
     from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.parallel import sharding as sh
     from multiview_tpu_torch.solver import schur
     from multiview_tpu_torch.utils import synthetic as syn
 
@@ -355,23 +359,30 @@ def test_cg_stops_early_on_the_card(cuda_device, monkeypatch):
     mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
                            include_points=False)
     cam0 = prob.pack_state(state0, include_points=False)
+    sharded = sh.shard_observations(scene.observations, sh.make_mesh([cuda_device] * 2))
 
-    def solve():
+    def solve(obs=None):
         return schur.make_schur_solver(state0, scene.observations, scene.models,
                                        prob.BAOptions(no_rig=True), mask, max_iterations=6,
-                                       cg_iterations=40, cg_tolerance=0.1)(cam0, state0.points)
+                                       cg_iterations=40, cg_tolerance=0.1)(cam0, state0.points,
+                                                                           obs)
 
     res = solve()
     cg = int(res.cg_iters_total)
-    assert cg <= res.matvecs <= cg + (schur.CG_CHECK_EVERY - 1) * res.iterations
-    assert res.matvecs < 40 * res.iterations // 2
+    assert res.matvecs == cg < 40 * res.iterations // 2
     assert float(res.cost) < float(res.initial_cost)
+
+    split = solve(sharded)
+    cg = int(split.cg_iters_total)
+    assert cg <= split.matvecs <= cg + (schur.CG_CHECK_EVERY - 1) * split.iterations
+    assert split.matvecs < 40 * split.iterations // 2
+    assert float(split.cost) < float(split.initial_cost)
     monkeypatch.setattr(schur, "CG_CHECK_EVERY", 41)
-    full = solve()
+    full = solve(sharded)
     assert full.matvecs == 40 * full.iterations and int(full.cg_iters_total) == cg
-    assert full.iterations == res.iterations
-    torch.testing.assert_close(full.cost, res.cost, rtol=1e-6, atol=0)
-    torch.testing.assert_close(full.cam, res.cam, rtol=0, atol=1e-4)
+    assert full.iterations == split.iterations
+    torch.testing.assert_close(full.cost, split.cost, rtol=1e-6, atol=0)
+    torch.testing.assert_close(full.cam, split.cam, rtol=0, atol=1e-4)
 
 
 # ----------------------------------------------------------------------------
@@ -565,11 +576,12 @@ def test_schur_matvec_kernel_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
-    """A solve on the card: every matvec is one launch of csrc/schur_mv.cu;
-    per LM iteration one more for the right-hand side and one for the
-    back-substitution's product."""
+    """A solve on the card: every LM iteration's CG, its right-hand side and
+    back-substitution are one launch of csrc/schur_mv.cu's cg_solve_kernel,
+    whose matvecs are its CG steps; no launch of the matvec alone or of
+    csrc/cg_step.cu."""
     from multiview_tpu_torch.calib import problem as prob
-    from multiview_tpu_torch.solver import schur, schur_matvec as smv
+    from multiview_tpu_torch.solver import cg, cg_solve, schur, schur_matvec as smv
     from multiview_tpu_torch.utils import synthetic as syn
 
     scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
@@ -577,13 +589,15 @@ def test_cg_blocks_runs_the_schur_kernel_for_every_matvec(cuda_device):
     state0 = syn.perturb_state(scene.true_state)
     mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
                            include_points=False)
-    before = smv.LAUNCHES
+    before = (smv.LAUNCHES, cg.LAUNCHES, cg_solve.LAUNCHES)
     res = schur.make_schur_solver(state0, scene.observations, scene.models,
                                   prob.BAOptions(no_rig=True), mask, max_iterations=6,
                                   cg_iterations=40, cg_tolerance=0.1)(
         prob.pack_state(state0, include_points=False), state0.points)
     torch.cuda.synchronize()
-    assert smv.LAUNCHES - before == res.matvecs + 2 * res.iterations
+    after = (smv.LAUNCHES, cg.LAUNCHES, cg_solve.LAUNCHES)
+    assert tuple(b - a for a, b in zip(before, after)) == (0, 0, res.iterations)
+    assert 0 < res.matvecs == int(res.cg_iters_total)
     assert float(res.cost) < float(res.initial_cost)
 
 
@@ -822,8 +836,8 @@ def test_assembly_kernel_matches_plain_version(cuda_device, order, shards, block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_assembly_kernel_with_a_frozen_pose_and_many_poses(cuda_device, dtype):
     """A frozen pose (its 7x7 block is diag(dc) = I), then 8000 poses: more
-    than the per-warp copies in shared memory hold, so the sums take global
-    atomics."""
+    than the warps' window of poses in shared memory holds, so the sums of
+    the poses outside it take global atomics."""
     import dataclasses
     from multiview_tpu_torch.solver import assembly as asm
     system, _ = _schur_system(cuda_device, dtype, _SCHUR_CASES["rig_families"], "track")
@@ -837,7 +851,7 @@ def test_assembly_kernel_with_a_frozen_pose_and_many_poses(cuda_device, dtype):
         record = dict(asm.LAST_LAUNCH)
     finally:
         asm.RECORD_LAUNCH = False
-    assert record["camera_copies"] == 1 and record["block_copies"] == 1
+    assert record["window_poses"] == 32 < system.num_ref       # the window's 32 of 40 poses
     torch.testing.assert_close(got.pose_inv[3].double(), torch.eye(7, dtype=torch.float64,
                                                                    device=cuda_device))
     _assembly_close(got, asm.assemble_plain(*_in64(args), True), dtype)
@@ -851,7 +865,7 @@ def test_assembly_kernel_with_a_frozen_pose_and_many_poses(cuda_device, dtype):
         record = dict(asm.LAST_LAUNCH)
     finally:
         asm.RECORD_LAUNCH = False
-    assert record["camera_copies"] == 0 and record["block_copies"] == 0
+    assert record["window_poses"] < system.num_ref
     _assembly_close(got, asm.assemble_plain(*_in64(args), True), dtype)
 
 
@@ -972,11 +986,12 @@ def test_cg_step_kernel_on_a_schur_system(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["cg_blocks", "cg", "cg_dense_j", "dense_schur"])
 def test_every_mode_runs_the_assembly_and_cg_kernels(cuda_device, mode):
-    """A solve on the card: one assembly launch an LM iteration (one shard),
-    one CG start an LM iteration and one CG launch a matvec (none in
-    dense_schur); SCHUR_JACOBI at cg_tolerance 1e-3."""
+    """A solve on the card: one assembly launch an LM iteration (one shard);
+    in cg_blocks one CG solve launch an LM iteration and no CG step launch;
+    in cg and cg_dense_j one CG start an LM iteration and one CG launch a
+    matvec; none in dense_schur. SCHUR_JACOBI at cg_tolerance 1e-3."""
     from multiview_tpu_torch.calib import problem as prob
-    from multiview_tpu_torch.solver import assembly as asm, cg, schur
+    from multiview_tpu_torch.solver import assembly as asm, cg, cg_solve, schur
     from multiview_tpu_torch.utils import synthetic as syn
 
     scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
@@ -984,13 +999,267 @@ def test_every_mode_runs_the_assembly_and_cg_kernels(cuda_device, mode):
     state0 = syn.perturb_state(scene.true_state)
     mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
                            include_points=False)
-    before = (asm.LAUNCHES, cg.LAUNCHES)
+    before = (asm.LAUNCHES, cg.LAUNCHES, cg_solve.LAUNCHES)
     res = schur.make_schur_solver(state0, scene.observations, scene.models,
                                   prob.BAOptions(no_rig=True), mask, max_iterations=6,
                                   cg_iterations=40, cg_tolerance=1e-3, linear_solver=mode)(
         prob.pack_state(state0, include_points=False), state0.points)
     torch.cuda.synchronize()
     assert asm.LAUNCHES - before[0] == res.iterations
-    cg_launches = 0 if mode == "dense_schur" else res.matvecs + res.iterations
+    cg_launches = 0 if mode in ("dense_schur", "cg_blocks") else res.matvecs + res.iterations
     assert cg.LAUNCHES - before[1] == cg_launches
+    assert cg_solve.LAUNCHES - before[2] == (res.iterations if mode == "cg_blocks" else 0)
     assert float(res.cost) < float(res.initial_cost)
+
+
+# ----------------------------------------------------------------------------
+# The one-launch CG solve (cg_solve_kernel of csrc/schur_mv.cu) against the
+# plain solve in float64 on the same inputs, the assembly's plan and its warp
+# inversion of the 7x7 blocks
+# ----------------------------------------------------------------------------
+
+
+def _cg_solve_inputs(dev, dtype, block_precond, order="track"):
+    """(kernel system, float64 system, gradient, float64 gradient, M, float64
+    M) of a ``_schur_system`` with its assembly."""
+    from multiview_tpu_torch.solver import assembly as asm, cg, schur_matvec as smv
+    system, _ = _schur_system(dev, dtype, _SCHUR_CASES["rig_families"], order)
+    a = asm.assemble(*_assembly_inputs(system), block_precond)
+    sys_k = smv.SchurSystem(system.mesh, system.shards, system.J, system.cam_free, a.dc,
+                            a.hpp_inv, system.num_ref)
+    sys_p = smv.SchurSystem(system.mesh, system.shards, _in64(system.J),
+                            system.cam_free.double(), a.dc.double(), a.hpp_inv.double(),
+                            system.num_ref)
+    M = cg.Preconditioner(a.precond, a.pose_inv)
+    return sys_k, sys_p, (a.g_c, a.g_p), (a.g_c.double(), a.g_p.double()), M, _in64(M)
+
+
+def _rel(got, ref):
+    return float((got.double() - ref).abs().max()) / float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block_precond", [False, True])
+def test_cg_solve_kernel_matches_the_plain_solve(cuda_device, block_precond, dtype):
+    """One launch a solve (no matvec or CG step launch of its own): 10
+    forced steps, x, u and J_p^T u within the Schur bars of the plain solve
+    in float64; the early-stopped count equal to the plain float64 loop's;
+    in float32, 30 forced steps within twice the plain float32 solve's own
+    drift (CG amplifies rounding; chip_smoke.py phase 3f's bar)."""
+    from multiview_tpu_torch.solver import cg, cg_solve, schur_matvec as smv
+    sys_k, sys_p, grad, grad64, M, M64 = _cg_solve_inputs(cuda_device, dtype, block_precond)
+    before = (cg_solve.LAUNCHES, smv.LAUNCHES, cg.LAUNCHES)
+    got = cg_solve.solve_cuda(sys_k, *grad, M, 60, 1e-8, force=10)
+    torch.cuda.synchronize()
+    after = (cg_solve.LAUNCHES, smv.LAUNCHES, cg.LAUNCHES)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 0, 0) and int(got.count) == 10
+    ref = cg_solve.solve_plain(sys_p, *grad64, M64, 60, 1e-8, 1, force=10)
+    _schur_close(got.x.double(), ref.x, dtype)
+    _schur_close(torch.cat(got.u).double(), torch.cat(ref.u), dtype)
+    _schur_close(got.jtp_u.double(), ref.jtp_u, dtype)
+    for tol in (1e-2, 1e-4):
+        k = int(cg_solve.solve_cuda(sys_k, *grad, M, 200, tol).count)
+        k_ref = int(cg_solve.solve_plain(sys_p, *grad64, M64, 200, tol, 1).count)
+        assert k == k_ref < 200, tol
+    assert int(cg_solve.solve_cuda(sys_k, *grad, M, 0, 1e-8).count) == 0
+    if dtype == torch.float32:
+        x = cg_solve.solve_cuda(sys_k, *grad, M, 60, 1e-8, force=30).x
+        ref30 = cg_solve.solve_plain(sys_p, *grad64, M64, 60, 1e-8, 1, force=30).x
+        own = _rel(cg_solve.solve_plain(sys_k, *grad, M, 60, 1e-8, 1, force=30).x, ref30)
+        assert _rel(x, ref30) <= max(1e-4, 2.0 * own)
+
+
+@pytest.mark.cuda
+def test_cg_solve_kernel_rereads_what_shared_memory_cannot_hold(cuda_device):
+    """More rows than the grid's shared memory holds, 160 poses: the passes
+    reread the rows that did not stay, and report the bytes a step reads."""
+    from multiview_tpu_torch.solver import assembly as asm, cg, cg_solve, schur_matvec as smv
+    system, _ = _schur_system(cuda_device, torch.float64, [(120000, 2, 29, True)], "frame",
+                              num_ref=160, num_points=2400)
+    a = asm.assemble(*_assembly_inputs(system), False)
+    sys_k = smv.SchurSystem(system.mesh, system.shards, system.J, system.cam_free, a.dc,
+                            a.hpp_inv, system.num_ref)
+    M = cg.Preconditioner(a.precond)
+    cg_solve.RECORD_LAUNCH = True
+    try:
+        got = cg_solve.solve_cuda(sys_k, a.g_c, a.g_p, M, 60, 1e-8, force=6)
+        torch.cuda.synchronize()
+        record = dict(cg_solve.LAST_LAUNCH)
+    finally:
+        cg_solve.RECORD_LAUNCH = False
+    assert 0 < record["resident_rows"] < 120000 and record["row_bytes_a_step"] > 0
+    ref = cg_solve.solve_plain(sys_k, a.g_c, a.g_p, M, 60, 1e-8, 1, force=6)
+    _schur_close(got.x, ref.x, torch.float64)
+    _schur_close(got.jtp_u, ref.jtp_u, torch.float64)
+
+
+@pytest.mark.cuda
+def test_cg_solve_kernel_refuses_what_it_does_not_take(cuda_device):
+    """Two shards, a gradient of another dtype or on the CPU: raised."""
+    from multiview_tpu_torch.solver import cg_solve
+    sys_k, _, (g_c, g_p), _, M, _ = _cg_solve_inputs(cuda_device, torch.float32, True)
+    with pytest.raises(TypeError):
+        cg_solve.solve_cuda(sys_k, g_c.double(), g_p, M, 10, 1e-8)
+    with pytest.raises(ValueError):
+        cg_solve.solve_cuda(sys_k, g_c.cpu(), g_p, M, 10, 1e-8)
+    two, _ = _schur_system(cuda_device, torch.float32, _SCHUR_CASES["rig_families"], "track",
+                           shards=2)
+    with pytest.raises(ValueError, match="shards"):
+        cg_solve.solve_cuda(two, g_c, g_p, M, 10, 1e-8)
+
+
+@pytest.mark.cuda
+def test_no_host_sync_inside_an_lm_iteration(cuda_device, monkeypatch):
+    """From an LM iteration's assembly to its stop test nothing syncs with
+    the host (``torch.cuda.set_sync_debug_mode("error")`` raises on any
+    sync): the stop test reads done, the singular flag and the CG solves'
+    matvecs in the iteration's one sync."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import assembly as asm, schur
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
+                                device=cuda_device)
+    state0 = syn.perturb_state(scene.true_state)
+    mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
+                           include_points=False)
+    assemble, stop_test = asm.assemble, asm.stop_test
+    syncs = []
+
+    def guarded(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        return assemble(*args)
+
+    def test(*args):
+        torch.cuda.set_sync_debug_mode(0)
+        syncs.append(1)
+        return stop_test(*args)
+
+    monkeypatch.setattr(asm, "assemble", guarded)
+    monkeypatch.setattr(asm, "stop_test", test)
+    try:
+        res = schur.make_schur_solver(state0, scene.observations, scene.models,
+                                      prob.BAOptions(no_rig=True), mask, max_iterations=6,
+                                      cg_iterations=40, cg_tolerance=0.1,
+                                      preconditioner="schur_jacobi")(
+            prob.pack_state(state0, include_points=False), state0.points)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(syncs) == res.iterations and res.matvecs == int(res.cg_iters_total) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_precond", [False, True])
+def test_the_assembly_plan_follows_each_iterations_blocks(cuda_device, block_precond):
+    """One plan over three calls with new J and r tensors (as the LM loop
+    makes them with torch.where): each call's outputs are those of its own
+    blocks, and the scratch it left at 0 serves the next."""
+    from multiview_tpu_torch.solver import assembly as asm
+    system, _ = _schur_system(cuda_device, torch.float64, _SCHUR_CASES["rig_families"], "track")
+    args = list(_assembly_inputs(system))
+    plan = asm.AssemblyPlan()
+    for i in range(3):
+        scale = 1.0 + 0.25 * i
+        J = [([None if a is None else a * scale for a in jc],
+              [None if b is None else b * (2.0 - scale) for b in jp]) for jc, jp in system.J]
+        r = [x * (1.0 + i) for x in args[3]]
+        call = [args[0], args[1], J, r] + args[4:]
+        got = plan(*call, block_precond)
+        ref = asm.assemble_plain(*call, block_precond)
+        _assembly_close(got, ref, torch.float64, f"call {i}")
+
+
+def _pack7(blocks):
+    """[R,7,7] symmetric -> [R,28] upper triangles, row by row."""
+    iu = torch.triu_indices(7, 7)
+    return blocks[:, iu[0], iu[1]].contiguous()
+
+
+@pytest.mark.cuda
+def test_the_warp_inverts_7x7_blocks_as_lu_does(cuda_device):
+    """The poses pass alone (lam = 0, every column free: it inverts the
+    blocks as given): ill-conditioned SPD blocks (condition to 1e10),
+    indefinite ones that need row swaps (zeros on the diagonal), ties of
+    pivots; within cond x 1e-13 of torch.linalg.inv in float64; a singular
+    block (a zero row) sets the flag and gets a zero inverse, the others
+    not touched by it."""
+    import numpy as np
+    from multiview_tpu_torch.solver import assembly as asm
+    g = np.random.default_rng(3)
+    blocks = []
+    for c in (1e0, 1e3, 1e6, 1e10):
+        q, _ = np.linalg.qr(g.normal(size=(7, 7)))
+        blocks.append(q @ np.diag(np.logspace(0, -np.log10(c), 7)) @ q.T)
+    a = g.normal(size=(7, 7))
+    s = a + a.T
+    np.fill_diagonal(s, 0.0)
+    blocks.append(s)                                   # a zero diagonal: pivoting needed
+    tie = 0.5 * (s + s.T) / 10.0 + 3.0 * np.eye(7)
+    tie[0, 0], tie[3, 0], tie[0, 3] = 1.0, -1.0, -1.0
+    tie[1:3, 0] = tie[0, 1:3] = tie[4:, 0] = tie[0, 4:] = 0.5
+    blocks.append(tie)                                 # equal pivot candidates: rows 0 and 3
+    singular = np.array(blocks[1])
+    singular[4, :] = singular[:, 4] = 0.0
+    blocks.append(singular)
+    B = torch.as_tensor(np.stack(blocks), dtype=torch.float64, device=cuda_device)
+    R = B.shape[0]
+    C = 7 * R
+    cam_free = torch.ones(C, dtype=torch.float64, device=cuda_device)
+    lam = torch.zeros((), dtype=torch.float64, device=cuda_device)
+    acc = torch.ones(2 * C, dtype=torch.float64, device=cuda_device)
+    out = {"pose_inv": torch.full((R, 7, 7), float("nan"), dtype=torch.float64,
+                                  device=cuda_device)}
+    flag = asm.new_flag(cuda_device)
+    asm._launch(asm._POSES, True, asm._EMPTY, cuda_device, cam_free, lam, 0, R, acc,
+                _pack7(B).reshape(-1), None, out, flag)
+    torch.cuda.synchronize()
+    assert int(flag) == 1
+    inv = out["pose_inv"]
+    for i in range(R - 1):
+        ref = torch.linalg.inv(B[i])
+        cond = float(torch.linalg.cond(B[i]))
+        err = float((inv[i] - ref).abs().max()) / float(ref.abs().max())
+        assert err <= max(cond, 1.0) * 1e-13, (i, cond, err)
+    assert not bool(inv[-1].any())
+    ok = asm.new_flag(cuda_device)
+    asm._launch(asm._POSES, True, asm._EMPTY, cuda_device, cam_free[:-7], lam, 0, R - 1,
+                acc[:2 * (C - 7)].contiguous(), _pack7(B[:-1]).reshape(-1), None,
+                {"pose_inv": out["pose_inv"][:-1].contiguous()}, ok)
+    torch.cuda.synchronize()
+    assert int(ok) == 0
+
+
+@pytest.mark.cuda
+def test_two_sharded_ranks_on_the_card_agree_bit_for_bit(cuda_device, tmp_path):
+    """chip_smoke.py's phase 9d workers: two processes on cuda:0 joined by
+    gloo, two shards each (the per-step path: a matvec and a csrc/cg_step.cu
+    launch a step, the one-launch CG solve never), bit for bit equal."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    import numpy as np
+
+    root = Path(__file__).resolve().parent.parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs = [tmp_path / f"rank{r}.npz" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--phase9d-worker",
+                               str(r), "2", str(port), str(outs[r])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=root)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), logs
+    r0, r1 = (dict(np.load(o)) for o in outs)
+    assert r0["solve_launches"] == r1["solve_launches"] == 0
+    assert r0["cg_launches"] > 0 and r0["schur_launches"] > 0
+    for k in r0:
+        assert np.array_equal(r0[k], r1[k]) or k.endswith("_launches"), k

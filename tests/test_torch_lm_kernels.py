@@ -197,7 +197,7 @@ def _numpy_assembly(families, blocks, cam_free, lam, num_ref, num_points):
 
 def test_plain_assembly_matches_a_numpy_assembly_of_the_jax_row_blocks(problem):
     mesh, shards, J, r, cam_free, lam, num_ref, num_points, block, flag = \
-        problem.schur_jacobi["assemble"]
+        problem.schur_jacobi["assemble"][:10]
     families = shards[0]
     assert [f.kind for f in families] == ["pix", "pix", "pix", "depth_tri", "depth_mesh",
                                           "prior"]
