@@ -12,8 +12,9 @@ printing a result):
 0. set-up: require CUDA, print versions and the card, build the two matcher
    kernels (csrc/knn2_wgmma.cu, csrc/knn2.cu), the Schur matvec kernel and
    the one-launch CG solve (csrc/schur_mv.cu), the row blocks kernel
-   (csrc/row_blocks.cu), the assembly kernel (csrc/lm_assembly.cu) and the
-   CG step kernel (csrc/cg_step.cu) for sm_90a, one nvcc each, started
+   (csrc/row_blocks.cu), the assembly kernel (csrc/lm_assembly.cu), the
+   CG step kernel (csrc/cg_step.cu) and the LM step kernel
+   (csrc/lm_step.cu) for sm_90a, one nvcc each, started
    together (the local headers csrc/cg_step.cuh and csrc/row_tiles.cuh are
    compiled into the sources that include them), and the track builder's
    host library (native/mv_native.cpp) with g++;
@@ -110,6 +111,18 @@ printing a result):
    per-step path: ms a step of the kernel, the plain
    step, both from a CUDA graph, the bound, and an empty launch measured
    beside them (the step's practical floor);
+3g. the LM step kernel (``solver/lm_step.py``, csrc/lm_step.cu: an LM
+   iteration's trial point, model reduction, accept and lam update) on the
+   first trial and accept of phases 3 and 4: the trial against the plain
+   one in float64, the accept at an accepted and a forced rejected step
+   against the plain accept (decisions, counters and the stop flag equal,
+   the scalars within LM_RTOL, the kept state bit for bit the trial's or the
+   current one, two launches alike); ms of the kernel and the plain
+   version, eager and from a CUDA graph, the bound (no copy) and the
+   accepted step's copy apart, registers; phase 3's
+   solve with the LM state read every iteration and every second one (the
+   counts equal, the cost within the spread of two runs); per LM iteration
+   the kernel launches, the host reads and the eager ATen operations (none);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -374,6 +387,11 @@ CG_DRIFT = 2.0
 ASM_SOURCE = "multiview_tpu_torch/csrc/lm_assembly.cu"
 CG_SOURCE = "multiview_tpu_torch/csrc/cg_step.cu"
 CG_FORCED = 30
+# phase 3g: the LM step kernel against its plain version on the same inputs:
+# the accept's scalars (float64 sums in both, in other orders) within LM_RTOL
+# relative of the plain ones
+LM_RTOL = 1e-12
+LM_SOURCE = "multiview_tpu_torch/csrc/lm_step.cu"
 
 
 class Tee(io.TextIOBase):
@@ -407,12 +425,15 @@ SOLVE_PATHS = {}
 ROW_PATHS = {}
 ASM_PATHS = {}
 CG_PATHS = {}
+LM_PATHS = {}
 # the first call of each row-block family of a path's BA, caught for phase 3d
 ROW_CALLS = {}
 # the arguments of the first assembly and the first CG solve of a path's BA
 # (one shard: ``cg_solve.solve``), caught for phases 3c-3f
 ASM_CALLS = {}
 SOLVE_CALLS = {}
+# the first trial and accept of a path's BA (``first_lm_step``), for phase 3g
+LM_CALLS = {}
 # the kernels each kind of BA path launches besides the row blocks and the
 # assembly: "solve" one shard of cg_blocks (one cg_solve_kernel launch an LM
 # iteration, no matvec or CG step launch of its own), "sharded" cg_blocks on
@@ -427,17 +448,18 @@ PATH_KERNELS = {"solve": {"cg_solve"}, "sharded": {"schur_mv", "cg_step"},
 def schur_counted(tag, path: str = "solve"):
     """Sets the counts of the BA's kernels to 0 just before a BA path and
     reads them just after: the path must have launched the row blocks
-    kernel, the assembly kernel and the kernels of its kind
-    (``PATH_KERNELS``), and no other; on a "solve" path one CG solve launch
-    an assembly launch (one each an LM iteration)."""
-    from multiview_tpu_torch.solver import (assembly as asm, cg, cg_solve, row_blocks as rb,
-                                            schur_matvec as smv)
+    kernel, the assembly kernel, the LM step kernel and the kernels of its
+    kind (``PATH_KERNELS``), and no other; on a "solve" path one CG solve
+    launch an assembly launch (one each an LM iteration)."""
+    from multiview_tpu_torch.solver import (assembly as asm, cg, cg_solve, lm_step as lm,
+                                            row_blocks as rb, schur_matvec as smv)
     smv.LAUNCHES = rb.LAUNCHES = asm.LAUNCHES = cg.LAUNCHES = cg_solve.LAUNCHES = 0
+    lm.LAUNCHES = 0
     yield
-    wanted = PATH_KERNELS[path] | {"row_blocks", "lm_assembly"}
+    wanted = PATH_KERNELS[path] | {"row_blocks", "lm_assembly", "lm_step"}
     for name, paths, mod in (("schur_mv", SCHUR_PATHS, smv), ("cg_solve", SOLVE_PATHS, cg_solve),
                              ("row_blocks", ROW_PATHS, rb), ("lm_assembly", ASM_PATHS, asm),
-                             ("cg_step", CG_PATHS, cg)):
+                             ("cg_step", CG_PATHS, cg), ("lm_step", LM_PATHS, lm)):
         if name in wanted:
             paths[tag] = mod.LAUNCHES
         if (mod.LAUNCHES > 0) != (name in wanted):
@@ -451,9 +473,12 @@ def schur_counted(tag, path: str = "solve"):
 @contextlib.contextmanager
 def first_row_blocks(key):
     """Keeps the first call of each family (kind, sensor, variant) that the
-    path's BA hands the row-block entry points of ``solver/schur.py``."""
+    path's BA hands the row-block launches of ``solver/schur.py`` (the LM
+    loop on the card binds each family's launch once a solve, at its
+    current and at its trial point): the entry points' arguments (state,
+    family, ...; the state's tensors are the solve's own)."""
     from multiview_tpu_torch.solver import schur
-    names = ("pixel_row_blocks", "depth_row_blocks", "prior_row_blocks")
+    names = ("pixel_row_launch", "depth_row_launch", "prior_row_launch")
     originals = {n: getattr(schur, n) for n in names}
     calls = ROW_CALLS.setdefault(key, {})
 
@@ -461,8 +486,8 @@ def first_row_blocks(key):
         def fn(*args):
             obs = args[1]
             tag = (name.split("_")[0], getattr(obs, "sensor", None),
-                   args[3] if name == "depth_row_blocks" else None)
-            calls.setdefault(tag, args)
+                   args[3] if name == "depth_row_launch" else None)
+            calls.setdefault(tag, args[:4])
             return originals[name](*args)
         return fn
 
@@ -517,27 +542,50 @@ def first_assembly_and_cg(key):
 
 
 @contextlib.contextmanager
+def first_lm_step(key):
+    """Keeps the arguments of the first ``lm_step.trial`` and
+    ``lm_step.accept`` the path's BA calls (tensors cloned: ``kept``), with
+    the LM state's values as the call found them."""
+    from multiview_tpu_torch.solver import lm_step as lm
+    originals = (lm.trial, lm.accept)
+    calls = LM_CALLS.setdefault(key, {})
+
+    def spy(i, name):
+        def fn(st, *args):
+            if name not in calls:
+                calls[name] = (st.values.clone(), st.typed.clone(), kept(args))
+            return originals[i](st, *args)
+        return fn
+
+    lm.trial, lm.accept = spy(0, "trial"), spy(1, "accept")
+    try:
+        yield
+    finally:
+        lm.trial, lm.accept = originals
+
+
+@contextlib.contextmanager
 def no_sync_inside_lm(torch):
     """Makes every host sync raise (``torch.cuda.set_sync_debug_mode``) from
-    the start of each LM iteration's assembly to its stop test, which reads
-    ``done``, the singular flag and the CG solves' matvecs in the loop's one
-    sync."""
-    from multiview_tpu_torch.solver import assembly as asm
-    originals = (asm.assemble, asm.stop_test)
+    the start of each LM iteration's assembly to the loop's read of the LM
+    state (``lm_step.read``: done, the counts and the singular flag in one
+    sync, every ``LM_CHECK_EVERY`` iterations)."""
+    from multiview_tpu_torch.solver import assembly as asm, lm_step as lm
+    originals = (asm.assemble, lm.read)
 
     def assemble(*args):
         torch.cuda.set_sync_debug_mode("error")
         return originals[0](*args)
 
-    def stop_test(*args):
+    def read(*args):
         torch.cuda.set_sync_debug_mode(0)
         return originals[1](*args)
 
-    asm.assemble, asm.stop_test = assemble, stop_test
+    asm.assemble, lm.read = assemble, read
     try:
         yield
     finally:
-        asm.assemble, asm.stop_test = originals
+        asm.assemble, lm.read = originals
         torch.cuda.set_sync_debug_mode(0)
 
 
@@ -895,7 +943,7 @@ def phase4(torch, mm, card, workdir: Path, rig_true):
     triangulated points, depth_to_image and its scale floated from a guess
     that is off the truth. On one card ``--sharded`` shards nothing, as the
     reference's does on one chip."""
-    with first_row_blocks("rig"), first_assembly_and_cg("rig"):
+    with first_row_blocks("rig"), first_assembly_and_cg("rig"), first_lm_step("rig"):
         run = calibrate_with_depth(torch, mm, card, "phase 4", workdir, workdir / "calib3",
                                    rig_true, ["--sharded"])
     sharded = "Sharded observations" in run["text"]
@@ -1098,7 +1146,8 @@ def phase3(torch, card):
     scene, state0, solver = ba_problem(torch, torch.device("cuda", 0), 160, 20)
     n_obs = sum(len(o) for o in scene.observations.pixels)
     cam0 = prob.pack_state(state0, include_points=False)
-    with schur_counted("phase 3"), first_row_blocks("cube"), first_assembly_and_cg("cube"):
+    with schur_counted("phase 3"), first_row_blocks("cube"), first_assembly_and_cg("cube"), \
+            first_lm_step("cube"):
         res, wall, times, _ = timed_solves(torch, solver(), cam0, state0.points)
         forced, wall_f, times_f, _ = timed_solves(torch, solver(debug_force_cg=30), cam0,
                                                   state0.points)
@@ -1945,6 +1994,340 @@ def phase3f(torch, card):
             "empty_launch_graph_ms": empty_graph_ms, "library_ms": None,
             "max_abs_err": ps_err, "rel": ps_rel, "rel_float64": ps_rel64,
             "rel_one_step": ps_rel1, "cg_per_step_path": ps_k}}
+    return out
+
+
+def lm_step_bound(targs, aargs):
+    """(bound ms, "bytes" | "operations", bytes, the copy's bound ms, its
+    bytes) of one LM iteration's trial and accept. The bound: each launch's
+    inputs read once (the trial's cam, x, cam_free, lower and upper where
+    given, points, Hpp^-1, g_p and J_p^T u; the accept's r_t, u or Jd, the
+    current point blocks and their int64 point indices, dp, step_c, g_c,
+    g_p, the two diagonals, the state) and its outputs written once
+    (cam_t, step_c, pts_t, dp, the state), over the memory rate; the
+    operations (the trial's 3x3 solve 21 a point and 4 a camera entry, the
+    accept's 2 a residual, 8 a row component with a point block, 2
+    otherwise, 6 a camera entry and 6 a point entry) over the FP32 rate.
+    The function needs no copy of the accepted state: a device-side index
+    into double buffers selects it as well. The copy that this design makes
+    on an accepted step (the trial's cameras, points, blocks and residual
+    read and written over the current ones) is bounded apart."""
+    (_cam, _points, _x, _cam_free, lower, upper, _hpp_inv, _g_p, _jtp_u) = targs
+    (mesh, shards, num_ref, J, r, J_t, r_t, t, cam, points, g_c, g_p, cam_diag, pt_diag,
+     u, jd, cg_count, gate) = aargs
+    item = cam.element_size()
+    C, P = cam.shape[0], points.shape[0]
+    bounds = sum(b is not None for b in (lower, upper))
+    state = 8 * 16
+    # the trial: cam, x, cam_free, the bounds; points, g_p, J_p^T u, Hpp^-1;
+    # then cam_t, step_c, pts_t, dp written
+    nbytes = item * ((3 + bounds) * C + 9 * P + 9 * P + 2 * C + 6 * P)
+    # the accept: step_c, g_c, cam_diag; dp, g_p, pt_diag; the state
+    nbytes += item * (3 * C + 9 * P) + 2 * state
+    flop = 21 * P + 4 * C + 6 * C + 6 * 3 * P
+    copy = item * 2 * (C + 3 * P)
+    for s, (jc, jp) in enumerate(J):
+        nbytes += 2 * item * r_t[s].numel()            # r_t and u (or Jd)
+        flop += 2 * r_t[s].numel()
+        copy += 2 * item * r_t[s].numel()
+        for a, b in zip(jc, jp):
+            n, k = (b if a is None else a).shape[:2]
+            flop += (8 if b is not None else 2) * n * k
+            if b is not None:
+                nbytes += item * b.numel() + 8 * n
+            copy += 2 * item * sum(x.numel() for x in (a, b) if x is not None)
+    t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
+            copy / MEM_PEAK * 1e3, copy)
+
+
+@contextlib.contextmanager
+def count_aten(torch):
+    """Counts the ATen operations dispatched inside (``TorchDispatchMode``), by
+    name: ``{"n": total, "names": {name: count}}``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = {"n": 0, "names": {}}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket.__name__)
+            counts["n"] += 1
+            counts["names"][name] = counts["names"].get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        yield counts
+
+
+def phase3g(torch, card, p3):
+    """The LM step kernel (``solver/lm_step.py``, csrc/lm_step.cu) on the
+    first trial and accept of phase 3's solve (the cube) and of phase 4's
+    (calibrate's system): the trial point against the plain trial in float64
+    on the same inputs (SCHUR_RTOL of max |plain| with float32 tensors,
+    ROW_RTOL_F64 with float64 ones); the accept at an accepted and a forced
+    rejected step against the plain accept on the same inputs: good, done,
+    the counters and the stop flag equal, the scalars (new_cost, pred, rho,
+    lam, nu, rel_decrease, cost) within LM_RTOL relative (both sum in
+    float64), the kept state and blocks bit for bit the trial's (accepted)
+    or the current ones (rejected), two launches bit for bit alike; ms of
+    the trial and of the accept (accepted and rejected: the accepted copies
+    the blocks) for the kernel and the plain version, eager and from a CUDA
+    graph (each accept after a reset of the state, whose time is taken
+    out), the bound (``lm_step_bound``: what the function needs, no copy),
+    the accepted step's copy (accepted less rejected accept, from CUDA
+    graphs where captured) against its own bound, registers and spills. Then phase
+    3's solve with the host reading the state every iteration and every
+    second one (``LM_CHECK_EVERY`` 1 and 2), two runs each: LM, CG and
+    matvec counts equal, the final cost within the larger spread of two runs
+    of one setting plus 1e-6 relative (atomics vary the last bits); and per
+    LM iteration of the cube's solve the kernel launches, the host reads of
+    the state and the eager ATen operations (``count_aten`` over
+    ``debug_unroll_lm`` solves of 4 and 8 iterations: the difference over
+    4). Returns the records by system."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import (assembly as asm, cg_solve, lm_step as lm,
+                                            row_blocks as rb, schur, schur_matvec as smv)
+
+    regs = ptxas_report("lm_step.cu")
+    out = {}
+    for label in ("cube", "rig"):
+        tv, tt, targs = LM_CALLS[label]["trial"]
+        av, at, aargs = LM_CALLS[label]["accept"]
+        (mesh, shards, num_ref, J, r, J_t, r_t, t, cam, points, g_c, g_p, cam_diag, pt_diag,
+         u, jd, cg_count, gate) = aargs
+        dt, dev = cam.dtype, cam.device
+        C, P = cam.shape[0], points.shape[0]
+
+        def state(values, typed, d=dt):
+            st = lm.LMState(d, dev, C, P)
+            st.values.copy_(values)
+            st.typed.copy_(typed)
+            return st
+
+        # the trial
+        st = state(tv, tt)
+        kt = [x.clone() for x in lm.trial_cuda(st, *targs)]
+        kt64 = [x.clone() for x in lm.trial_cuda(state(tv, tt, torch.float64),
+                                                   *in64(torch, targs))]
+        pt64 = lm.trial_plain(st, *in64(torch, targs))
+        torch.cuda.synchronize()
+        trial_rel = max(rel_err(a, b) for a, b in zip(kt, pt64))
+        trial_rel64 = max(rel_err(a, b) for a, b in zip(kt64, pt64))
+        trial_err = max(float((a.double() - b).abs().max()) for a, b in zip(kt, pt64))
+        if not (trial_rel <= SCHUR_RTOL and trial_rel64 <= ROW_RTOL_F64):
+            raise AssertionError(f"phase 3g {label}: the trial kernel disagrees with its plain "
+                                 f"version: {trial_rel} (bar {SCHUR_RTOL}), in float64 "
+                                 f"{trial_rel64} (bar {ROW_RTOL_F64})")
+
+        # the accept: the natural step, then forced accepted and rejected
+        def accept(fn, values, typed, cost=None):
+            st = state(values, typed)
+            if cost is not None:
+                st.values[lm.COST] = cost
+            cur = (kept(J), kept(r), cam.clone(), points.clone())
+            res = fn(st, mesh, shards, num_ref, cur[0], cur[1], J_t, r_t, t, cur[2], cur[3],
+                     g_c, g_p, cam_diag, pt_diag, u, jd, cg_count, gate)
+            torch.cuda.synchronize()
+            return st, res
+
+        lm.RECORD_LAUNCH = True
+        try:
+            natural, _ = accept(lm.accept_cuda, av, at)
+        finally:
+            lm.RECORD_LAUNCH = False
+        new_cost = float(natural.values[lm.NEW_COST])
+        cases = {"accepted": 2.0 * abs(new_cost) + 1.0, "rejected": 0.5 * new_cost}
+        scalars = (("new_cost", lm.NEW_COST), ("pred", lm.PRED), ("rho", lm.RHO),
+                   ("lam", lm.LAM), ("nu", lm.NU), ("rel_decrease", lm.REL), ("cost", lm.COST))
+        rec = {}
+        for case, cost in cases.items():
+            (ks, kres), (ks2, kres2) = (accept(lm.accept_cuda, av, at, cost) for _ in range(2))
+            ps, pres = accept(lm.accept_plain, av, at, cost)
+            kv, pv = ks.values.cpu(), ps.values.cpu()
+            good = bool(kv[lm.GOOD])
+            if good != (case == "accepted") or bool(pv[lm.GOOD]) != good:
+                raise AssertionError(f"phase 3g {label} {case}: good {good} (plain "
+                                     f"{bool(pv[lm.GOOD])})")
+            for slot in (lm.DONE, lm.ITER, lm.CG_TOTAL):
+                if float(kv[slot]) != float(pv[slot]):
+                    raise AssertionError(f"phase 3g {label} {case}: slot {slot} {float(kv[slot])} "
+                                         f"against the plain {float(pv[slot])}")
+            if bool(ks.halt) != bool(ps.halt):
+                raise AssertionError(f"phase 3g {label} {case}: the stop flag differs")
+            rels = {n: abs(float(kv[s]) - float(pv[s])) / max(abs(float(pv[s])), 1e-300)
+                    for n, s in scalars}
+            if not all(v <= LM_RTOL for v in rels.values()):
+                raise AssertionError(f"phase 3g {label} {case}: scalars off the plain accept: "
+                                     f"{rels} (bar {LM_RTOL})")
+            if not (torch.equal(ks.values, ks2.values) and torch.equal(ks.typed, ks2.typed)):
+                raise AssertionError(f"phase 3g {label} {case}: two launches differ")
+            kcam, kpts, kJ, kr = kres
+            want = (t.cam, t.points, J_t, r_t) if good else (cam, points, J, r)
+
+            def same(a, b):
+                if isinstance(a, torch.Tensor):
+                    return torch.equal(a, b)
+                if a is None or b is None:
+                    return a is None and b is None
+                return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+            if not all(same(a, b) for a, b in zip((kcam, kpts, kJ, kr), want)):
+                raise AssertionError(f"phase 3g {label} {case}: the kept state is not bit for "
+                                     f"bit the {'trial' if good else 'current'} one")
+            if not all(same(a, b) for a, b in zip(kres2, kres)):
+                raise AssertionError(f"phase 3g {label} {case}: two launches kept other "
+                                     f"states")
+            rec[case] = {"good": good, "done": bool(kv[lm.DONE]), "rel": rels}
+
+        # times: the trial, and each accept after a reset of the state
+        runs, notes = {}, []
+        st_t = state(tv, tt)
+        st_k, st_p = state(av, at), state(av, at)
+        cur_k = (kept(J), kept(r), cam.clone(), points.clone())
+        cur_p = (kept(J), kept(r), cam.clone(), points.clone())
+        resets = {case: av.clone() for case in cases}
+        for case, cost in cases.items():
+            resets[case][lm.COST] = cost
+
+        def acc(fn, st, cur, v0):
+            def go():
+                st.values.copy_(v0)
+                fn(st, mesh, shards, num_ref, cur[0], cur[1], J_t, r_t, t, cur[2], cur[3], g_c,
+                   g_p, cam_diag, pt_diag, u, jd, cg_count, gate)
+            return go
+
+        eager = {"trial": lambda: lm.trial_cuda(st_t, *targs),
+                 "trial_plain": lambda: lm.trial_plain(st_t, *targs),
+                 "reset": lambda: st_k.values.copy_(resets["accepted"])}
+        for case in cases:
+            eager[f"accept_{case}"] = acc(lm.accept_cuda, st_k, cur_k, resets[case])
+            eager[f"accept_{case}_plain"] = acc(lm.accept_plain, st_p, cur_p, resets[case])
+        for key, fn in list(eager.items()):
+            runs[key] = fn
+            try:
+                runs[key + "_graph"] = graphed(torch, fn)
+            except Exception as e:      # a capture that fails is reported
+                torch.cuda.synchronize()
+                notes.append(f"{key} not captured from a graph: {type(e).__name__}: "
+                             f"{str(e).splitlines()[0][:120]}")
+        times = {}
+        order = list(runs.items())
+        for key, fn in order + order[::-1]:          # in turns, the better of two
+            ms = per_call_ms(torch, fn, reps=20)
+            times[key] = min(times.get(key, ms), ms)
+        ms = {}
+        for key in times:
+            if key.startswith("accept"):
+                base = "reset_graph" if key.endswith("_graph") else "reset"
+                ms[key] = times[key] - times.get(base, 0.0)
+            elif key != "reset" and key != "reset_graph":
+                ms[key] = times[key]
+        bound, bound_by, nbytes, copy_bound, copy_bytes = lm_step_bound(targs, aargs)
+        # the copy: accepted less rejected accept, from CUDA graphs where both
+        # were captured (eager, the host's launch time moves the difference)
+        copy_from = "graph" if {"accept_accepted_graph", "accept_rejected_graph"} <= set(ms) \
+            else "eager"
+        sfx = "_graph" if copy_from == "graph" else ""
+        copy_ms = ms["accept_accepted" + sfx] - ms["accept_rejected" + sfx]
+        rows = sum(x.numel() for x in r_t)
+        opt = lambda k: f"{ms[k]:.4f}" if k in ms else "not measured"   # noqa: E731
+        print(f"[phase3g] {label}: {mesh.size} shard(s), {rows} residuals, {P} points, {C} "
+              f"camera parameters, {dt}: trial max |diff| / max |plain in float64| "
+              f"{trial_rel:.3g} (in float64 {trial_rel64:.3g}); accept (the natural step "
+              f"{'accepted' if bool(natural.values[lm.GOOD]) else 'rejected'}) against the "
+              f"plain accept: {json.dumps(rec)}; ms: trial {opt('trial')} (graph "
+              f"{opt('trial_graph')}), plain {opt('trial_plain')} (graph "
+              f"{opt('trial_plain_graph')}); accept accepted {opt('accept_accepted')} (graph "
+              f"{opt('accept_accepted_graph')}), rejected {opt('accept_rejected')} (graph "
+              f"{opt('accept_rejected_graph')}); plain accepted {opt('accept_accepted_plain')} "
+              f"(graph {opt('accept_accepted_plain_graph')}), rejected "
+              f"{opt('accept_rejected_plain')} (graph {opt('accept_rejected_plain_graph')}); "
+              f"a state reset {times['reset']:.4f} (taken out of each accept); bound of a "
+              f"trial and an accept {bound:.4f} ms ({nbytes / 1e6:.2f} MB, by {bound_by}; "
+              f"share {bound / (ms['trial'] + ms['accept_accepted']):.4f} of a trial and an "
+              f"accepted accept, {bound / (ms['trial'] + ms['accept_rejected']):.4f} of a trial "
+              f"and a rejected one); the accepted step's "
+              f"copy (accepted less rejected accept, {copy_from}) {copy_ms:.4f} ms against "
+              f"its bound {copy_bound:.4f} ms ({copy_bytes / 1e6:.2f} MB); grid "
+              f"{lm.LAST_LAUNCH or 'not recorded'}; "
+              f"{'; '.join(notes)}{'; ' if notes else ''}ptxas (registers, spill stores, "
+              f"spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
+        out[label] = {"ms": ms["trial"] + ms["accept_accepted"],
+                      "plain_ms": ms["trial_plain"] + ms["accept_accepted_plain"],
+                      "kernel_graph_ms": (ms["trial_graph"] + ms["accept_accepted_graph"]
+                                          if "trial_graph" in ms and
+                                          "accept_accepted_graph" in ms else None),
+                      "plain_graph_ms": (ms["trial_plain_graph"]
+                                         + ms["accept_accepted_plain_graph"]
+                                         if "trial_plain_graph" in ms and
+                                         "accept_accepted_plain_graph" in ms else None),
+                      "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                      "copy_ms": copy_ms, "copy_from": copy_from, "copy_bound_ms": copy_bound,
+                      "copy_bytes": copy_bytes,
+                      "max_abs_err": trial_err,
+                      "library_ms": None, "times_ms": ms, "accept": rec, "ptxas": regs}
+
+    # LM_CHECK_EVERY 1 against 2 on phase 3's solve, two runs each
+    scene, state0, solver = p3["problem"]
+    cam0 = prob.pack_state(state0, include_points=False)
+    every0, runs = schur.LM_CHECK_EVERY, {}
+    reads = []
+    read0 = lm.read
+
+    def counted_read(st):
+        reads.append(1)
+        return read0(st)
+
+    lm.read = counted_read
+    try:
+        for every in (1, 2, 2, 1):
+            schur.LM_CHECK_EVERY = every
+            del reads[:]
+            res = solver()(cam0, state0.points)
+            torch.cuda.synchronize()
+            runs.setdefault(every, []).append((res.iterations, int(res.cg_iters_total),
+                                               res.matvecs, float(res.cost), len(reads)))
+    finally:
+        schur.LM_CHECK_EVERY, lm.read = every0, read0
+    counts = {e: {x[:3] for x in v} for e, v in runs.items()}
+    spread = max(abs(v[0][3] - v[1][3]) for v in runs.values())
+    gap = abs(runs[1][0][3] - runs[2][0][3])
+    bar = spread + 1e-6 * abs(runs[2][0][3])
+    print(f"[phase3g] phase 3's solve read every iteration and every second one, two runs each "
+          f"(LM, CG, matvecs, final cost, host reads): {json.dumps(runs)}; the settings' cost "
+          f"gap {gap:.3g}, bar {bar:.3g} (the larger spread of two runs of one setting "
+          f"{spread:.3g} + 1e-6 relative) [{card}]", flush=True)
+    if not (len(counts[1]) == len(counts[2]) == 1 and counts[1] == counts[2] and gap <= bar):
+        raise AssertionError(f"phase 3g: LM_CHECK_EVERY 1 and 2 disagree: {runs}")
+
+    # launches, host reads and eager ATen operations per LM iteration
+    mods = {"row_blocks": rb, "lm_assembly": asm, "cg_solve": cg_solve, "schur_mv": smv,
+            "lm_step": lm}
+    per = {}
+    for k in (4, 8):
+        before = {n: m.LAUNCHES for n, m in mods.items()}
+        del reads[:]
+        lm.read = counted_read
+        try:
+            with count_aten(torch) as ops:
+                solver(debug_unroll_lm=k)(cam0, state0.points)
+                torch.cuda.synchronize()
+        finally:
+            lm.read = read0
+        per[k] = ({n: m.LAUNCHES - before[n] for n, m in mods.items()}, ops["n"],
+                  dict(ops["names"]))
+    launches = {n: (per[8][0][n] - per[4][0][n]) / 4 for n in mods}
+    ops_it = (per[8][1] - per[4][1]) / 4
+    names = {n: (per[8][2].get(n, 0) - per[4][2].get(n, 0)) / 4
+             for n in set(per[8][2]) | set(per[4][2])}
+    names = {n: v for n, v in names.items() if v}
+    reads_it = runs[2][0][4] / runs[2][0][0]
+    print(f"[phase3g] per LM iteration of phase 3's solve (one shard, cg_blocks): kernel "
+          f"launches {json.dumps(launches)}; host reads of the LM state {reads_it:.3f} "
+          f"(LM_CHECK_EVERY {schur.LM_CHECK_EVERY}); eager ATen operations {ops_it:g} "
+          f"{json.dumps(names)} [{card}]", flush=True)
+    if ops_it != 0 or names:
+        raise AssertionError(f"phase 3g: an LM iteration ran eager ATen operations: {names}")
+    out["per_iteration"] = {"launches": launches, "reads": reads_it, "aten_ops": ops_it}
     return out
 
 
@@ -3037,7 +3420,7 @@ def main() -> int:
           f"count {torch.cuda.device_count()} [{card}]", flush=True)
     t0 = time.perf_counter()
     sources = ["knn2_wgmma.cu", "knn2.cu", "schur_mv.cu", "row_blocks.cu", "lm_assembly.cu",
-               "cg_step.cu"]
+               "cg_step.cu", "lm_step.cu"]
     cuda_build.build_libraries(sources)        # one nvcc each, started together
     print(f"[phase0] built csrc/{{{','.join(sources)}}} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3079,11 +3462,13 @@ def main() -> int:
         phase9d(torch, card, Path(tmp))
         t9 = time.perf_counter() - t9
     paths["phase2b"] = phase2b(torch, mm, dev, card)
-    phase3b(torch, card, phase3(torch, card))
+    p3 = phase3(torch, card)
+    phase3b(torch, card, p3)
     p3c = phase3c(torch, card)
     p3d = phase3d(torch, card)
     p3e = phase3e(torch, card)
     p3f = phase3f(torch, card)
+    p3g = phase3g(torch, card, p3)
     phase5(torch, dev, card)
     t0 = time.perf_counter()
     phase9a(torch, card)
@@ -3151,7 +3536,23 @@ def main() -> int:
          "share": p3f["cube"]["step"]["bound_ms"] / p3f["cube"]["step"]["ms"],
          "plain_graph_ms": p3f["cube"]["step"]["plain_graph_ms"],
          "kernel_graph_ms": p3f["cube"]["step"]["kernel_graph_ms"],
-         "by_system": {k: v["step"] for k, v in p3f.items()}}]}))
+         "by_system": {k: v["step"] for k, v in p3f.items()}},
+        # no single PyTorch call computes an LM step's trial and accept:
+        # library_ms is null; the times are of a trial and an accepted step's
+        # accept (with its copy of the blocks), the bound of what the function
+        # needs (no copy), and the copy's measured time and bound apart;
+        # max_abs_err the trial's
+        {"name": "lm_step", "route": "cuda", "source": LM_SOURCE,
+         "replaces": "multiview_tpu/solver/schur.py:1241-1295 (the LM body's trial point, "
+                     "model reduction, accept and lam update), XLA code: no pallas_call",
+         "launches": sum(LM_PATHS.values()), "launches_by_path": LM_PATHS,
+         **{k: p3g["cube"][k] for k in keys},
+         "share": p3g["cube"]["bound_ms"] / p3g["cube"]["ms"],
+         "copy_ms": p3g["cube"]["copy_ms"], "copy_bound_ms": p3g["cube"]["copy_bound_ms"],
+         "plain_graph_ms": p3g["cube"]["plain_graph_ms"],
+         "kernel_graph_ms": p3g["cube"]["kernel_graph_ms"],
+         "per_iteration": p3g["per_iteration"],
+         "by_system": {k: v for k, v in p3g.items() if k != "per_iteration"}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,6 +151,7 @@ struct Params {
   T* precond;               // [total]
   T* pose_inv;              // [num_ref, 7, 7]
   int* singular;            // set to 1 where a pose block has a zero pivot
+  const int* halt;          // set: return at once (the LM loop's stop flag), or null
   long long* marks;         // [grid, kMarks] %globaltimer a block, or null
   int window, stride;       // poses of the per-warp copies, doubles a pose (14 or 28)
   int max_const;            // the most constant columns of a family
@@ -786,6 +787,9 @@ __global__ void __launch_bounds__(kThreads, 1) assembly_kernel(const __grid_cons
   const long long gs = static_cast<long long>(gridDim.x) * blockDim.x;
   const bool rows = p.passes & kRows, points = p.passes & kPoints, blocks = p.passes & kBlocks,
              poses = p.passes & kPoses;
+  // the LM loop has stopped: written by an earlier launch on the stream, so
+  // every block reads the same value before the first grid barrier
+  if (p.halt && *p.halt) return;
   long long* const mark = p.marks && threadIdx.x == 0 ? p.marks + blockIdx.x * kMarks : nullptr;
   if (mark) mark[0] = global_timer();
   Block<T> blk(p, smem);
@@ -956,10 +960,11 @@ cudaError_t run(const long long* table, int families, int passes, int zero_first
                 const void* cf, const void* lam, long long num_points, long long total,
                 long long num_ref, double* acc, double* blocks, double* hinv, void* g_c,
                 void* g_p, void* hpp, void* cam_diag, void* pt_diag, void* hpp_inv, void* dc,
-                void* precond, void* pose_inv, int* singular, long long* marks, long long* info,
-                cudaStream_t stream) {
+                void* precond, void* pose_inv, int* singular, const int* halt, long long* marks,
+                long long* info, cudaStream_t stream) {
   if (families < 0 || families > kMaxFamilies) return cudaErrorInvalidValue;
   Params<T> p{};
+  p.halt = halt;
   p.count = families;
   p.passes = passes;
   p.zero_first = zero_first;
@@ -1108,7 +1113,8 @@ cudaError_t run(const long long* table, int families, int passes, int zero_first
 // num_points] float64 where not null), 4 the blocks pass (reads hinv and
 // cam_free; sums into blocks [28 num_ref] float64), 8 the poses pass (reads
 // blocks, acc, lam, cam_free; writes pose_inv [num_ref,7,7] and sets
-// *singular to 1 on a zero pivot). `zero_first`: 1, the launch zeroes acc
+// *singular to 1 on a zero pivot). `halt` (null: never): where *halt is set
+// the launch returns at once (the LM loop has stopped). `zero_first`: 1, the launch zeroes acc
 // (rows pass) and blocks (blocks pass) first; 0, it finds them at 0 and
 // leaves them at 0 after reading them (the launch of every pass: the caller
 // allocates them zeroed once). `marks` (null: not asked) receives 5
@@ -1123,17 +1129,17 @@ extern "C" int mv_lm_assembly(int elem, const long long* table, int families, in
                               long long num_points, long long total, long long num_ref,
                               double* acc, double* blocks, double* hinv, void* g_c, void* g_p,
                               void* hpp, void* cam_diag, void* pt_diag, void* hpp_inv, void* dc,
-                              void* precond, void* pose_inv, int* singular, long long* marks,
-                              long long* info, void* stream) {
+                              void* precond, void* pose_inv, int* singular, const int* halt,
+                              long long* marks, long long* info, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (passes < 1 || passes > 15) return cudaErrorInvalidValue;
   if (elem == 4)
     return run<float>(table, families, passes, zero_first, cam_free, lam, num_points, total,
                       num_ref, acc, blocks, hinv, g_c, g_p, hpp, cam_diag, pt_diag, hpp_inv, dc,
-                      precond, pose_inv, singular, marks, info, s);
+                      precond, pose_inv, singular, halt, marks, info, s);
   if (elem == 8)
     return run<double>(table, families, passes, zero_first, cam_free, lam, num_points, total,
                        num_ref, acc, blocks, hinv, g_c, g_p, hpp, cam_diag, pt_diag, hpp_inv, dc,
-                       precond, pose_inv, singular, marks, info, s);
+                       precond, pose_inv, singular, halt, marks, info, s);
   return cudaErrorInvalidValue;
 }

@@ -566,6 +566,7 @@ struct Args {
   T* res;
   T* j_cam;
   T* j_pt;
+  const int* halt;  // set: return at once (the LM loop's stop flag; null: never)
 };
 
 // The row's own numbers (gathered poses and point), in C
@@ -1070,6 +1071,7 @@ struct RowBlocksArgs {
   void* res;
   void* j_cam;
   void* j_pt;
+  const void* halt;  // int32: where set, the launch returns at once (null: never)
 };
 
 template <typename T>
@@ -1104,6 +1106,7 @@ rowblocks::Args<T> typed_args(const RowBlocksArgs& h) {
   a.res = static_cast<T*>(h.res);
   a.j_cam = static_cast<T*>(h.j_cam);
   a.j_pt = static_cast<T*>(h.j_pt);
+  a.halt = static_cast<const int*>(h.halt);
   return a;
 }
 
@@ -1155,6 +1158,7 @@ __device__ __forceinline__ void store_tile(const Args<T>& a, const Tile& t, cons
 template <typename T, int MODEL>
 __global__ void __launch_bounds__(kRows, kPixelMinBlocks) pixel_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
   C* sp = reinterpret_cast<C*>(smem);
   for (int i = threadIdx.x; i < pixel_sensor_count(MODEL, a.ndist); i += blockDim.x)
     sp[i] = pixel_sensor_value(a, i);
@@ -1172,6 +1176,7 @@ __global__ void __launch_bounds__(kRows, kPixelMinBlocks) pixel_kernel(Args<T> a
 template <typename T, bool AFFINE, bool MESH>
 __global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
   constexpr int ND = AFFINE ? 12 : 7;
   C* sp = reinterpret_cast<C*>(smem);
   for (int i = threadIdx.x; i < 9 + ND; i += blockDim.x) sp[i] = depth_sensor_value(a, ND, i);
@@ -1189,6 +1194,7 @@ __global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a, Tile t) {
 template <typename T>
 __global__ void __launch_bounds__(kRows) prior_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
   const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
   const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
   const int r = threadIdx.x;

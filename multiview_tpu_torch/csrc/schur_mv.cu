@@ -148,6 +148,7 @@ struct Params {
   T* u_out;                 // null or [sum n k]: u stored by the point pass (and read
                             // back by the camera pass of the same launch)
   T* w;                     // [num_points, 3] scratch: Hpp^-1 g_p
+  const int* halt;          // set: the launch returns at once (the LM loop's stop flag), or null
   long long num_points, total, num_ref;
   int tile_rows, slots, full_x, wposes, copies, max_const;
   int off_xcf, off_g, off_const, off_slots, slot_bytes;
@@ -699,6 +700,7 @@ struct Passes {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constant__ Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (p.halt && *p.halt) return;   // written by an earlier launch: every block alike
   T* const xcf = (p.full_x && p.x) ? reinterpret_cast<T*>(smem + p.off_xcf) : nullptr;
   Passes<T> b(p, smem, xcf);
   const bool point = p.passes & kPointPass, camera = p.passes & kCameraPass;
@@ -779,6 +781,7 @@ struct SolveParams {
   T* pv[2];                 // the search direction
   T* ap[2];                 // S p (ap[1] first holds the right-hand side's camera sum)
   double* state;            // [4]: rz, stop2, active, the step count
+  long long* count;         // the step count in int64
   double tol2;
   int iterations, force;
 };
@@ -834,6 +837,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double sh[cg_step::kWarps];
   const Params<T>& p = q.m;
+  // the LM loop has stopped (the flag is written only by an earlier launch on
+  // the stream, lm_step.cu's accept): every block returns before any barrier
+  if (p.halt && *p.halt) return;
   T* const xcf = p.full_x ? reinterpret_cast<T*>(smem + p.off_xcf) : nullptr;
   Passes<T> b(p, smem, xcf);
   cg::grid_group grid = cg::this_grid();
@@ -888,6 +894,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     q.state[1] = s.stop2;
     q.state[2] = s.active ? 1.0 : 0.0;
     q.state[3] = static_cast<double>(k);
+    q.count[0] = k;
   }
 
   // 4. the back-substitution's product
@@ -1047,12 +1054,13 @@ void report(const Params<T>& p, int grid, bool first, long long* info) {
 template <typename T>
 cudaError_t run(const long long* table, int families, int passes, const void* x, const void* cf,
                 const void* dc, const void* hpp_inv, long long num_points, long long total,
-                long long num_ref, void* g_p, void* w, void* out, void* u, long long* info,
-                cudaStream_t stream) {
+                long long num_ref, void* g_p, void* w, void* out, void* u, const int* halt,
+                long long* info, cudaStream_t stream) {
   Params<T> p{};
   cudaError_t err = plan(table, families, num_points, total, num_ref, p);
   if (err != cudaSuccess) return err;
   p.passes = passes;
+  p.halt = halt;
   p.x = static_cast<const T*>(x);
   p.cf = static_cast<const T*>(cf);
   p.dc = static_cast<const T*>(dc);
@@ -1081,10 +1089,11 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
                       const void* precond, const void* pose_inv, long long nposes,
                       long long num_points, long long total, long long num_ref, int iterations,
                       int force, double tol2, void* x, void* r, void* pv, void* ap, void* u,
-                      void* g_p, void* w, double* state, long long* info, cudaStream_t stream) {
+                      void* g_p, void* w, double* state, long long* count, const int* halt,
+                      long long* info, cudaStream_t stream) {
   if (total < 1 || nposes < 0 || 7 * nposes > total || (nposes > 0 && !pose_inv) ||
       iterations < 0 || force < -1 || !g_c || !g_in || !precond || !x || !r || !pv || !ap ||
-      !u || !g_p || !w || !state)
+      !u || !g_p || !w || !state || !count)
     return cudaErrorInvalidValue;
   SolveParams<T> q{};
   cudaError_t err = plan(table, families, num_points, total, num_ref, q.m);
@@ -1107,6 +1116,8 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
     q.ap[i] = static_cast<T*>(ap) + i * total;
   }
   q.state = state;
+  q.count = count;
+  p.halt = halt;
   q.tol2 = tol2;
   q.iterations = iterations;
   q.force = force;
@@ -1130,7 +1141,8 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
 // cam_free * J_c^T (u - J_p Hpp^-1 g_p); dc null: no dc * x; x null: u = 0;
 // g_p null: no point side; w [num_points, 3] scratch for Hpp^-1 g_p), 3 both
 // (S x; u, where given, is stored by the point pass and read back by the
-// camera pass). `info` (null: not asked) receives
+// camera pass). `halt` (null: never): where *halt is set the launch returns
+// at once (the LM loop has stopped). `info` (null: not asked) receives
 // the grid, the threads a block, the rows a tile, the ring's slots, the rows
 // the camera pass found in shared memory, the poses whose columns a block sums
 // in shared memory, whether x * cam_free was kept whole there (1) or read
@@ -1139,15 +1151,16 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
 extern "C" int mv_schur(int elem, const long long* table, int families, int passes,
                         const void* x, const void* cam_free, const void* dc, const void* hpp_inv,
                         long long num_points, long long total, long long num_ref, void* g_p,
-                        void* w, void* out, void* u, long long* info, void* stream) {
+                        void* w, void* out, void* u, const int* halt, long long* info,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (passes < 1 || passes > 3) return cudaErrorInvalidValue;
   if (elem == 4)
     return run<float>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
-                      num_ref, g_p, w, out, u, info, s);
+                      num_ref, g_p, w, out, u, halt, info, s);
   if (elem == 8)
     return run<double>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
-                       num_ref, g_p, w, out, u, info, s);
+                       num_ref, g_p, w, out, u, halt, info, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1160,7 +1173,9 @@ extern "C" int mv_schur(int elem, const long long* table, int families, int pass
 // preconditioner. It runs CG from x = 0 while |r|^2 > tol2 |rhs|^2 and fewer
 // than `iterations` steps ran, or, with force >= 0, exactly `force` steps
 // with no test. Outputs: x [total]; state [4] float64: rz, stop2, whether a
-// next step would run, the steps run. Scratch: r, p, ap [2 total] each, u
+// next step would run, the steps run; count [1] int64: the steps run. Where
+// *halt is set (halt null: never) it returns at once (the LM loop has
+// stopped). Scratch: r, p, ap [2 total] each, u
 // [sum n k] (zeros where a family has no camera block), g_p and w
 // [num_points, 3]; u ends as J_c (cam_free * x) and g_p as J_p^T u (the
 // back-substitution's product). `info` (null: not asked) receives the grid, the threads a block,
@@ -1174,15 +1189,16 @@ extern "C" int mv_cg_solve(int elem, const long long* table, int families, const
                            long long nposes, long long num_points, long long total,
                            long long num_ref, int iterations, int force, double tol2, void* x,
                            void* r, void* p, void* ap, void* u, void* g_p, void* w,
-                           double* state, long long* info, void* stream) {
+                           double* state, long long* count, const int* halt, long long* info,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 4)
     return run_solve<float>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                             pose_inv, nposes, num_points, total, num_ref, iterations, force, tol2,
-                            x, r, p, ap, u, g_p, w, state, info, s);
+                            x, r, p, ap, u, g_p, w, state, count, halt, info, s);
   if (elem == 8)
     return run_solve<double>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                              pose_inv, nposes, num_points, total, num_ref, iterations, force,
-                             tol2, x, r, p, ap, u, g_p, w, state, info, s);
+                             tol2, x, r, p, ap, u, g_p, w, state, count, halt, info, s);
   return cudaErrorInvalidValue;
 }

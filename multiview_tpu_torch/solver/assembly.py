@@ -25,8 +25,9 @@ Sharding: each shard computes its partials, ``mesh.sum`` adds them before
 Hpp is inverted, then the 7x7 pass runs per shard on the summed Hpp^-1 and
 ``mesh.sum`` adds its blocks. A singular 7x7 block: ``torch.linalg.inv``
 raises on the CPU; the kernel sets a device flag instead, which
-``stop_test`` reads in the LM loop's one host sync of an iteration and
-raises on. ``LAUNCHES`` counts the kernel's launches. A family is any object
+``stop_test`` reads in the LM loop's host read of its state
+(``lm_step.read``) and raises on. Where the loop's stop flag ``halt`` is
+set, the one-shard launch returns at once. ``LAUNCHES`` counts the kernel's launches. A family is any object
 as ``schur_matvec`` takes it (``beg_idx`` / ``end_idx`` / ``const_cols`` where
 it has a camera block, ``point_idx`` where it touches points)."""
 
@@ -175,7 +176,7 @@ def _lib():
     lib = cuda_build.load_library(SOURCE)
     if lib.mv_lm_assembly.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_lm_assembly.argtypes = [i32, p, i32, i32, i32, p, p, i64, i64, i64] + [p] * 16
+        lib.mv_lm_assembly.argtypes = [i32, p, i32, i32, i32, p, p, i64, i64, i64] + [p] * 17
         lib.mv_lm_assembly.restype = ctypes.c_int
     return lib
 
@@ -257,8 +258,9 @@ _INFO = ("grid", "threads", "shared_bytes", "window_poses", "tile_rows", "slots"
 
 def _launch(passes: int, zero_first: bool, table: _ShardTable, dev, cam_free, lam,
             num_points: int, num_ref: int, acc=None, blocks=None, hinv=None,
-            out: Optional[dict] = None, singular=None) -> None:
-    """One cooperative launch of csrc/lm_assembly.cu on ``dev``."""
+            out: Optional[dict] = None, singular=None, halt=None) -> None:
+    """One cooperative launch of csrc/lm_assembly.cu on ``dev`` (``halt``: the
+    LM loop's stop flag on ``dev``, where set the launch returns at once)."""
     global LAUNCHES, LAST_LAUNCH, LAST_MARKS
     out = out or {}
     info = (ctypes.c_longlong * len(_INFO))() if RECORD_LAUNCH else None
@@ -268,7 +270,8 @@ def _launch(passes: int, zero_first: bool, table: _ShardTable, dev, cam_free, la
             cam_free.element_size(), table.table, table.families, passes, int(zero_first),
             cam_free.data_ptr(), lam.data_ptr(), num_points, cam_free.shape[0], num_ref,
             _ptr(acc), _ptr(blocks), _ptr(hinv), *(_ptr(out.get(k)) for k in _OUTPUTS),
-            _ptr(singular), _ptr(marks), info, torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(singular), _ptr(halt), _ptr(marks), info,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lm_assembly kernel (passes {passes}) failed with cudaError {err}")
     LAUNCHES += 1
@@ -306,7 +309,7 @@ class AssemblyPlan:
     sizes builds it anew."""
 
     def __init__(self):
-        self._key = self._cam_free = self._singular = None
+        self._key = self._cam_free = self._singular = self._halt = None
 
     def _build(self, key, mesh: ShardMesh, shards, J, r, cam_free, num_ref: int,
                num_points: int, block_precond: bool) -> None:
@@ -346,7 +349,8 @@ class AssemblyPlan:
 
     def __call__(self, mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
                  cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
-                 block_precond: bool, singular: Optional[torch.Tensor] = None) -> Assembly:
+                 block_precond: bool, singular: Optional[torch.Tensor] = None,
+                 halt: Optional[torch.Tensor] = None) -> Assembly:
         key = (cam_free.dtype, r is None, block_precond, cam_free.shape[0], num_points, num_ref)
         if not (self._key == key and self._mesh is mesh and self._shards is shards):
             self._build(key, mesh, shards, J, r, cam_free, num_ref, num_points, block_precond)
@@ -367,12 +371,15 @@ class AssemblyPlan:
             if singular is not self._singular:
                 _check("the singular flag", singular, (), torch.int32, lead)
                 self._singular = singular
+        if halt is not None and halt is not self._halt:
+            _check("the stop flag", halt, (), torch.int32, lead)
+            self._halt = halt
         out, hinv = self.out, self.hinv
         if mesh.size == 1:
             # one shard over every process: one launch of every pass
             passes = _ROWS | _POINTS | ((_BLOCKS | _POSES) if block_precond else 0)
             _launch(passes, False, self.tables[0], lead, cam_free, lam, P, R, self.acc[0],
-                    self.blocks[0], hinv, out, singular)
+                    self.blocks[0], hinv, out, singular, halt)
         else:
             for table, acc, d in zip(self.tables, self.acc, self.devs):
                 _launch(_ROWS, True, table, d, cam_free.to(d), lam.to(d), P, R, acc)
@@ -390,15 +397,19 @@ class AssemblyPlan:
 def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
                   cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
                   block_precond: bool, singular: Optional[torch.Tensor] = None,
-                  plan: Optional[AssemblyPlan] = None) -> Assembly:
+                  plan: Optional[AssemblyPlan] = None,
+                  halt: Optional[torch.Tensor] = None) -> Assembly:
     """The assembly on the card: one cooperative launch on one shard, else a
     launch a pass and shard with ``mesh.sum`` between them. ``singular`` (an
     int32 0-d tensor on the lead device, from ``new_flag``) is set to 1 where
     a 7x7 block is singular; without it the kernel sets a flag of its own
     that nothing reads. ``plan`` (an ``AssemblyPlan`` kept over a solve)
-    reuses its table and buffers; without it the call builds its own."""
+    reuses its table and buffers; without it the call builds its own.
+    ``halt`` (an int32 0-d tensor on the lead device: the LM loop's stop
+    flag, ``lm_step.LMState.halt``): where it is set, the one-shard launch
+    returns at once and the outputs keep their last values."""
     return (plan or AssemblyPlan())(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
-                                    block_precond, singular)
+                                    block_precond, singular, halt)
 
 
 # ----------------------------------------------------------------------------
@@ -409,33 +420,28 @@ def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]
 def assemble(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
              cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
              block_precond: bool, singular: Optional[torch.Tensor] = None,
-             plan: Optional[AssemblyPlan] = None) -> Assembly:
+             plan: Optional[AssemblyPlan] = None, halt: Optional[torch.Tensor] = None) -> Assembly:
     """One LM iteration's assembly: ``shards`` per local shard of ``mesh`` its
     families, ``J`` per shard (camera blocks [N,k,B] or None, point blocks
     [N,k,3] or None) in family order, ``r`` per shard the flat residuals
     (None: no gradient), ``cam_free`` [C] and the 0-d ``lam`` on the lead
     device; ``block_precond``: also SCHUR_JACOBI's 7x7 inverses. The plain
-    version for CPU tensors, the kernel for CUDA ones (``plan``: see
-    ``assemble_cuda``; the plain version takes none)."""
+    version for CPU tensors, the kernel for CUDA ones (``plan``, ``halt``:
+    see ``assemble_cuda``; the plain version takes neither)."""
     if cam_free.device.type == "cpu":
         return assemble_plain(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
                               block_precond, singular)
     return assemble_cuda(mesh, shards, J, r, cam_free, lam, num_ref, num_points, block_precond,
-                         singular, plan)
+                         singular, plan, halt)
 
 
-def stop_test(done: torch.Tensor, singular: torch.Tensor, count: Optional[torch.Tensor] = None):
+def stop_test(done: torch.Tensor, singular: torch.Tensor):
     """``bool(done)`` and the singular-block flag in one host sync; raises
     ``torch.linalg.LinAlgError`` where the kernel found a singular 7x7 block
-    (as ``torch.linalg.inv`` does on the CPU). With ``count`` (a 0-d int64
-    tensor on done's device) it is read in the same sync, and
-    ``(bool(done), int(count))`` is returned."""
-    state = done.to(torch.int64) + 2 * singular.to(done.device)
-    if count is not None:
-        state = state + 4 * count
-    state = int(state)
+    (as ``torch.linalg.inv`` does on the CPU)."""
+    state = int(done.to(torch.int64) + 2 * singular.to(done.device))
     if state & 2:
         raise torch.linalg.LinAlgError(
             "lm_assembly kernel: a SCHUR_JACOBI 7x7 pose block is singular (a zero pivot); "
             "its inverse could not be completed")
-    return bool(state & 1) if count is None else (bool(state & 1), state >> 2)
+    return bool(state & 1)

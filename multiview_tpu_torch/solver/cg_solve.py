@@ -9,7 +9,10 @@ hand-written kernel ``cg_solve_kernel`` of ``csrc/schur_mv.cu``
 (``solve_cuda``): the matvec's passes of ``schur_kernel`` and the step of
 ``csrc/cg_step.cuh`` in a loop on the device, the stop test taken at every
 step (the reference's ``cg_cond``), so its matvecs equal its CG count and
-the host reads nothing until the LM loop's own sync. On CPU tensors it runs
+the host reads nothing until the LM loop's own sync; ``SolveBuffers``, kept
+over an LM solve, hold its vectors and its count (allocated once), and the
+LM loop's stop flag ``halt``, where set, makes the launch return at once.
+On CPU tensors it runs
 the plain version (``solve_plain``): ``schur_rhs``, ``cg.pcg`` with the stop
 test read every ``check_every`` steps (the steps past it masked: the same x
 and count) and ``row_products``. ``LAUNCHES`` counts the kernel's launches.
@@ -64,11 +67,38 @@ def solve_plain(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
 _check = functools.partial(cuda_build.check_tensor, "cg_solve kernel")
 
 
+class SolveBuffers:
+    """The one-launch solve's vectors, scratch and count on the card, kept
+    over an LM solve: allocated at the first call, anew where the sizes,
+    dtype or device change. The outputs of one call are overwritten by the
+    next."""
+
+    def __init__(self):
+        self._key = None
+
+    def get(self, C: int, P: int, u_len: int, u_zero: bool, dt, dev) -> dict:
+        key = (C, P, u_len, u_zero, dt, dev)
+        if key != self._key:
+            kw = dict(dtype=dt, device=dev)
+            self.t = {"x": torch.empty(C, **kw), "r": torch.empty(2 * C, **kw),
+                      "p": torch.empty(2 * C, **kw), "ap": torch.empty(2 * C, **kw),
+                      # the rows of a family without a camera block stay 0
+                      "u": (torch.zeros if u_zero else torch.empty)(u_len, **kw),
+                      "jtp_u": torch.empty((P, 3), **kw), "w": torch.empty((P, 3), **kw),
+                      "state": torch.empty(4, dtype=torch.float64, device=dev),
+                      "count": torch.zeros((), dtype=torch.int64, device=dev)}
+            self._key = key
+        return self.t
+
+
 def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
                M: cg.Preconditioner, iterations: int, tolerance: float,
-               force: Optional[int] = None) -> Solution:
+               force: Optional[int] = None, buffers: Optional[SolveBuffers] = None,
+               halt: Optional[torch.Tensor] = None) -> Solution:
     """One launch of cg_solve_kernel: the stop test at every step on the
-    device (``force=m``: exactly m steps, no test)."""
+    device (``force=m``: exactly m steps, no test). ``buffers``: see
+    ``SolveBuffers`` (None: the call's own); ``halt``: the LM loop's stop
+    flag (an int32 0-d tensor on the shard's device)."""
     global LAUNCHES, LAST_LAUNCH
     if system.mesh.size != 1:
         raise ValueError(f"cg_solve kernel: the observations lie in {system.mesh.size} "
@@ -87,11 +117,10 @@ def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
             raise ValueError(f"cg_solve kernel: {nposes} pose blocks for {C} entries")
     if force is not None and force < 0:
         raise ValueError(f"cg_solve kernel: force = {force}")
-    x = torch.empty(C, dtype=dt, device=dev)
-    r, p, ap = (torch.empty(2 * C, dtype=dt, device=dev) for _ in range(3))
-    u = (torch.zeros if plan.u_zero else torch.empty)(plan.u_len, dtype=dt, device=dev)
-    jtp_u, w = torch.empty((P, 3), dtype=dt, device=dev), torch.empty((P, 3), dtype=dt, device=dev)
-    state = torch.empty(4, dtype=torch.float64, device=dev)
+    if halt is not None:
+        _check("the stop flag", halt, (), torch.int32, dev)
+    b = (buffers or SolveBuffers()).get(C, P, plan.u_len, plan.u_zero, dt, dev)
+    x, r, p, ap, u, jtp_u, w = (b[k] for k in ("x", "r", "p", "ap", "u", "jtp_u", "w"))
     info = (ctypes.c_longlong * len(_INFO))() if RECORD_LAUNCH else None
     ptr = smv._ptr
     with torch.cuda.device(dev):
@@ -101,22 +130,24 @@ def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
             M.precond.data_ptr(), ptr(M.pose_inv), nposes, P, C, system.num_ref, iterations,
             -1 if force is None else force, float(tolerance) ** 2, x.data_ptr(),
             r.data_ptr(), p.data_ptr(), ap.data_ptr(), u.data_ptr(), jtp_u.data_ptr(),
-            w.data_ptr(), state.data_ptr(), info, torch.cuda.current_stream(dev).cuda_stream)
+            w.data_ptr(), b["state"].data_ptr(), b["count"].data_ptr(), smv._ptr(halt), info,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cg_solve kernel failed with cudaError {err}")
     LAUNCHES += 1
     if info is not None:
         LAST_LAUNCH = dict(zip(_INFO, list(info)))
-    return Solution(x, state[3].to(torch.int64), [u], jtp_u)
+    return Solution(x, b["count"], [u], jtp_u)
 
 
 def solve(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
           M: cg.Preconditioner, iterations: int, tolerance: float, check_every: int,
-          force: Optional[int] = None, schur_mv: Optional[Callable] = None) -> Solution:
+          force: Optional[int] = None, schur_mv: Optional[Callable] = None,
+          buffers: Optional[SolveBuffers] = None, halt: Optional[torch.Tensor] = None) -> Solution:
     """The plain version for CPU tensors (``check_every`` and ``schur_mv``
-    are its), the kernel for CUDA ones (which raises on anything it does not
-    take)."""
+    are its), the kernel for CUDA ones (``buffers`` and ``halt`` are its;
+    it raises on anything it does not take)."""
     if g_c.device.type == "cpu":
         return solve_plain(system, g_c, g_p, M, iterations, tolerance, check_every, force,
                            schur_mv)
-    return solve_cuda(system, g_c, g_p, M, iterations, tolerance, force)
+    return solve_cuda(system, g_c, g_p, M, iterations, tolerance, force, buffers, halt)

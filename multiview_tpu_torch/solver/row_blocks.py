@@ -19,7 +19,10 @@ tensors take the plain version (``*_plain``: reverse-mode autograd of the
 row-summed residuals, one pass per residual component, with per-row leaf
 copies of every shared block), CUDA tensors the hand-written kernel
 ``csrc/row_blocks.cu`` (one launch a family; ``*_cuda``), which raises on
-anything it does not take. The kernel evaluates each row's residual chain
+anything it does not take; ``*_row_launch`` binds a family's launch once
+(``RowLaunch``: the LM loop's current and trial points, whose tensors stay
+over a solve, evaluated into fixed outputs, a launch returning at once
+where the loop's stop flag is set). The kernel evaluates each row's residual chain
 once, differentiates its tail (projection, distortion, Cauchy weight) once
 and seeds only the head's blocks (poses, rig, offset), and stores its
 outputs from shared memory in contiguous spans (see the source). It takes
@@ -189,7 +192,7 @@ class _Args(ctypes.Structure):
                    ("poses", "beg", "end", "points", "pidx", "dt_cam", "dt_bracket", "mask",
                     "rig", "offset", "pix", "focal", "ctr", "dist", "dist_half", "depth_xyz",
                     "d2i", "dscale", "mesh_xyz", "mesh_mask", "ref_xyz", "res", "j_cam",
-                    "j_pt")])
+                    "j_pt", "halt")])
 
 
 def _lib():
@@ -250,6 +253,19 @@ def _bracket(chk: _Checker, a: _Args, state: prob.RigState, obs, n: int):
                    (state.timestamp_offsets.shape[0],)) + s * state.dtype.itemsize
 
 
+def _outputs(chk: _Checker, res, shapes):
+    """The launch's outputs (shapes: the blocks', None where the family has
+    no such block, then the residual's): new tensors, but the residual where
+    the caller gives ``res`` (checked: a span of its flat residual)."""
+    *blocks, res_shape = shapes
+    if res is None:
+        res = torch.empty(res_shape, dtype=chk.dtype, device=chk.dev)
+    else:
+        chk("the output res", res, res_shape)
+    return tuple(None if sh is None else torch.empty(sh, dtype=chk.dtype, device=chk.dev)
+                 for sh in blocks) + (res,)
+
+
 def _launch(chk: _Checker, a: _Args) -> None:
     global LAUNCHES
     chk.on_card()
@@ -265,8 +281,9 @@ def _launch(chk: _Checker, a: _Args) -> None:
     LAUNCHES += 1
 
 
-def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob.BAOptions):
-    """(checker, args, outputs) of a pixel family."""
+def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob.BAOptions,
+                res=None):
+    """(checker, args, outputs) of a pixel family (``res``: see ``_outputs``)."""
     n = len(obs)
     s = obs.sensor
     chk = _Checker("pixel", state.world_to_ref)
@@ -281,9 +298,7 @@ def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob
     a.ctr = chk("optical_center[sensor]", state.optical_center[s], (2,))
     a.dist = chk("dist[sensor]", state.dist[s], (d,)) if d else None
     a.dist_half = chk("dist_half_size", obs.dist_half_size, (2,))
-    kw = dict(dtype=chk.dtype, device=chk.dev)
-    out = (torch.empty((n, 2, 25 + d), **kw), torch.empty((n, 2, 3), **kw),
-           torch.empty((n, 2), **kw))
+    out = _outputs(chk, res, ((n, 2, 25 + d), (n, 2, 3), (n, 2)))
     a.j_cam, a.j_pt, a.res = (t.data_ptr() for t in out)
     return chk, a, out
 
@@ -291,13 +306,11 @@ def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob
 def pixel_row_blocks_cuda(state: prob.RigState, obs: prob.PixelObs, model: str,
                           opts: prob.BAOptions):
     """``pixel_row_blocks`` on the card: one launch of csrc/row_blocks.cu."""
-    chk, a, out = _pixel_args(state, obs, model, opts)
-    _launch(chk, a)
-    return out
+    return pixel_row_launch(state, obs, model, opts)()
 
 
 def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
-                mesh_variant: bool):
+                mesh_variant: bool, res=None):
     n = len(obs)
     s = obs.sensor
     chk = _Checker("depth", state.world_to_ref)
@@ -319,10 +332,8 @@ def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
     else:
         a.points = chk("points", state.points, (state.points.shape[0], 3))
         a.pidx = chk("point_idx", obs.point_idx, (n,), torch.int64)
-    kw = dict(dtype=chk.dtype, device=chk.dev)
-    j_cam = torch.empty((n, 3, 23 + nd), **kw)
-    j_pt = None if mesh_variant else torch.empty((n, 3, 3), **kw)
-    res = torch.empty((n, 3), **kw)
+    j_cam, j_pt, res = _outputs(chk, res, ((n, 3, 23 + nd), None if mesh_variant else (n, 3, 3),
+                                           (n, 3)))
     a.j_cam, a.res = j_cam.data_ptr(), res.data_ptr()
     a.j_pt = None if j_pt is None else j_pt.data_ptr()
     return chk, a, (j_cam, j_pt, res)
@@ -331,12 +342,11 @@ def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
 def depth_row_blocks_cuda(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
                           mesh_variant: bool):
     """``depth_row_blocks`` on the card: one launch of csrc/row_blocks.cu."""
-    chk, a, out = _depth_args(state, obs, opts, mesh_variant)
-    _launch(chk, a)
-    return out
+    return depth_row_launch(state, obs, opts, mesh_variant)()
 
 
-def _prior_args(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th: float):
+def _prior_args(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th: float,
+                res=None):
     m = prior.point_idx.shape[0]
     chk = _Checker("prior", state.points)
     a = _Args(family=_PRIOR, robust=int(th > 0), n=m, weight=float(weight),
@@ -345,18 +355,56 @@ def _prior_args(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th
     a.pidx = chk("point_idx", prior.point_idx, (m,), torch.int64)
     a.ref_xyz = chk("ref_xyz", prior.ref_xyz, (m, 3))
     a.mask = chk("mask", prior.mask, (m,), torch.bool)
-    kw = dict(dtype=chk.dtype, device=chk.dev)
-    out = (torch.empty((m, 3, 3), **kw), torch.empty((m, 3), **kw))
-    a.j_pt, a.res = (t.data_ptr() for t in out)
-    return chk, a, out
+    j_pt, res = _outputs(chk, res, ((m, 3, 3), (m, 3)))
+    a.j_pt, a.res = j_pt.data_ptr(), res.data_ptr()
+    return chk, a, (j_pt, res)
 
 
 def prior_row_blocks_cuda(state: prob.RigState, prior: prob.XyzPriorObs, weight: float,
                           th: float):
     """``prior_row_blocks`` on the card: one launch of csrc/row_blocks.cu."""
-    chk, a, out = _prior_args(state, prior, weight, th)
-    _launch(chk, a)
-    return out
+    return prior_row_launch(state, prior, weight, th)()
+
+
+class RowLaunch:
+    """One family's launch of csrc/row_blocks.cu with its arguments checked
+    and bound once (``*_row_launch``): the LM loop on the card evaluates its
+    current and its trial point into the same tensors every iteration, so a
+    call is the launch alone. ``out``: the outputs, as the family's entry
+    point returns them."""
+
+    def __init__(self, chk: _Checker, args: _Args, out):
+        self.chk, self.args, self.out = chk, args, out
+
+    def __call__(self, halt: Optional[torch.Tensor] = None):
+        """Launches (``halt``: the LM loop's stop flag, an int32 0-d tensor on
+        the family's device; where set the launch returns at once) and
+        returns ``out``."""
+        if halt is not None:
+            self.chk("the stop flag", halt, (), torch.int32)
+        self.args.halt = None if halt is None else halt.data_ptr()
+        _launch(self.chk, self.args)
+        return self.out
+
+
+def pixel_row_launch(state: prob.RigState, obs: prob.PixelObs, model: str,
+                     opts: prob.BAOptions, res=None) -> RowLaunch:
+    """A pixel family's ``RowLaunch`` at ``state`` (its tensors read at each
+    launch), writing its blocks into new tensors and its residual into
+    ``res`` (None: a new tensor); ``RowLaunch.out`` holds them."""
+    return RowLaunch(*_pixel_args(state, obs, model, opts, res))
+
+
+def depth_row_launch(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
+                     mesh_variant: bool, res=None) -> RowLaunch:
+    """As ``pixel_row_launch``; ``out``: (J_cam, J_pt | None, res)."""
+    return RowLaunch(*_depth_args(state, obs, opts, mesh_variant, res))
+
+
+def prior_row_launch(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th: float,
+                     res=None) -> RowLaunch:
+    """As ``pixel_row_launch``; ``out``: (J_pt, res)."""
+    return RowLaunch(*_prior_args(state, prior, weight, th, res))
 
 
 # ----------------------------------------------------------------------------

@@ -37,11 +37,14 @@ The other linear solvers of the reference (``cg``, ``cg_dense_j``,
 ``dense_schur``) share that loop; ``make_schur_solver`` says how each
 differs. CG stops at the reference's test: on the device at every step in
 the one-launch solve, else read on the host every ``CG_CHECK_EVERY``
-iterations; the LM loop syncs with the host once per iteration for its stop
-test. Every residual family of the problem
-is supported: pixel reprojection, depth against the triangulated point,
-depth against the mesh (camera side only: it touches no point) and xyz
-priors (point side only).
+iterations. After the CG, each LM iteration's trial point, model reduction,
+accept and lam update run in ``solver/lm_step.py`` (on the card the
+hand-written kernel ``csrc/lm_step.cu``, two launches an iteration), whose
+state stays on the device; the host reads it every ``LM_CHECK_EVERY``
+iterations where an iteration has no sync of its own, else every iteration.
+Every residual family of the problem is supported: pixel reprojection,
+depth against the triangulated point, depth against the mesh (camera side
+only: it touches no point) and xyz priors (point side only).
 
 Observations sharded over a ``parallel.sharding.ShardMesh`` (pixel
 families in row shards, the rest whole) solve with the same loop: row-space
@@ -66,9 +69,11 @@ import torch
 
 from multiview_tpu_torch.calib import problem as prob
 from multiview_tpu_torch.parallel.sharding import ShardMesh, ShardedPixelObs
-from multiview_tpu_torch.solver import assembly, cg, cg_solve, schur_matvec as smv
+from multiview_tpu_torch.solver import assembly, cg, cg_solve, lm_step, schur_matvec as smv
 from multiview_tpu_torch.solver.row_blocks import (  # noqa: F401  (re-exported)
-    depth_row_blocks, pixel_row_blocks, prior_row_blocks)
+    depth_row_blocks, depth_row_launch, pixel_row_blocks, pixel_row_launch, prior_row_blocks,
+    prior_row_launch)
+from multiview_tpu_torch.utils.device import indexed_device
 
 
 class CamLayout(NamedTuple):
@@ -117,6 +122,14 @@ LINEAR_SOLVERS = ("cg", "cg_blocks", "cg_dense_j", "dense_schur")
 # at every iteration, and a solve runs at most CG_CHECK_EVERY - 1 matvecs
 # past convergence. The one-launch CG solve on the card tests every step
 CG_CHECK_EVERY = 2
+# The LM loop's state (done, the counts, the singular flag) is read on the
+# host once every this many iterations, and after the last, on one shard of
+# cg_blocks, where an LM iteration has no host sync of its own; an iteration
+# past done is a no-op (every launch returns at once on the device's stop
+# flag), so the result is that of a read at every iteration. The other paths
+# read at every iteration: their CG reads its stop test on the host, and
+# dense_schur's dense solve (plain PyTorch) cannot test the device's flag.
+LM_CHECK_EVERY = 2
 
 
 class SchurLMResult(NamedTuple):
@@ -264,13 +277,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         st = prob.unpack_state(cam_vec, template, include_points=False)
         return dataclasses.replace(st, points=points)
 
-    def project(cam_vec):
-        if lower is not None:
-            cam_vec = torch.maximum(cam_vec, lower)
-        if upper is not None:
-            cam_vec = torch.minimum(cam_vec, upper)
-        return cam_vec
-
     def lm_solve(cam0, points0, obs=None, cam_mask_rt=None) -> SchurLMResult:
         if obs is None:
             obs = observations
@@ -369,14 +375,6 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             return mesh.sum([smv.shard_jtmv_p(fams, jc, jp, us, num_points, dtype, devs[s])
                              for s, (fams, (jc, jp), us) in enumerate(zip(shards, J, u))])
 
-        def dot(a, b):
-            """Dot of replicated (camera- or point-space) vectors."""
-            return torch.sum(a * b)
-
-        def rdot(a, b):
-            """Dot of row-space vectors: per-shard partials summed over the mesh."""
-            return mesh.sum([torch.sum(x * y) for x, y in zip(a, b)])
-
         def rsub(a, b):
             return [x - y for x, y in zip(a, b)]
 
@@ -408,166 +406,239 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             x = torch.where(info == 0, x, torch.full_like(x, float("nan")))
             return x * cam_free
 
-        J, r = blocks_at(cam0, points0)
-        cam, points = cam0, points0
-        cost = 0.5 * rdot(r, r)
-        c0 = cost
-        lam = torch.as_tensor(lam0, dtype=dtype, device=device)
-        nu = torch.as_tensor(2.0, dtype=dtype, device=device)
-        cg_total = torch.zeros((), dtype=torch.int64, device=device)
-        iterations = 0
-        # set on the card where a SCHUR_JACOBI block is singular; read at the host syncs
-        singular = assembly.new_flag(device)
-        # the assembly kernel's table and buffers, kept over the solve
+        def family_rows(f: _Family) -> Tuple[int, int]:
+            """(rows, components a row) of a family."""
+            if f.kind == "prior":
+                return f.obs.point_idx.shape[0], 3
+            return len(f.obs), 2 if f.kind == "pix" else 3
+
+        def row_launches(cam_vec, pts):
+            """On the card: (launch, J, r), ``launch(halt)`` evaluating every
+            family's row blocks at what ``cam_vec`` and ``pts`` then hold into
+            ``J`` and ``r``, allocated once (a ``RowLaunch`` a family, which
+            allocates its blocks and writes its span of the flat residual;
+            a shard on another device than the lead's reads copies that
+            ``launch`` refreshes, and its launches are not halted)."""
+            copies, launches, J, r = [], [], [], []
+            for s, fams in enumerate(shards):
+                dev = indexed_device(devs[s])
+                c, p = cam_vec, pts
+                if dev != lead:
+                    c, p = torch.empty_like(cam_vec, device=dev), torch.empty_like(pts, device=dev)
+                    copies += [(c, cam_vec), (p, pts)]
+                state = unpack(c, p)
+                kw = dict(dtype=dtype, device=dev)
+                sizes = [family_rows(f) for f in fams]
+                flat = torch.empty(sum(n * k for n, k in sizes), **kw)
+                jc, jp, ls, off = [], [], [], 0
+                for f, (n, k) in zip(fams, sizes):
+                    res = flat[off:off + n * k].view(n, k)
+                    off += n * k
+                    if f.kind == "pix":
+                        ls.append(pixel_row_launch(state, f.obs, models[f.obs.sensor], opts, res))
+                    elif f.kind != "prior":
+                        ls.append(depth_row_launch(state, f.obs, opts, f.kind == "depth_mesh",
+                                                   res))
+                    else:
+                        ls.append(prior_row_launch(state, f.obs, f.weight, f.th, res))
+                    out = ls[-1].out         # (J_cam, J_pt, res); a prior's (J_pt, res)
+                    jc.append(None if f.kind == "prior" else out[0])
+                    jp.append(out[-2])
+                launches.append((dev == lead, ls))
+                J.append((jc, jp))
+                r.append(flat)
+
+            def launch(halt):
+                for dst, src in copies:
+                    dst.copy_(src)
+                for here, ls in launches:
+                    for fn in ls:
+                        fn(halt if here else None)
+            return launch, J, r
+
+        on_card = indexed_device(device).type == "cuda"
+        lead = indexed_device(device)
+        st = lm_step.LMState(dtype, device, layout.total, num_points)
+        if on_card:
+            # the current point and its blocks, and the trial's, in tensors of
+            # the solve's own: the accept kernel copies the trial's over the
+            # current ones, and each launch reads them where they lie
+            cam = torch.empty(layout.total, dtype=dtype, device=device).copy_(cam0)
+            points = torch.empty((num_points, 3), dtype=dtype, device=device).copy_(points0)
+            rows_now, J, r = row_launches(cam, points)
+            rows_trial, J_t, r_t = row_launches(st.trial.cam, st.trial.points)
+            rows_now(None)
+        else:
+            cam, points = cam0, points0
+            J, r = blocks_at(cam, points)
+        lm_step.init(st, mesh, r, lam0)
+        # the assembly kernel's table and buffers, the one-launch CG's
+        # buffers, kept over the solve
         asm_plan = assembly.AssemblyPlan()
-        # the matvecs of the one-launch CG solves on the card (their CG
-        # steps), read at the host syncs
-        solve_matvecs = torch.zeros((), dtype=torch.int64, device=device)
-        on_card = 0
+        solve_buffers = cg_solve.SolveBuffers()
+        system = bound_system = None
+        bounded = lower is not None or upper is not None
+        no_cg = torch.zeros((), dtype=torch.int64, device=device)
+        one_launch = linear_solver == "cg_blocks" and mesh.size == 1
+        # the host reads the LM state every LM_CHECK_EVERY iterations where an
+        # iteration has no sync of its own and every launch tests the stop
+        # flag (one shard of cg_blocks), else every iteration
+        check_every = LM_CHECK_EVERY if one_launch else 1
+        iterations = cg_total = 0
+        n_iter = debug_unroll_lm or max_iterations
 
-        for _ in range(debug_unroll_lm or max_iterations):
-            # the products with J and J^T of this iteration: the row blocks,
-            # or in "cg" mode the residual function linearized here
-            if linear_solver == "cg":
-                r_lin, vjp_fn = torch.func.vjp(residual_fn, cam, points)
-                lin_at = (cam, points)
+        for it in range(n_iter):
+            # after done the iterations up to the next read are no-ops: the
+            # kernels return at once where the state's halt flag is set; the
+            # CPU reads it here (for free)
+            if not lm_step.halted(st):
+                # the products with J and J^T of this iteration: the row
+                # blocks, or in "cg" mode the residual function linearized here
+                if linear_solver == "cg":
+                    r_lin, vjp_fn = torch.func.vjp(residual_fn, cam, points)
+                    lin_at = (cam, points)
 
-                def Jx(xc, xp):
-                    t = (torch.zeros_like(cam) if xc is None else xc,
-                         torch.zeros_like(points) if xp is None else xp)
-                    return [torch.func.jvp(residual_fn, lin_at, t)[1]]
+                    def Jx(xc, xp):
+                        t = (torch.zeros_like(cam) if xc is None else xc,
+                             torch.zeros_like(points) if xp is None else xp)
+                        return [torch.func.jvp(residual_fn, lin_at, t)[1]]
 
-                def JTc(u):
-                    return vjp_fn(u[0])[0]
+                    def JTc(u):
+                        return vjp_fn(u[0])[0]
 
-                def JTp(u):
-                    return vjp_fn(u[0])[1]
+                    def JTp(u):
+                        return vjp_fn(u[0])[1]
 
-                gc_raw, g_p = vjp_fn(r_lin)
-                g_c = gc_raw * cam_free
-            else:
-                Jx, JTc, JTp = (functools.partial(fn, J) for fn in (Jmv, JTmv_c, JTmv_p))
-
-            # the gradient (but in "cg"), Hpp, the Jacobi diagonal, Hpp^-1, dc
-            # and the preconditioner: csrc/lm_assembly.cu on the card, plain
-            # on the CPU
-            asm = assembly.assemble(mesh, shards, J, None if linear_solver == "cg" else r,
-                                    cam_free, lam, num_ref, num_points, block_precond, singular,
-                                    asm_plan)
-            if linear_solver != "cg":
-                g_c, g_p = asm.g_c, asm.g_p
-            cam_diag, pt_diag, hpp_inv, dc = asm.cam_diag, asm.pt_diag, asm.hpp_inv, asm.dc
-
-            def solve3(rhs):
-                return smv.solve3(hpp_inv, rhs)
-
-            M = cg.Preconditioner(asm.precond, asm.pose_inv)
-            solved = None
-            if linear_solver == "dense_schur":
-                dc_step = dense_schur_solve(J, hpp_inv, cam_free, dc, -(
-                    g_c - JTc(Jx(None, solve3(g_p))) * cam_free))
-                cg_k = torch.zeros((), dtype=torch.int64, device=device)
-            else:
-                if linear_solver == "cg_blocks":
-                    # S x, its right-hand side and the back-substitution's
-                    # product: csrc/schur_mv.cu on the card, plain on the CPU
-                    system = smv.SchurSystem(mesh, shards, J, cam_free, dc, hpp_inv, num_ref)
-
-                    def schur_mv(x):
-                        nonlocal matvecs
-                        matvecs += 1
-                        return smv.schur_matvec(system, x)
-
-                    if mesh.size == 1:
-                        # the right-hand side, the CG and the back-substitution's
-                        # product: one launch of csrc/schur_mv.cu's
-                        # cg_solve_kernel on the card, the plain loop on the CPU
-                        solved = cg_solve.solve(system, g_c, g_p, M, cg_iterations,
-                                                cg_tolerance, CG_CHECK_EVERY, debug_force_cg,
-                                                schur_mv)
-                        dc_step, cg_k = solved.x, solved.count
-                        if dc_step.device.type != "cpu":
-                            solve_matvecs = solve_matvecs + cg_k   # a matvec a step
-                    else:
-                        rhs = smv.schur_rhs(system, g_c, g_p)
+                    gc_raw, g_p = vjp_fn(r_lin)
+                    g_c = gc_raw * cam_free
                 else:
-                    # the camera side on dense blocks in "cg_dense_j", by
-                    # the linearization in "cg"; the point side is the row blocks'
-                    if linear_solver == "cg_dense_j":
-                        dense = densify(J)
-                        cg_Jx = functools.partial(Jmv, J, dense=dense)
-                        cg_JTc = functools.partial(JTmv_c, J, dense=dense)
+                    Jx, JTc, JTp = (functools.partial(fn, J) for fn in (Jmv, JTmv_c, JTmv_p))
+
+                # the gradient (but in "cg"), Hpp, the Jacobi diagonal,
+                # Hpp^-1, dc and the preconditioner: csrc/lm_assembly.cu on
+                # the card, plain on the CPU
+                asm = assembly.assemble(mesh, shards, J, None if linear_solver == "cg" else r,
+                                        cam_free, st.lam, num_ref, num_points, block_precond,
+                                        st.singular, asm_plan, st.halt)
+                if linear_solver != "cg":
+                    g_c, g_p = asm.g_c, asm.g_p
+                cam_diag, pt_diag, hpp_inv, dc = asm.cam_diag, asm.pt_diag, asm.hpp_inv, asm.dc
+
+                def solve3(rhs):
+                    return smv.solve3(hpp_inv, rhs)
+
+                M = cg.Preconditioner(asm.precond, asm.pose_inv)
+                solved = None
+                if linear_solver == "dense_schur":
+                    dc_step = dense_schur_solve(J, hpp_inv, cam_free, dc, -(
+                        g_c - JTc(Jx(None, solve3(g_p))) * cam_free))
+                    cg_k = no_cg
+                else:
+                    if linear_solver == "cg_blocks":
+                        # S x, its right-hand side and the back-substitution's
+                        # product: csrc/schur_mv.cu on the card, plain on the
+                        # CPU (on the card J, dc and Hpp^-1 keep their tensors
+                        # over the solve, and so the system its tables)
+                        if not (system and system.J is J and system.dc is dc
+                                and system.hpp_inv is hpp_inv):
+                            system = smv.SchurSystem(mesh, shards, J, cam_free, dc, hpp_inv,
+                                                     num_ref)
+
+                        def schur_mv(x):
+                            nonlocal matvecs
+                            matvecs += 1
+                            return smv.schur_matvec(system, x)
+
+                        if mesh.size == 1:
+                            # the right-hand side, the CG and the
+                            # back-substitution's product: one launch of
+                            # csrc/schur_mv.cu's cg_solve_kernel on the card,
+                            # the plain loop on the CPU
+                            solved = cg_solve.solve(system, g_c, g_p, M, cg_iterations,
+                                                    cg_tolerance, CG_CHECK_EVERY, debug_force_cg,
+                                                    schur_mv, solve_buffers, st.halt)
+                            dc_step, cg_k = solved.x, solved.count
+                        else:
+                            rhs = smv.schur_rhs(system, g_c, g_p)
                     else:
-                        cg_Jx, cg_JTc = Jx, JTc
+                        # the camera side on dense blocks in "cg_dense_j", by
+                        # the linearization in "cg"; the point side is the row blocks'
+                        if linear_solver == "cg_dense_j":
+                            dense = densify(J)
+                            cg_Jx = functools.partial(Jmv, J, dense=dense)
+                            cg_JTc = functools.partial(JTmv_c, J, dense=dense)
+                        else:
+                            cg_Jx, cg_JTc = Jx, JTc
 
-                    def schur_mv(x):
-                        nonlocal matvecs
-                        matvecs += 1
-                        u = cg_Jx(x * cam_free, None)
-                        w = solve3(JTp(u))
-                        z = cg_Jx(None, w)
-                        return cg_JTc(rsub(u, z)) * cam_free + dc * x
+                        def schur_mv(x):
+                            nonlocal matvecs
+                            matvecs += 1
+                            u = cg_Jx(x * cam_free, None)
+                            w = solve3(JTp(u))
+                            z = cg_Jx(None, w)
+                            return cg_JTc(rsub(u, z)) * cam_free + dc * x
 
-                    # rhs = -(g_c - E Hpp^-1 g_p)
-                    rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
-                if solved is None:
-                    # the CG's steps: csrc/cg_step.cu on the card, the plain loop on the CPU
-                    dc_step, cg_k = cg.pcg(schur_mv, M, rhs, cg_iterations, cg_tolerance,
-                                           CG_CHECK_EVERY, debug_force_cg)
+                        # rhs = -(g_c - E Hpp^-1 g_p)
+                        rhs = -(g_c - cg_JTc(cg_Jx(None, solve3(g_p))) * cam_free)
+                    if solved is None:
+                        # the CG's steps: csrc/cg_step.cu on the card, the plain loop on the CPU
+                        dc_step, cg_k = cg.pcg(schur_mv, M, rhs, cg_iterations, cg_tolerance,
+                                               CG_CHECK_EVERY, debug_force_cg)
 
-            # back-substitute points: dp = Hpp^-1 (-g_p - Jp^T Jc dc)
-            if solved is not None:
-                u, jtp_u = solved.u, solved.jtp_u
-            elif linear_solver == "cg_blocks":
-                u, jtp_u = smv.row_products(system, dc_step)
-            else:
-                u = Jx(dc_step * cam_free, None)
-                jtp_u = JTp(u)
-            dp = solve3(-g_p - jtp_u)
+                # the back-substitution's product u = J_c (cam_free dc_step), J_p^T u
+                if solved is not None:
+                    u, jtp_u = solved.u, solved.jtp_u
+                elif linear_solver == "cg_blocks":
+                    u, jtp_u = smv.row_products(system, dc_step)
+                else:
+                    u = Jx(dc_step * cam_free, None)
+                    jtp_u = JTp(u)
 
-            cam_new = project(cam + dc_step * cam_free)
-            pts_new = points + dp
-            J_t, r_t = blocks_at(cam_new, pts_new)
-            new_cost = 0.5 * rdot(r_t, r_t)
-
-            # exact model reduction: -g.d - 0.5|Jd|^2 - 0.5 lam d'Dd
-            step_c = cam_new - cam
-            if lower is None and upper is None:
-                Jd = [a + b for a, b in zip(u, Jx(None, dp))]
-            else:
-                Jd = Jx(step_c, dp)
-            pred = -(dot(step_c, g_c) + dot(dp, g_p)) - 0.5 * rdot(Jd, Jd) \
-                - 0.5 * lam * (dot(cam_diag * step_c, step_c) + dot(pt_diag * dp, dp))
-            good = (new_cost < cost) & torch.isfinite(new_cost)
-            rho = (cost - new_cost) / torch.clamp_min(torch.abs(pred), 1e-30)
-            lam_dec = lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-            lam_new = torch.where(good, torch.clamp_min(lam_dec, 1e-14), lam * nu)
-            nu = torch.where(good, torch.full_like(nu, 2.0), nu * 2.0)
-            rel_decrease = torch.abs(cost - new_cost) / torch.clamp_min(cost, 1e-30)
-            done = (good & (rel_decrease < 1e-10)) | (lam > 1e12)
-
-            cam = torch.where(good, cam_new, cam)
-            points = torch.where(good, pts_new, points)
-            cost = torch.where(good, new_cost, cost)
-            J = [([None if a is None else torch.where(on(good, s), a, a0)
-                   for a, a0 in zip(jc_t, jc)],
-                  [None if b is None else torch.where(on(good, s), b, b0)
-                   for b, b0 in zip(jp_t, jp)])
-                 for s, ((jc_t, jp_t), (jc, jp)) in enumerate(zip(J_t, J))]
-            r = [torch.where(on(good, s), a, a0) for s, (a, a0) in enumerate(zip(r_t, r))]
-            lam = lam_new
-            cg_total = cg_total + cg_k
-            iterations += 1
-            if not debug_unroll_lm:
-                # the one host sync of an LM iteration
-                stop, on_card = assembly.stop_test(done, singular, solve_matvecs)
+                # the trial point, its row blocks, then the exact model
+                # reduction, the accept and lam: csrc/lm_step.cu on the card,
+                # plain on the CPU
+                t = lm_step.trial(st, cam, points, dc_step, cam_free, lower, upper, hpp_inv,
+                                  g_p, jtp_u)
+                if on_card:
+                    rows_trial(st.halt)
+                else:
+                    J_t, r_t = blocks_at(t.cam, t.points)
+                # Jd's camera half: u where the step is unbounded (step_c is
+                # then cam_free dc_step), else J_c step_c; "cg" takes Jd from
+                # its linearization
+                jd = None
+                if linear_solver == "cg":
+                    jd = Jx(t.step_c, t.dp) if bounded else \
+                        [a + b for a, b in zip(u, Jx(None, t.dp))]
+                elif bounded and linear_solver == "cg_blocks":
+                    if not (bound_system and bound_system.J is J and bound_system.dc is dc
+                            and bound_system.hpp_inv is hpp_inv):
+                        # the products with every camera column (cam_free = 1),
+                        # into tensors of the solve's own on the card
+                        bound_system = smv.SchurSystem(mesh, shards, J, torch.ones_like(cam_free),
+                                                       dc, hpp_inv, num_ref)
+                        bound_out = None if not on_card else [
+                            (torch.empty((num_points, 3), dtype=dtype, device=d),
+                             torch.zeros_like(rs)) for d, rs in zip(devs, r)]
+                    u = smv.row_products(bound_system, t.step_c, bound_out, st.halt)[0]
+                elif bounded:
+                    u = Jx(t.step_c, None)
+                cam, points, J, r = lm_step.accept(st, mesh, shards, num_ref, J, r, J_t, r_t, t,
+                                                   cam, points, g_c, g_p, cam_diag, pt_diag,
+                                                   None if jd is not None else u, jd, cg_k,
+                                                   not debug_unroll_lm)
+            if it + 1 == n_iter or (not debug_unroll_lm and (it + 1) % check_every == 0):
+                # the host's read of the state: stop, the counts, the singular flag
+                stop, iterations, cg_total = lm_step.read(st)
                 if stop:
                     break
-        if debug_unroll_lm:
-            # raises on a singular block
-            _, on_card = assembly.stop_test(done, singular, solve_matvecs)
 
-        return SchurLMResult(cam, points, cost, c0, iterations, lam, cg_total,
-                             matvecs + on_card)
+        if one_launch and on_card:
+            matvecs += cg_total          # the one-launch CG solves: a matvec a step
+        return SchurLMResult(cam, points, st.cost.clone(),
+                             st.values[lm_step.C0].to(dtype, copy=True),
+                             iterations, st.lam.clone(),
+                             torch.full((), cg_total, dtype=torch.int64, device=device),
+                             matvecs)
 
     return lm_solve

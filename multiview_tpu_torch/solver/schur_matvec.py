@@ -223,12 +223,12 @@ def _lib():
     lib = cuda_build.load_library(SOURCE)
     if lib.mv_schur.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_schur.argtypes = [i32, p, i32, i32, p, p, p, p, i64, i64, i64, p, p, p, p, p, p]
+        lib.mv_schur.argtypes = [i32, p, i32, i32, p, p, p, p, i64, i64, i64, p, p, p, p, p, p, p]
         lib.mv_schur.restype = ctypes.c_int
         # cg_solve_kernel's entry (solver/cg_solve.py)
         f64 = ctypes.c_double
         lib.mv_cg_solve.argtypes = ([i32, p, i32] + [p] * 7 + [i64] * 4 + [i32, i32, f64]
-                                    + [p] * 10)
+                                    + [p] * 12)
         lib.mv_cg_solve.restype = ctypes.c_int
     return lib
 
@@ -291,8 +291,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out, u) -> None:
-    """One cooperative launch of csrc/schur_mv.cu on the plan's shard."""
+def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out, u,
+            halt: Optional[torch.Tensor] = None) -> None:
+    """One cooperative launch of csrc/schur_mv.cu on the plan's shard
+    (``halt``: the LM loop's stop flag there; where set it returns at once)."""
     global LAUNCHES, LAST_LAUNCH
     dt = plan.cam_free.dtype
     info = (ctypes.c_longlong * 8)() if RECORD_LAUNCH else None
@@ -302,7 +304,7 @@ def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out,
         err = _lib().mv_schur(
             dt.itemsize, plan.table, plan.families, passes, _ptr(x), plan.cam_free.data_ptr(),
             _ptr(dc), plan.hpp_inv.data_ptr(), system.num_points, system.total,
-            system.num_ref, _ptr(g_p), _ptr(w), _ptr(out), _ptr(u), info,
+            system.num_ref, _ptr(g_p), _ptr(w), _ptr(out), _ptr(u), _ptr(halt), info,
             torch.cuda.current_stream(plan.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"schur_mv kernel (passes {passes}) failed with cudaError {err}")
@@ -313,16 +315,24 @@ def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out,
                            passes=passes)
 
 
-def point_pass_cuda(system: SchurSystem, plan: _ShardPlan, x: torch.Tensor, want_u: bool):
+def point_pass_cuda(system: SchurSystem, plan: _ShardPlan, x: torch.Tensor, want_u: bool,
+                    out=None, halt: Optional[torch.Tensor] = None):
     """(J_p^T u [P,3], u flat [rows x k] or None) of one shard on the card,
-    u = J_c (cam_free * x): one launch of the point pass."""
+    u = J_c (cam_free * x): one launch of the point pass. ``out``: the two
+    outputs' tensors to write (u's rows of a family without a camera block
+    are not written: zero them once)."""
     dt = plan.cam_free.dtype
-    g_p = torch.empty((system.num_points, 3), dtype=dt, device=plan.device)
-    u = None
-    if want_u:
-        u = (torch.zeros if plan.u_zero else torch.empty)(plan.u_len, dtype=dt,
-                                                          device=plan.device)
-    _launch(system, plan, _POINT, x, None, g_p, None, u)
+    if out is None:
+        g_p = torch.empty((system.num_points, 3), dtype=dt, device=plan.device)
+        u = None
+        if want_u:
+            u = (torch.zeros if plan.u_zero else torch.empty)(plan.u_len, dtype=dt,
+                                                              device=plan.device)
+    else:
+        g_p, u = out
+        _check("J_p^T u", g_p, (system.num_points, 3), dt, plan.device)
+        _check("u", u, (plan.u_len,), dt, plan.device)
+    _launch(system, plan, _POINT, x, None, g_p, None, u, halt)
     return g_p, u
 
 
@@ -367,9 +377,14 @@ def schur_rhs_cuda(system: SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor) ->
                                     for p in plans]))
 
 
-def row_products_cuda(system: SchurSystem, x: torch.Tensor):
+def row_products_cuda(system: SchurSystem, x: torch.Tensor, out=None,
+                      halt: Optional[torch.Tensor] = None):
+    """``out`` (per shard the (J_p^T u, u) tensors to write) and ``halt``
+    (the lead shard's stop flag) as ``point_pass_cuda`` takes them."""
     plans = _plans(system, x)
-    parts = [point_pass_cuda(system, p, x.to(p.device), True) for p in plans]
+    parts = [point_pass_cuda(system, p, x.to(p.device), True, None if out is None else out[i],
+                             halt if i == 0 else None)
+             for i, p in enumerate(plans)]
     return [u for _, u in parts], system.mesh.sum([g for g, _ in parts])
 
 
@@ -393,9 +408,11 @@ def schur_rhs(system: SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor) -> torc
     return schur_rhs_cuda(system, g_c, g_p)
 
 
-def row_products(system: SchurSystem, x: torch.Tensor):
+def row_products(system: SchurSystem, x: torch.Tensor, out=None,
+                 halt: Optional[torch.Tensor] = None):
     """(u per shard, flat in residual order, and J_p^T u summed over the
-    shards), u = J_c (cam_free * x); dispatched as ``schur_matvec``."""
+    shards), u = J_c (cam_free * x); dispatched as ``schur_matvec``
+    (``out`` and ``halt`` are the kernel's: ``row_products_cuda``)."""
     if x.device.type == "cpu":
         return row_products_plain(system, x)
-    return row_products_cuda(system, x)
+    return row_products_cuda(system, x, out, halt)

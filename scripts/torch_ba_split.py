@@ -33,12 +33,22 @@ a part of its own), the CG's set-up (the Schur system and its right-hand
 side), the CG (``cg.pcg`` since ``solver/cg.py``, the closure ``pcg``
 before), the back-substitution, since ``solver/cg_solve.py`` the CG solve
 of one shard (``cg_solve.solve``: the right-hand side, the CG and the
-back-substitution's product in one launch on the card), and the LM
+back-substitution's product in one launch on the card), since
+``solver/lm_step.py`` the trial point (``lm_step.trial``), the row blocks
+at it (``rows_trial`` on the card) and the accept (``lm_step.accept``: the
+model reduction, the accept, lam and the counts), the host's read of the
+stop test (``lm_step.read``; ``assembly.stop_test`` before), and the LM
 bookkeeping (every other line). A part's statement that spans several
 lines is the part's on all of them.
 Medians over ``--reps`` traced solves, in ms a solve and a LM iteration.
 
-    python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4] [--split]
+``--ops`` counts the ATen operations each part runs per LM iteration
+(a ``TorchDispatchMode`` over untraced solves of ``--lm`` and ``2 --lm``
+iterations, each operation given to the line of the LM loop running when
+it was dispatched; the difference over ``--lm``): on the card the eager
+operations around the kernels, each a launch or an allocation or a view.
+
+    python3 scripts/torch_ba_split.py [--root DIR] [--reps 5] [--lm 4] [--split] [--ops]
 
 ``--root`` imports ``multiview_tpu_torch`` from another checkout (a parent
 commit unpacked beside this one), so two versions can be split in one call.
@@ -58,7 +68,11 @@ from pathlib import Path
 
 # (the statement that begins a part of the LM loop, the part); a part ends
 # where the next begins; "until" parts end after the named statement
-PARTS = [("blocks_at(", "row blocks (blocks_at)"),
+PARTS = [("blocks_at(", "row blocks"), ("rows_now(", "row blocks"),
+         ("rows_trial(", "row blocks"),
+         ("lm_step.trial(", "trial point (lm_step.trial)"),
+         ("lm_step.accept(", "accept (lm_step.accept)"),
+         ("stop_test(", "stop test (host read)"), ("lm_step.read(", "stop test (host read)"),
          ("assembly.assemble(", "assembly (solver/assembly.py)"),
          ("gc_raw, g_p = JTc(r), JTp(r)", "gradient (J^T r)"),
          ("hpp_parts, diag_parts", "Hpp and Jacobi diagonal"),
@@ -69,8 +83,9 @@ PARTS = [("blocks_at(", "row blocks (blocks_at)"),
          ("= pcg(", "CG"), ("= cg.pcg(", "CG"), ("= dense_schur_solve(", "CG"),
          ("row_products(", "back-substitution"),
          ("cg_solve.solve(", "CG solve (right-hand side, CG, back-substitution)")]
-ONE_LINE = {"row blocks (blocks_at)", "assembly (solver/assembly.py)", "gradient (J^T r)",
-            "inv3x3_spd",
+ONE_LINE = {"row blocks", "assembly (solver/assembly.py)", "gradient (J^T r)",
+            "inv3x3_spd", "trial point (lm_step.trial)", "accept (lm_step.accept)",
+            "stop test (host read)",
             "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution",
             "CG solve (right-hand side, CG, back-substitution)"}
 BOOKKEEPING = "LM bookkeeping"
@@ -145,6 +160,39 @@ def traced_solve(torch, schur, solver, cam0, points0):
     return dict(spent), time.perf_counter() - t0
 
 
+def counted_ops(torch, schur, solver, cam0, points0):
+    """{part: ATen operations} of one untraced solve: a line tracer on the
+    LM loop keeps the part of the line running (no synchronise), and a
+    ``TorchDispatchMode`` gives each operation to it (those before the
+    loop's first line to the set-up)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    code, parts = solve_code(schur)
+    where = ["set-up"]
+    counts = collections.Counter()
+
+    def on_line(frame, event, arg):
+        if event == "line":
+            where[0] = parts.get(frame.f_lineno, BOOKKEEPING)
+        return on_line
+
+    def on_call(frame, event, arg):
+        return on_line if frame.f_code is code else None
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[where[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    sys.settrace(on_call)
+    try:
+        with Count():
+            solver(cam0, points0)
+            torch.cuda.synchronize()
+    finally:
+        sys.settrace(None)
+    return dict(counts)
+
+
 def problems(torch, dev):
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.utils import synthetic as syn
@@ -176,6 +224,8 @@ def main() -> int:
     ap.add_argument("--lm", type=int, default=4)
     ap.add_argument("--split", action="store_true",
                     help="also split the LM loop into its parts (a traced solve)")
+    ap.add_argument("--ops", action="store_true",
+                    help="also count the ATen operations of each part per LM iteration")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -191,7 +241,7 @@ def main() -> int:
     for name, st, scene, mask, opts, kw in problems(torch, dev):
         def solver(**extra):
             return schur.make_schur_solver(st, scene.observations, scene.models, opts, mask,
-                                           debug_unroll_lm=args.lm, **kw, **extra)
+                                           **{"debug_unroll_lm": args.lm, **kw, **extra})
 
         cam0 = prob.pack_state(st, include_points=False)
         t0, _ = solve_times(torch, solver(debug_force_cg=0), cam0, st.points, args.reps)
@@ -217,6 +267,17 @@ def main() -> int:
                 "ms_per_solve": per_solve,
                 "ms_per_lm_iteration": {k: v / args.lm for k, v in per_solve.items()},
                 "card": card}), flush=True)
+        if args.ops:
+            few, many = (counted_ops(torch, schur, solver(debug_unroll_lm=k), cam0, st.points)
+                         for k in (args.lm, 2 * args.lm))
+            per_it = {k: (many.get(k, 0) - few.get(k, 0)) / args.lm
+                      for k in sorted(set(few) | set(many))}
+            print(json.dumps({
+                "problem": name, "root": args.root, "ops": True,
+                "aten_ops_per_lm_iteration": {k: v for k, v in per_it.items() if v},
+                "total_per_lm_iteration": sum(per_it.values()),
+                "aten_ops_per_solve": {"lm": args.lm, "2lm": 2 * args.lm, "few": few,
+                                       "many": many}, "card": card}), flush=True)
     return 0
 
 

@@ -127,7 +127,7 @@ def test_the_assembly_plan_is_checked_once_and_follows_each_iteration(monkeypatc
     monkeypatch.setattr(asm, "_require_card", lambda lead, devs: None)
 
     def fake_launch(passes, zero_first, table, dev, cam_free, lam, P, R, acc=None,
-                    blocks=None, hinv=None, out=None, singular=None):
+                    blocks=None, hinv=None, out=None, singular=None, halt=None):
         t = table.table
         launches.append((passes, zero_first, [(t[10 * i], t[10 * i + 1], t[10 * i + 6])
                                                for i in range(table.families)]))

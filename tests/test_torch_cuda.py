@@ -1111,12 +1111,13 @@ def test_cg_solve_kernel_refuses_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_no_host_sync_inside_an_lm_iteration(cuda_device, monkeypatch):
-    """From an LM iteration's assembly to its stop test nothing syncs with
-    the host (``torch.cuda.set_sync_debug_mode("error")`` raises on any
-    sync): the stop test reads done, the singular flag and the CG solves'
-    matvecs in the iteration's one sync."""
+    """From an LM iteration's assembly to the loop's read of the LM state
+    nothing syncs with the host (``torch.cuda.set_sync_debug_mode("error")``
+    raises on any sync): the read takes done, the counts and the singular
+    flag in one sync, every ``LM_CHECK_EVERY`` iterations and after the
+    last."""
     from multiview_tpu_torch.calib import problem as prob
-    from multiview_tpu_torch.solver import assembly as asm, schur
+    from multiview_tpu_torch.solver import assembly as asm, lm_step as lm, schur
     from multiview_tpu_torch.utils import synthetic as syn
 
     scene = syn.make_cube_scene(n_images=12, n_per_face=4, pix_noise=0.3, dtype=torch.float32,
@@ -1124,7 +1125,7 @@ def test_no_host_sync_inside_an_lm_iteration(cuda_device, monkeypatch):
     state0 = syn.perturb_state(scene.true_state)
     mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)), no_rig=True,
                            include_points=False)
-    assemble, stop_test = asm.assemble, asm.stop_test
+    assemble, read = asm.assemble, lm.read
     syncs = []
 
     def guarded(*args):
@@ -1134,10 +1135,10 @@ def test_no_host_sync_inside_an_lm_iteration(cuda_device, monkeypatch):
     def test(*args):
         torch.cuda.set_sync_debug_mode(0)
         syncs.append(1)
-        return stop_test(*args)
+        return read(*args)
 
     monkeypatch.setattr(asm, "assemble", guarded)
-    monkeypatch.setattr(asm, "stop_test", test)
+    monkeypatch.setattr(lm, "read", test)
     try:
         res = schur.make_schur_solver(state0, scene.observations, scene.models,
                                       prob.BAOptions(no_rig=True), mask, max_iterations=6,
@@ -1146,7 +1147,8 @@ def test_no_host_sync_inside_an_lm_iteration(cuda_device, monkeypatch):
             prob.pack_state(state0, include_points=False), state0.points)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert len(syncs) == res.iterations and res.matvecs == int(res.cg_iters_total) > 0
+    every = schur.LM_CHECK_EVERY
+    assert len(syncs) == -(-res.iterations // every) and res.matvecs == int(res.cg_iters_total) > 0
 
 
 @pytest.mark.cuda
@@ -1263,3 +1265,170 @@ def test_two_sharded_ranks_on_the_card_agree_bit_for_bit(cuda_device, tmp_path):
     assert r0["cg_launches"] > 0 and r0["schur_launches"] > 0
     for k in r0:
         assert np.array_equal(r0[k], r1[k]) or k.endswith("_launches"), k
+
+
+# ----------------------------------------------------------------------------
+# The LM step (csrc/lm_step.cu: an LM iteration's trial point, model
+# reduction, accept and lam update) against its plain version on the card
+# ----------------------------------------------------------------------------
+
+
+def _lm_inputs(device, dtype, seed=0, bounded=False):
+    """Seeded inputs of one trial and accept on ``device``: three families
+    (pixel-like rows with both blocks, rows without a point block, rows
+    without a camera block), C = 40 camera entries, P = 30 points."""
+    import types
+    from multiview_tpu_torch.parallel.sharding import ShardMesh
+    g = torch.Generator().manual_seed(seed)
+    C, P = 40, 30
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, dtype=torch.float64)).to(dtype).to(device)
+
+    fams, jc, jp, jc_t, jp_t = [], [], [], [], []
+    for n, k, cam, pt in ((500, 2, True, True), (60, 3, True, False), (40, 3, False, True)):
+        fams.append(types.SimpleNamespace(
+            point_idx=torch.randint(0, P, (n,), generator=g).to(device)))
+        jc.append(rnd(n, k, 20) if cam else None)
+        jp.append(rnd(n, k, 3) if pt else None)
+        jc_t.append(rnd(n, k, 20) if cam else None)
+        jp_t.append(rnd(n, k, 3) if pt else None)
+    rows = 500 * 2 + 60 * 3 + 40 * 3
+    A = torch.randn((P, 3, 3), generator=g, dtype=torch.float64)
+    x = dict(cam=rnd(C), points=rnd(P, 3), x=rnd(C, scale=0.1),
+             cam_free=(torch.rand(C, generator=g) > 0.2).to(dtype).to(device),
+             lower=None, upper=None,
+             hpp_inv=(A @ A.transpose(1, 2) + 3 * torch.eye(3, dtype=torch.float64)).to(dtype)
+             .to(device), g_p=rnd(P, 3), jtp_u=rnd(P, 3), g_c=rnd(C),
+             cam_diag=rnd(C).abs() + 0.5, pt_diag=rnd(P, 3).abs() + 0.5, u=rnd(rows),
+             r=rnd(rows), r_t=rnd(rows, scale=0.5))
+    if bounded:
+        x["lower"], x["upper"] = x["cam"] - 0.05, x["cam"] + 0.05
+    mesh = ShardMesh((device,))
+    return x, mesh, [fams], [(jc, jp)], [(jc_t, jp_t)]
+
+
+def _lm_state(lm, dtype, device, C, P, cost, lam=3e-3, nu=4.0):
+    st = lm.LMState(dtype, device, C, P)
+    st.values[lm.COST], st.values[lm.LAM], st.values[lm.NU] = cost, lam, nu
+    st.values[lm.ITER], st.values[lm.CG_TOTAL] = 5, 40
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bounded", [False, True], ids=["unbounded", "bounded"])
+def test_lm_step_kernel_matches_plain_version(cuda_device, dtype, bounded):
+    """The trial within 1e-6 (float32) / 1e-12 (float64) of max |plain in
+    float64| (step_c of max |cam_t|); the accept at an accepted and a rejected step: good, done,
+    the counters and the stop flag equal, the scalars within 1e-12 relative
+    (both sum in float64, in other orders), the kept state and blocks bit
+    for bit the trial's or the current ones, two launches bit for bit
+    alike; then a halted state: nothing launched does anything."""
+    from multiview_tpu_torch.solver import lm_step as lm
+    x, mesh, shards, J, J_t = _lm_inputs(cuda_device, dtype, bounded=bounded)
+    C, P = x["cam"].shape[0], x["points"].shape[0]
+    targs = tuple(x[k] for k in ("cam", "points", "x", "cam_free", "lower", "upper", "hpp_inv",
+                                 "g_p", "jtp_u"))
+    st = _lm_state(lm, dtype, cuda_device, C, P, 1.0)
+    before = lm.LAUNCHES
+    t = lm.trial_cuda(st, *targs)
+    assert lm.LAUNCHES == before + 1
+    ref = lm.trial_plain(st, *(a.double() if a is not None else None for a in targs))
+    # each output within tol of its scale: step_c = cam_t - cam carries cam_t's
+    # rounding, so its scale is the cameras'
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for a, b, scale in zip(t, ref, (ref.cam, ref.points, ref.dp, ref.cam)):
+        assert float((a.double() - b).abs().max()) <= tol * float(scale.abs().max())
+    t = lm.Trial(*(a.clone() for a in t))
+    new_cost = 0.5 * float((x["r_t"].double() ** 2).sum())
+    for cost, accepted in ((2.0 * new_cost, True), (0.5 * new_cost, False)):
+        outs = []
+        for fn in (lm.accept_cuda, lm.accept_cuda, lm.accept_plain):
+            s = _lm_state(lm, dtype, cuda_device, C, P, cost)
+            Jc = [tuple([None if a is None else a.clone() for a in side] for side in J[0])]
+            cur = (x["r"].clone(), x["cam"].clone(), x["points"].clone())
+            res = fn(s, mesh, shards, 0, Jc, [cur[0]], J_t, [x["r_t"]], t, cur[1], cur[2],
+                     x["g_c"], x["g_p"], x["cam_diag"], x["pt_diag"], [x["u"]], None,
+                     torch.tensor(7, device=cuda_device), True)
+            torch.cuda.synchronize()
+            outs.append((s, res))
+        (k1, r1), (k2, r2), (p, rp) = outs
+        v1, v2, vp = k1.values.cpu(), k2.values.cpu(), p.values.cpu()
+        assert torch.equal(v1, v2) and torch.equal(k1.typed, k2.typed)
+        assert bool(v1[lm.GOOD]) == bool(vp[lm.GOOD]) == accepted
+        for slot in (lm.DONE, lm.ITER, lm.CG_TOTAL):
+            assert float(v1[slot]) == float(vp[slot])
+        assert int(v1[lm.ITER]) == 6 and int(v1[lm.CG_TOTAL]) == 47
+        assert bool(k1.halt) == bool(p.halt)
+        for slot in (lm.NEW_COST, lm.PRED, lm.RHO, lm.LAM, lm.NU, lm.REL, lm.COST):
+            a, b = float(v1[slot]), float(vp[slot])
+            assert abs(a - b) <= 1e-12 * abs(b), (slot, a, b)
+        cam, pts, Jn, rn = r1
+        want = (t.cam, t.points, J_t[0], x["r_t"]) if accepted else \
+            (x["cam"], x["points"], J[0], x["r"])
+        assert torch.equal(cam, want[0]) and torch.equal(pts, want[1])
+        assert torch.equal(rn[0], want[3])
+        for side, wside in zip(Jn[0], want[2]):
+            for a, b in zip(side, wside):
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    # halted: the trial and the accept launch and do nothing
+    st = _lm_state(lm, dtype, cuda_device, C, P, 2.0 * new_cost)
+    st.halt.fill_(1)
+    st.trial.cam.fill_(7.0)
+    values = st.values.clone()
+    before = lm.LAUNCHES
+    lm.trial_cuda(st, *targs)
+    lm.accept_cuda(st, mesh, shards, 0, J, [x["r"]], J_t, [x["r_t"]], t, x["cam"], x["points"],
+                   x["g_c"], x["g_p"], x["cam_diag"], x["pt_diag"], [x["u"]], None, None, True)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES == before + 2
+    assert torch.equal(st.values, values) and bool((st.trial.cam == 7.0).all())
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    with pytest.raises(TypeError):
+        lm.trial_cuda(st, *(None if a is None else a.to(other) for a in targs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cg_blocks", "dense_schur", "cg_dense_j", "cg"])
+def test_the_lm_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch, mode):
+    """The whole solve in float64 on the card against the plain CPU solve:
+    the same LM and CG counts, cost within 1e-10 relative, cameras within
+    1e-8; the LM state read every iteration and every second one on the
+    card gives the same counts; every iteration launched the LM step
+    kernel (a trial and an accept) and nothing after done."""
+    from multiview_tpu_torch.calib import problem as prob
+    from multiview_tpu_torch.solver import lm_step as lm, row_blocks as rb, schur
+    from multiview_tpu_torch.utils import synthetic as syn
+
+    def solve(dev):
+        scene = syn.make_cube_scene(n_images=8, n_per_face=3, pix_noise=0.3,
+                                    dist_coeffs=(-0.1, 0.02, 1e-4, -1e-4), dtype=torch.float64,
+                                    device=dev)
+        state0 = syn.perturb_state(scene.true_state, pose_rot=0.005, pose_trans=0.01,
+                                   point_sigma=0.01)
+        mask = prob.build_mask(state0, prob.FloatSpec(cam_poses=True, focal=(0,)),
+                               no_rig=True, include_points=False)
+        return schur.make_schur_solver(state0, scene.observations, scene.models,
+                                       prob.BAOptions(no_rig=True), mask, max_iterations=40,
+                                       cg_iterations=60, cg_tolerance=1e-2,
+                                       linear_solver=mode)(
+            prob.pack_state(state0, include_points=False), state0.points)
+
+    ref = solve("cpu")
+    assert ref.iterations < 40
+    for every in (1, 2):
+        monkeypatch.setattr(schur, "LM_CHECK_EVERY", every)
+        before = (lm.LAUNCHES, rb.LAUNCHES)
+        got = solve(cuda_device)
+        torch.cuda.synchronize()
+        assert got.iterations == ref.iterations
+        assert int(got.cg_iters_total) == int(ref.cg_iters_total)
+        assert abs(float(got.cost) - float(ref.cost)) <= 1e-10 * float(ref.cost)
+        assert float((got.cam.cpu() - ref.cam).abs().max()) <= 1e-8
+        # init, then a trial and an accept an iteration; the row blocks at
+        # the start and at each trial point (one family); past done (the
+        # iterations up to the next read) the launches return at once
+        stepped = (lm.LAUNCHES - before[0], rb.LAUNCHES - before[1])
+        extra = 0 if every == 1 or mode != "cg_blocks" else ref.iterations % 2
+        assert stepped == (1 + 2 * (ref.iterations + extra), 1 + ref.iterations + extra)
