@@ -64,7 +64,10 @@ printing a result):
    window, and the bytes its design reads; microseconds per matvec of the
    kernel, the plain version, the plain version replayed from a CUDA graph,
    the kernel from a graph (where the capture takes the cooperative
-   launch), and the bound with its share;
+   launch), and the bound with its share; the kernel launched as the LM
+   loop launches it, through the selector of the loop's halves (half 1
+   read), held to the plain version and timed eager and from a graph (the
+   same for the row blocks, the assembly and the CG solve in 3d-3f);
 3d. the row blocks kernel (``solver/row_blocks.py``, csrc/row_blocks.cu:
    per-row residuals and block Jacobians by forward-mode dual numbers, the
    chain split where the blocks meet)
@@ -113,13 +116,15 @@ printing a result):
    beside them (the step's practical floor);
 3g. the LM step kernel (``solver/lm_step.py``, csrc/lm_step.cu: an LM
    iteration's trial point, model reduction, accept and lam update) on the
-   first trial and accept of phases 3 and 4: the trial against the plain
-   one in float64, the accept at an accepted and a forced rejected step
-   against the plain accept (decisions, counters and the stop flag equal,
-   the scalars within LM_RTOL, the kept state bit for bit the trial's or the
-   current one, two launches alike); ms of the kernel and the plain
-   version, eager and from a CUDA graph, the bound (no copy) and the
-   accepted step's copy apart, registers; phase 3's
+   first trial and accept of phases 3 and 4, the current and trial state in
+   the halves of the LM loop (``lm_step.Halves``) as the path left them: the
+   trial against the plain one in float64, the accept at an accepted and a
+   forced rejected step against the plain accept (decisions, ``sel``,
+   counters and the stop flag equal, the scalars within LM_RTOL, both halves
+   bit for bit as they were: nothing copied, the current half kept; two
+   launches and two replays of one CUDA graph alike); ms of the kernel and
+   the plain version, eager and from a CUDA graph, the bound, the accepted
+   accept against the rejected one from graphs, registers; phase 3's
    solve with the LM state read every iteration and every second one (the
    counts equal, the cost within the spread of two runs); per LM iteration
    the kernel launches, the host reads and the eager ATen operations (none);
@@ -427,7 +432,10 @@ ASM_PATHS = {}
 CG_PATHS = {}
 LM_PATHS = {}
 # the first call of each row-block family of a path's BA, caught for phase 3d
+# (its entry point's arguments; ROW_HALVES: the outputs and the LM loop's
+# halves it was bound to)
 ROW_CALLS = {}
+ROW_HALVES = {}
 # the arguments of the first assembly and the first CG solve of a path's BA
 # (one shard: ``cg_solve.solve``), caught for phases 3c-3f
 ASM_CALLS = {}
@@ -481,6 +489,7 @@ def first_row_blocks(key):
     names = ("pixel_row_launch", "depth_row_launch", "prior_row_launch")
     originals = {n: getattr(schur, n) for n in names}
     calls = ROW_CALLS.setdefault(key, {})
+    bound = ROW_HALVES.setdefault(key, {})
 
     def spy(name):
         def fn(*args):
@@ -488,6 +497,7 @@ def first_row_blocks(key):
             tag = (name.split("_")[0], getattr(obs, "sensor", None),
                    args[3] if name == "depth_row_launch" else None)
             calls.setdefault(tag, args[:4])
+            bound.setdefault(tag, args[4:6])
             return originals[name](*args)
         return fn
 
@@ -502,9 +512,9 @@ def first_row_blocks(key):
 
 def kept(x):
     """``x`` with every tensor in it cloned (in lists, tuples, NamedTuples and
-    a ``SchurSystem``, whose kernel tables are then made anew): the
-    assembly's outputs, which a solve's CG reads, are overwritten by its next
-    LM iteration."""
+    a ``SchurSystem``, whose kernel tables are then made anew and which keeps
+    no halves: its blocks are the clones): the assembly's outputs, which a
+    solve's CG reads, are overwritten by its next LM iteration."""
     import dataclasses
     import torch
     from multiview_tpu_torch.solver import schur_matvec as smv
@@ -516,7 +526,7 @@ def kept(x):
         return type(x)(kept(v) for v in x)
     if isinstance(x, smv.SchurSystem):
         return dataclasses.replace(x, J=kept(x.J), cam_free=kept(x.cam_free), dc=kept(x.dc),
-                                   hpp_inv=kept(x.hpp_inv), _plans=None)
+                                   hpp_inv=kept(x.hpp_inv), halves=None, _plans=None)
     return x
 
 
@@ -545,7 +555,9 @@ def first_assembly_and_cg(key):
 def first_lm_step(key):
     """Keeps the arguments of the first ``lm_step.trial`` and
     ``lm_step.accept`` the path's BA calls (tensors cloned: ``kept``), with
-    the LM state's values as the call found them."""
+    the LM state's values as the call found them and both halves of the
+    LM loop's arrays that each reads (``lm_halves``: the cameras and points;
+    the accept's also every block and residual)."""
     from multiview_tpu_torch.solver import lm_step as lm
     originals = (lm.trial, lm.accept)
     calls = LM_CALLS.setdefault(key, {})
@@ -553,7 +565,11 @@ def first_lm_step(key):
     def spy(i, name):
         def fn(st, *args):
             if name not in calls:
-                calls[name] = (st.values.clone(), st.typed.clone(), kept(args))
+                h = args[-1]
+                arrays = list(args[:2]) if name == "trial" else lm_arrays(args[3], args[4], args[8],
+                                                                         args[9])
+                calls[name] = (st.values.clone(), st.typed.clone(), kept(args),
+                               [None if a is None else h.pair(a).clone() for a in arrays])
             return originals[i](st, *args)
         return fn
 
@@ -562,6 +578,47 @@ def first_lm_step(key):
         yield
     finally:
         lm.trial, lm.accept = originals
+
+
+def lm_arrays(J, r, cam, points):
+    """The LM loop's arrays an accept reads, flat: the cameras, the points,
+    each shard's residual, then each shard's camera blocks and point blocks
+    (None where a family has none)."""
+    return [cam, points, *r] + [a for jc, jp in J for a in (*jc, *jp)]
+
+
+def lm_unflat(arrays, J):
+    """``lm_arrays``' list back to (cam, points, r, J), J shaped as given."""
+    it = iter(arrays)
+    cam, points = next(it), next(it)
+    r = [next(it) for _ in J]
+    Jn = [([next(it) for _ in jc], [next(it) for _ in jp]) for jc, jp in J]
+    return cam, points, r, Jn
+
+
+def lm_halves(torch, st, pairs):
+    """(``lm_step.Halves`` on ``st``, half-0 arrays): each of ``pairs``
+    ([2, ...] each, None stays None) copied half for half."""
+    from multiview_tpu_torch.solver import lm_step as lm
+    sel = int(st.sel)
+    return lm.halves_for(st, [None if p is None else p[sel] for p in pairs],
+                         [None if p is None else p[1 - sel] for p in pairs])
+
+
+def halved(torch, J, r=None, sel=1):
+    """(J, r, halves): copies of the blocks ``J`` and residuals ``r`` (per
+    shard; r None: none) in both halves of new ``lm_step.Halves`` whose
+    selector reads ``sel``: a kernel timed as the LM loop launches it, its
+    table on half 0 and its reads ``sel`` halves on."""
+    from multiview_tpu_torch.solver import lm_step as lm
+    first = next(x for jc, jp in J for x in (*jc, *jp) if x is not None)
+    st = lm.LMState(first.dtype, first.device)
+    st.sel.fill_(sel)
+    flat = [x for jc, jp in J for x in (*jc, *jp)] + ([] if r is None else list(r))
+    h, arrays = lm.halves_for(st, flat)
+    it = iter(arrays)
+    Jh = [([next(it) for _ in jc], [next(it) for _ in jp]) for jc, jp in J]
+    return Jh, (None if r is None else [next(it) for _ in r]), h
 
 
 @contextlib.contextmanager
@@ -1229,9 +1286,9 @@ def schur_bound(system):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def graphed(torch, fn):
-    """``fn`` captured in a CUDA graph (warmed on a side stream first):
-    returns the replay."""
+def graphed(torch, fn, repeat: int = 1):
+    """``fn`` captured in a CUDA graph (warmed on a side stream first),
+    ``repeat`` calls of it back to back: returns the replay."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1240,7 +1297,8 @@ def graphed(torch, fn):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(repeat):
+            fn()
     return graph.replay
 
 
@@ -1286,7 +1344,11 @@ def phase3c(torch, card):
     kernel, the plain version, the plain version replayed from a CUDA graph
     (the launch overhead a graph removes is not the kernel's gain), the
     kernel from a graph (its device time alone, where the cooperative launch
-    can be captured), and the bound. Returns the records by system."""
+    can be captured), and the bound; then the kernel as the LM loop launches
+    it, its blocks in the halves (``halved``: half 1 read through the
+    selector), held to the plain version alike and timed eager and from a
+    graph. Returns the records by system."""
+    import dataclasses
     from multiview_tpu_torch.solver import schur_matvec as smv
 
     out = {}
@@ -1311,8 +1373,12 @@ def phase3c(torch, card):
         g_p = torch.randn((system.num_points, 3), dtype=x.dtype, device=x.device)
         rhs = (smv.schur_rhs_cuda(system, x, g_p), smv.schur_rhs_plain(system, x, g_p))
         rows = (smv.row_products_cuda(system, x), smv.row_products_plain(system, x))
+        Jh, _, hh = halved(torch, system.J)
+        sys_h = dataclasses.replace(system, J=Jh, halves=hh, _plans=None)
+        got_h = smv.schur_matvec_cuda(sys_h, x)
         torch.cuda.synchronize()
-        errs = {"matvec": (got - ref, ref), "rhs": (rhs[0] - rhs[1], rhs[1]),
+        errs = {"matvec": (got - ref, ref), "matvec_sel": (got_h - ref, ref),
+                "rhs": (rhs[0] - rhs[1], rhs[1]),
                 "u": (torch.cat(rows[0][0]) - torch.cat(rows[1][0]), torch.cat(rows[1][0])),
                 "J_p^T u": (rows[0][1] - rows[1][1], rows[1][1])}
         rel = {k: float(d.abs().max()) / max(float(r.abs().max()), 1e-30)
@@ -1322,8 +1388,11 @@ def phase3c(torch, card):
                 ("plain", lambda: smv.schur_matvec_plain(system, x)),
                 ("plain_graph", graphed(torch, lambda: smv.schur_matvec_plain(system, x)))]
         graph_note = ""
+        runs.append(("kernel_sel", lambda: smv.schur_matvec_cuda(sys_h, x)))
         try:
             runs.append(("kernel_graph", graphed(torch, lambda: smv.schur_matvec_cuda(system, x))))
+            runs.append(("kernel_sel_graph",
+                         graphed(torch, lambda: smv.schur_matvec_cuda(sys_h, x))))
         except Exception as e:          # a cooperative launch the capture refuses is reported
             torch.cuda.synchronize()
             graph_note = f" (kernel not captured in a CUDA graph: {type(e).__name__}: " \
@@ -1332,6 +1401,8 @@ def phase3c(torch, card):
         for key, fn in runs + runs[::-1]:                # in turns, the better of two
             ms = per_call_ms(torch, fn)
             times[key] = min(times.get(key, ms), ms)
+        sel_text = " ".join(f"{times[k] * 1e3:.1f}" if k in times else "not measured"
+                            for k in ("kernel_sel", "kernel_sel_graph"))
         bound_ms, bound_by = schur_bound(system)
         kg = times.get("kernel_graph")
         kg_text = (f"{kg * 1e3:.1f}" if kg else "not measured") + graph_note
@@ -1347,7 +1418,8 @@ def phase3c(torch, card):
               f"reads {design_bytes / 1e6:.2f} MB a matvec; us per matvec kernel "
               f"{times['kernel'] * 1e3:.1f}, plain {times['plain'] * 1e3:.1f}, plain from a "
               f"CUDA graph {times['plain_graph'] * 1e3:.1f}, kernel from a CUDA graph "
-              f"{kg_text}, bound {bound_ms * 1e3:.1f} by {bound_by} "
+              f"{kg_text}, through the LM loop's selector (half 1 of the halves read) eager "
+              f"and from a graph {sel_text}, bound {bound_ms * 1e3:.1f} by {bound_by} "
               f"(share of bound {bound_ms / times['kernel']:.4f}; from a graph "
               f"{share_graph}); kernel against plain, max |diff| / "
               f"max |plain|: {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} [{card}]",
@@ -1359,6 +1431,7 @@ def phase3c(torch, card):
                       "plain_graph_ms": times["plain_graph"],
                       "kernel_graph_ms": times.get("kernel_graph"), "bound_ms": bound_ms,
                       "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
+                      "sel_ms": times["kernel_sel"], "sel_graph_ms": times.get("kernel_sel_graph"),
                       "launches_a_matvec": launches, "launch": launch,
                       "design_bytes": design_bytes}
     return out
@@ -1487,7 +1560,11 @@ def phase3d(torch, card):
     capture of the kernel that fails is a fault), the bound (the bytes read
     and written once over 3.35 TB/s, or the FLOPs of ``row_block_flops``
     over the FP32 rate) with its share, and the registers and spills of the
-    family's kernel. Returns the records."""
+    family's kernel. Each family of phases 3 and 4 is also launched as the LM
+    loop binds it (a ``RowLaunch`` over the path's own halves, reading half
+    1 through the selector): its outputs bit for bit the entry point's on
+    that half's state, its time eager and from a graph. Returns the
+    records."""
     import dataclasses
     from multiview_tpu_torch.solver import row_blocks as rb
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1497,16 +1574,19 @@ def phase3d(torch, card):
              "depth": (rb.depth_row_blocks_cuda, rb.depth_row_blocks_plain),
              "prior": (rb.prior_row_blocks_cuda, rb.prior_row_blocks_plain)}
     regs = ptxas_report("row_blocks.cu")
-    families = [(path, kind, args) for path in ("cube", "rig")
-                for (kind, _, _), args in ROW_CALLS[path].items()]
-    st, obs, _, opts = next(a for path, kind, a in families if path == "cube" and kind == "pixel")
+    launchers = {"pixel": rb.pixel_row_launch, "depth": rb.depth_row_launch,
+                 "prior": rb.prior_row_launch}
+    families = [(path, kind, args, ROW_HALVES[path][tag]) for path in ("cube", "rig")
+                for tag, args in ROW_CALLS[path].items() for kind in [tag[0]]]
+    st, obs, _, opts = next(a for path, kind, a, _ in families
+                            if path == "cube" and kind == "pixel")
     dist = list(st.dist)
     dist[obs.sensor] = torch.tensor(rbs.rpc_coeffs(2), dtype=st.dtype,
                                     device=st.world_to_ref.device)
     families.append(("cube-rpc", "pixel", (dataclasses.replace(st, dist=tuple(dist)), obs, "rpc",
-                                           opts)))
+                                           opts), None))
     out = {"families": {}}
-    for path, kind, args in families:
+    for path, kind, args, bound in families:
         kernel, plain = entry[kind]
         label, symbol, reads = row_family(torch, kind, args)
         args64 = rbs.in_float64(args)
@@ -1520,6 +1600,19 @@ def phase3d(torch, card):
                   if r is not None)
         runs = [("kernel", lambda: kernel(*args)), ("plain", lambda: plain(*args)),
                 ("kernel_graph", graphed(torch, lambda: kernel(*args)))]
+        sel_same = None
+        if bound is not None:
+            # as the LM loop launches it: half 1 of the path's halves read
+            outs, hh = bound
+            rl = launchers[kind](*args, outs, hh)
+            flip = 1 ^ int(hh.st.sel)
+            rl(None, flip)
+            want = kernel(row_state_at(hh, args[0], 1), *args[1:])
+            torch.cuda.synchronize()
+            sel_same = all(torch.equal(hh.pair(o)[1], w) for o, w in zip(outs, want)
+                           if o is not None)
+            runs += [("kernel_sel", lambda: rl(None, flip)),
+                     ("kernel_sel_graph", graphed(torch, lambda: rl(None, flip)))]
         graph_note = ""
         try:
             runs.append(("plain_graph", graphed(torch, lambda: plain(*args))))
@@ -1546,7 +1639,8 @@ def phase3d(torch, card):
                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                "max_abs_err": err, "rel": rel, "rel_float64": rel64,
                "plain_float32_rel": plain_own, "rel_to_plain_float32": against_f32,
-               "library_ms": None,
+               "library_ms": None, "sel_ms": times.get("kernel_sel"),
+               "sel_graph_ms": times.get("kernel_sel_graph"), "sel_bit_for_bit": sel_same,
                "registers_spills_stack": found[0] if found else None}
         plain_graph = (f"plain from a CUDA graph {rec['plain_graph_ms']:.4f}"
                        if rec["plain_graph_ms"] is not None else "plain not graphed")
@@ -1556,11 +1650,18 @@ def phase3d(torch, card):
               f"(in float64: {fmt(rel64)}); the plain version in float32 {fmt(plain_own)}; "
               f"kernel against plain in float32 {fmt(against_f32)}; ms a call: kernel "
               f"{rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, {plain_graph}, kernel from a "
-              f"CUDA graph {rec['kernel_graph_ms']:.4f}{graph_note}; bound {bound_ms:.4f} ms "
+              f"CUDA graph {rec['kernel_graph_ms']:.4f}{graph_note}"
+              + (f", through the LM loop's selector (half 1 of the path's halves; bit for bit "
+                 f"the entry point's: {sel_same}) {rec['sel_ms']:.4f}, from a graph "
+                 f"{rec['sel_graph_ms']:.4f}" if bound is not None else "")
+              + f"; bound {bound_ms:.4f} ms "
               f"by {bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP), share "
               f"{bound_ms / rec['ms']:.4f}; registers, spill stores and loads, stack (bytes) of "
               f"{symbol}: {found[0] if found else 'not in the build report'} [{card}]",
               flush=True)
+        if sel_same is False:
+            raise AssertionError(f"phase 3d {path} {label}: the row blocks launched through the "
+                                 f"LM loop's selector differ from the entry point's on that half")
         if not (all(v <= SCHUR_RTOL for v in rel.values())
                 and all(v <= ROW_RTOL_F64 for v in rel64.values())):
             raise AssertionError(f"phase 3d {path} {label}: the row blocks kernel disagrees "
@@ -1586,6 +1687,18 @@ def phase3d(torch, card):
     print(f"[phase3d] ptxas (registers, spill stores, spill loads, stack) of every kernel of "
           f"csrc/row_blocks.cu: {json.dumps(regs)}", flush=True)
     return out
+
+
+def row_state_at(h, state, half: int):
+    """``state`` (a ``RigState`` of half-0 arrays of the halves ``h``) read in
+    half ``half``."""
+    import dataclasses
+
+    def pick(t):
+        return h.pair(t)[half] if t.numel() else t
+    return dataclasses.replace(state, **{
+        f.name: (tuple(pick(t) for t in v) if isinstance(v, tuple) else pick(v))
+        for f in dataclasses.fields(state) for v in [getattr(state, f.name)]})
 
 
 def in64(torch, x):
@@ -1671,7 +1784,10 @@ def phase3e(torch, card):
     refreshed, the buffers reused) and without one (table and buffers built
     by the call), the plain version, both from a CUDA graph where they can be
     captured, the bound (``assembly_bound``) and its share, the kernel's
-    registers, spills and stack. Returns the records by system."""
+    registers, spills and stack; then the kernel as the LM loop launches it,
+    J and r in the halves (``halved``: half 1 read through the selector),
+    held to the plain version alike and timed through a plan, eager and from
+    a graph. Returns the records by system."""
     from multiview_tpu_torch.solver import assembly as asm
 
     regs = {k: v for k, v in ptxas_report("lm_assembly.cu").items() if "assembly_kernel" in k}
@@ -1705,6 +1821,12 @@ def phase3e(torch, card):
                 raise AssertionError(f"phase 3e {label}: {n} is None on one side only or "
                                      f"not finite")
         rel = {n: rel_err(getattr(got, n), getattr(ref, n)) for n in names}
+        Jh, rh, hh = halved(torch, J, r)
+        args_h = (mesh, shards, Jh, rh) + args[4:]
+        plan_h, plan_hg = asm.AssemblyPlan(), asm.AssemblyPlan()
+        got_h = plan_h(*args_h, halves=hh)
+        torch.cuda.synchronize()
+        rel.update({f"{n} (sel)": rel_err(getattr(got_h, n), getattr(ref, n)) for n in names})
         rel64 = {n: rel_err(getattr(got64, n), getattr(ref, n)) for n in names}
         plain_own = {n: rel_err(getattr(ref32, n), getattr(ref, n)) for n in names}
         err = max(float((getattr(got, n).double() - getattr(ref, n)).abs().max())
@@ -1712,10 +1834,12 @@ def phase3e(torch, card):
         plan, plan_g = asm.AssemblyPlan(), asm.AssemblyPlan()
         runs = [("kernel", lambda: plan(*args)),
                 ("kernel_unplanned", lambda: asm.assemble_cuda(*args)),
-                ("plain", lambda: asm.assemble_plain(*args))]
+                ("plain", lambda: asm.assemble_plain(*args)),
+                ("kernel_sel", lambda: plan_h(*args_h, halves=hh))]
         notes = []
         for key, fn in (("plain_graph", lambda: asm.assemble_plain(*args)),
-                        ("kernel_graph", lambda: plan_g(*args))):
+                        ("kernel_graph", lambda: plan_g(*args)),
+                        ("kernel_sel_graph", lambda: plan_hg(*args_h, halves=hh))):
             try:
                 runs.append((key, graphed(torch, fn)))
             except Exception as e:      # a capture that fails is reported
@@ -1745,7 +1869,9 @@ def phase3e(torch, card):
               f"version in float32 {fmt(plain_own)}; ms an assembly: kernel through a plan "
               f"{times['kernel']:.4f}, without one {times['kernel_unplanned']:.4f}, plain "
               f"{times['plain']:.4f}, plain from a CUDA graph {opt('plain_graph')}, kernel "
-              f"from a CUDA graph {opt('kernel_graph')}{'; ' if notes else ''}{'; '.join(notes)}; "
+              f"from a CUDA graph {opt('kernel_graph')}, through the LM loop's selector (half 1 "
+              f"of the halves read) {opt('kernel_sel')}, from a graph "
+              f"{opt('kernel_sel_graph')}{'; ' if notes else ''}{'; '.join(notes)}; "
               f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), share "
               f"{bound_ms / times['kernel']:.4f}, from a graph "
               f"{f'{bound_ms / kg:.4f}' if kg else 'not measured'}; ptxas (registers, spill "
@@ -1760,6 +1886,7 @@ def phase3e(torch, card):
                       "plain_graph_ms": times.get("plain_graph"),
                       "kernel_graph_ms": times.get("kernel_graph"), "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err,
+                      "sel_ms": times["kernel_sel"], "sel_graph_ms": times.get("kernel_sel_graph"),
                       "library_ms": None, "launches_an_assembly": launches, "launch": launch,
                       "pass_us": passes_us, "ptxas": regs, "rel": rel, "rel_float64": rel64,
                       "plain_float32_rel": plain_own}
@@ -1825,7 +1952,10 @@ def phase3f(torch, card):
     The step kernel: ms a step of the kernel, the plain step (the update, the mask,
     the stop test and the count, around the same matvec result), both from a
     CUDA graph, the bound (``cg_step_bound``) and, the step's practical
-    floor, one empty launch on the card. Returns the records by system."""
+    floor, one empty launch on the card. The solve is also run as the LM loop
+    launches it, its blocks in the halves (``halved``: half 1 read through
+    the selector): x held to the plain solve alike, timed eager and from a
+    graph. Returns the records by system."""
     import dataclasses
     from multiview_tpu_torch.solver import cg, cg_solve, schur_matvec as smv
 
@@ -1876,6 +2006,9 @@ def phase3f(torch, card):
         rel_jtpu = rel_err(sol64.jtp_u, ref.jtp_u)
         err = float((sol.x.double() - ref.x).abs().max())
         rel1 = rel_err(fused(system, M, g_c, g_p, 1).x, plain(sys64, M64, g_c64, g_p64, 1).x)
+        Jh, _, hh = halved(torch, system.J)
+        sys_h = dataclasses.replace(system, J=Jh, halves=hh, _plans=None)
+        rel_sel = rel_err(fused(sys_h, M, g_c, g_p).x, ref.x)
         k_fused = int(fused(system, M, g_c, g_p, None).count)
         k_fused64 = int(fused(sys64, M64, g_c64, g_p64, None).count)
         k_plain = int(plain(sys64, M64, g_c64, g_p64, None).count)
@@ -1890,10 +2023,12 @@ def phase3f(torch, card):
         runs = [("kernel", lambda: fused(system, M, g_c, g_p)),
                 ("per_step", lambda: per_step(system, M, g_c, g_p)),
                 ("plain", lambda: plain(system, M, g_c, g_p)),
-                ("plain_graph", graphed(torch, lambda: plain(system, M, g_c, g_p)))]
+                ("plain_graph", graphed(torch, lambda: plain(system, M, g_c, g_p))),
+                ("kernel_sel", lambda: fused(sys_h, M, g_c, g_p))]
         graph_note = ""
         try:
             runs.append(("kernel_graph", graphed(torch, lambda: fused(system, M, g_c, g_p))))
+            runs.append(("kernel_sel_graph", graphed(torch, lambda: fused(sys_h, M, g_c, g_p))))
         except Exception as e:          # a cooperative launch the capture refuses is reported
             torch.cuda.synchronize()
             graph_note = f" (not captured: {type(e).__name__}: {str(e).splitlines()[0][:160]})"
@@ -1920,15 +2055,20 @@ def phase3f(torch, card):
               f"{times['per_step']:.4f} ({per['per_step']:.5f}), plain {times['plain']:.4f} "
               f"({per['plain']:.5f}), plain from a CUDA graph {times['plain_graph']:.4f} "
               f"({per['plain_graph']:.5f}), kernel from a CUDA graph "
-              f"{f'{kg:.4f}' if kg else 'not measured'}{graph_note}; bound {bound_ms:.4f} ms "
+              f"{f'{kg:.4f}' if kg else 'not measured'}{graph_note}; through the LM loop's "
+              f"selector (half 1 of the halves read; x {rel_sel:.3g} off the plain float64 "
+              f"solve) {times['kernel_sel']:.4f}, from a graph "
+              f"{times['kernel_sel_graph'] if 'kernel_sel_graph' in times else 'not measured'}"
+              f"; bound {bound_ms:.4f} ms "
               f"by {bound_by}, share {bound_ms / times['kernel']:.4f}; ptxas (registers, spill "
               f"stores, spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
         bar = max(SCHUR_RTOL, CG_DRIFT * plain_own)
-        if not (rel1 <= SCHUR_RTOL and rel <= bar and rel64 <= SCHUR_RTOL
+        if not (rel1 <= SCHUR_RTOL and rel <= bar and rel_sel <= bar and rel64 <= SCHUR_RTOL
                 and rel_jtpu <= SCHUR_RTOL):
             raise AssertionError(f"phase 3f {label}: the CG solve's x is off the plain "
                                  f"solve's: one step {rel1:.3g} (bar {SCHUR_RTOL}), "
-                                 f"{CG_FORCED} steps {rel:.3g} (bar {bar:.3g}), in float64 "
+                                 f"{CG_FORCED} steps {rel:.3g} (through the selector "
+                                 f"{rel_sel:.3g}; bar {bar:.3g}), in float64 "
                                  f"{rel64:.3g}, J_p^T u {rel_jtpu:.3g} (bar {SCHUR_RTOL})")
         if not k_fused == k_fused64 == k_plain:
             raise AssertionError(f"phase 3f {label}: CG counts {k_fused} (float32), "
@@ -1950,6 +2090,8 @@ def phase3f(torch, card):
         record = {"ms": times["kernel"], "plain_ms": times["plain"],
                   "per_step_path_ms": times["per_step"], "plain_graph_ms": times["plain_graph"],
                   "kernel_graph_ms": kg, "ms_a_step": per, "bound_ms": bound_ms,
+                  "sel_ms": times["kernel_sel"], "sel_graph_ms": times.get("kernel_sel_graph"),
+                  "rel_sel": rel_sel,
                   "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
                   "steps": CG_FORCED, "launches": launches, "launch": launch, "rel": rel,
                   "rel_float64": rel64, "rel_one_step": rel1, "plain_float32_rel": plain_own,
@@ -1998,23 +2140,19 @@ def phase3f(torch, card):
 
 
 def lm_step_bound(targs, aargs):
-    """(bound ms, "bytes" | "operations", bytes, the copy's bound ms, its
-    bytes) of one LM iteration's trial and accept. The bound: each launch's
-    inputs read once (the trial's cam, x, cam_free, lower and upper where
-    given, points, Hpp^-1, g_p and J_p^T u; the accept's r_t, u or Jd, the
-    current point blocks and their int64 point indices, dp, step_c, g_c,
-    g_p, the two diagonals, the state) and its outputs written once
-    (cam_t, step_c, pts_t, dp, the state), over the memory rate; the
-    operations (the trial's 3x3 solve 21 a point and 4 a camera entry, the
-    accept's 2 a residual, 8 a row component with a point block, 2
-    otherwise, 6 a camera entry and 6 a point entry) over the FP32 rate.
-    The function needs no copy of the accepted state: a device-side index
-    into double buffers selects it as well. The copy that this design makes
-    on an accepted step (the trial's cameras, points, blocks and residual
-    read and written over the current ones) is bounded apart."""
-    (_cam, _points, _x, _cam_free, lower, upper, _hpp_inv, _g_p, _jtp_u) = targs
-    (mesh, shards, num_ref, J, r, J_t, r_t, t, cam, points, g_c, g_p, cam_diag, pt_diag,
-     u, jd, cg_count, gate) = aargs
+    """(bound ms, "bytes" | "operations", bytes) of one LM iteration's trial
+    and accept. The bound: each launch's inputs read once (the trial's cam,
+    x, cam_free, lower and upper where given, points, Hpp^-1, g_p and J_p^T
+    u; the accept's r_t, u or Jd, the current point blocks and their int64
+    point indices, dp, step_c, g_c, g_p, the two diagonals, the state) and
+    its outputs written once (cam_t, step_c, pts_t, dp, the state), over the
+    memory rate; the operations (the trial's 3x3 solve 21 a point and 4 a
+    camera entry, the accept's 2 a residual, 8 a row component with a point
+    block, 2 otherwise, 6 a camera entry and 6 a point entry) over the FP32
+    rate."""
+    (_cam, _points, _x, _cam_free, lower, upper, _hpp_inv, _g_p, _jtp_u) = targs[:9]
+    (mesh, shards, num_ref, J, r, _J_t, _r_t, t, cam, points, g_c, g_p, cam_diag, pt_diag,
+     u, jd, cg_count, gate) = aargs[:18]
     item = cam.element_size()
     C, P = cam.shape[0], points.shape[0]
     bounds = sum(b is not None for b in (lower, upper))
@@ -2025,20 +2163,16 @@ def lm_step_bound(targs, aargs):
     # the accept: step_c, g_c, cam_diag; dp, g_p, pt_diag; the state
     nbytes += item * (3 * C + 9 * P) + 2 * state
     flop = 21 * P + 4 * C + 6 * C + 6 * 3 * P
-    copy = item * 2 * (C + 3 * P)
     for s, (jc, jp) in enumerate(J):
-        nbytes += 2 * item * r_t[s].numel()            # r_t and u (or Jd)
-        flop += 2 * r_t[s].numel()
-        copy += 2 * item * r_t[s].numel()
+        nbytes += 2 * item * r[s].numel()            # r_t and u (or Jd)
+        flop += 2 * r[s].numel()
         for a, b in zip(jc, jp):
             n, k = (b if a is None else a).shape[:2]
             flop += (8 if b is not None else 2) * n * k
             if b is not None:
                 nbytes += item * b.numel() + 8 * n
-            copy += 2 * item * sum(x.numel() for x in (a, b) if x is not None)
     t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
-    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
-            copy / MEM_PEAK * 1e3, copy)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
 @contextlib.contextmanager
@@ -2059,29 +2193,41 @@ def count_aten(torch):
         yield counts
 
 
+# phase 3g: the accept's time from graphs is taken over LM_GRAPH_REPEAT
+# accepts (each after a reset of the state) in one graph, less as many resets
+LM_GRAPH_REPEAT = 10
+# phase 3g: the accepted accept's time from graphs at most this far above the
+# rejected one's (an accepted step copies nothing)
+LM_ACCEPT_RATIO = 1.10
+
+
 def phase3g(torch, card, p3):
     """The LM step kernel (``solver/lm_step.py``, csrc/lm_step.cu) on the
     first trial and accept of phase 3's solve (the cube) and of phase 4's
-    (calibrate's system): the trial point against the plain trial in float64
-    on the same inputs (SCHUR_RTOL of max |plain| with float32 tensors,
-    ROW_RTOL_F64 with float64 ones); the accept at an accepted and a forced
-    rejected step against the plain accept on the same inputs: good, done,
-    the counters and the stop flag equal, the scalars (new_cost, pred, rho,
-    lam, nu, rel_decrease, cost) within LM_RTOL relative (both sum in
-    float64), the kept state and blocks bit for bit the trial's (accepted)
-    or the current ones (rejected), two launches bit for bit alike; ms of
-    the trial and of the accept (accepted and rejected: the accepted copies
-    the blocks) for the kernel and the plain version, eager and from a CUDA
-    graph (each accept after a reset of the state, whose time is taken
-    out), the bound (``lm_step_bound``: what the function needs, no copy),
-    the accepted step's copy (accepted less rejected accept, from CUDA
-    graphs where captured) against its own bound, registers and spills. Then phase
-    3's solve with the host reading the state every iteration and every
-    second one (``LM_CHECK_EVERY`` 1 and 2), two runs each: LM, CG and
-    matvec counts equal, the final cost within the larger spread of two runs
-    of one setting plus 1e-6 relative (atomics vary the last bits); and per
-    LM iteration of the cube's solve the kernel launches, the host reads of
-    the state and the eager ATen operations (``count_aten`` over
+    (calibrate's system), the current and the trial state in the LM loop's
+    halves as the path left them (``first_lm_step``; copied half for half
+    into new halves, ``lm_halves``): the trial point against the plain trial
+    in float64 on the same inputs (SCHUR_RTOL of max |plain| with float32
+    tensors, ROW_RTOL_F64 with float64 ones); the accept at an accepted and a
+    forced rejected step against the plain accept on the same inputs: good,
+    done, ``sel`` (flipped on the accepted step only), the counters and the
+    stop flag equal, the scalars (new_cost, pred, rho, lam, nu,
+    rel_decrease, cost) within LM_RTOL relative (both sum in float64), both
+    halves of every array bit for bit as they were (an accepted step copies
+    nothing, a rejected one keeps the current half), two launches and two
+    replays of one captured graph bit for bit alike (the last block resets
+    the ticket counter); ms of the trial and of the accept (accepted and
+    rejected) for the kernel and the plain version, eager and from a CUDA
+    graph (each accept after a reset of the state, whose time is taken out;
+    from graphs LM_GRAPH_REPEAT accepts a graph), the accepted accept against
+    the rejected one from graphs (at most LM_ACCEPT_RATIO), the bound
+    (``lm_step_bound``), registers and spills. Then phase 3's solve with the
+    host reading the state every iteration and every second one
+    (``LM_CHECK_EVERY`` 1 and 2), two runs each: LM, CG and matvec counts
+    equal, the final cost within the larger spread of two runs of one
+    setting plus 1e-6 relative (atomics vary the last bits); and per LM
+    iteration of the cube's solve the kernel launches, the host reads of the
+    state and the eager ATen operations (``count_aten`` over
     ``debug_unroll_lm`` solves of 4 and 8 iterations: the difference over
     4). Returns the records by system."""
     from multiview_tpu_torch.calib import problem as prob
@@ -2091,12 +2237,14 @@ def phase3g(torch, card, p3):
     regs = ptxas_report("lm_step.cu")
     out = {}
     for label in ("cube", "rig"):
-        tv, tt, targs = LM_CALLS[label]["trial"]
-        av, at, aargs = LM_CALLS[label]["accept"]
-        (mesh, shards, num_ref, J, r, J_t, r_t, t, cam, points, g_c, g_p, cam_diag, pt_diag,
-         u, jd, cg_count, gate) = aargs
+        tv, tt, targs, tpairs = LM_CALLS[label]["trial"]
+        av, at, aargs, apairs = LM_CALLS[label]["accept"]
+        (mesh, shards, num_ref, J, r, _, _, t, cam, points, g_c, g_p, cam_diag, pt_diag,
+         u, jd, cg_count, gate) = aargs[:18]
+        rest = targs[2:9]              # x, cam_free, lower, upper, hpp_inv, g_p, jtp_u
         dt, dev = cam.dtype, cam.device
         C, P = cam.shape[0], points.shape[0]
+        sel0 = int(av.view(torch.int32)[2 * lm.SEL])
 
         def state(values, typed, d=dt):
             st = lm.LMState(d, dev, C, P)
@@ -2104,12 +2252,19 @@ def phase3g(torch, card, p3):
             st.typed.copy_(typed)
             return st
 
-        # the trial
+        # the trial: the kernel reads half sel, writes half 1 - sel
         st = state(tv, tt)
-        kt = [x.clone() for x in lm.trial_cuda(st, *targs)]
-        kt64 = [x.clone() for x in lm.trial_cuda(state(tv, tt, torch.float64),
-                                                   *in64(torch, targs))]
-        pt64 = lm.trial_plain(st, *in64(torch, targs))
+        sel_t = int(st.sel)
+        h, (cam_h, pts_h) = lm_halves(torch, st, tpairs)
+        kt = lm.trial_cuda(st, cam_h, pts_h, *rest, halves=h)
+        kt = [x.clone() for x in (kt.cam[1 - sel_t], kt.points[1 - sel_t], kt.dp, kt.step_c)]
+        st64 = state(tv, tt, torch.float64)
+        h64, (cam64, pts64) = lm_halves(torch, st64, [p.double() for p in tpairs])
+        kt64 = lm.trial_cuda(st64, cam64, pts64, *in64(torch, rest), halves=h64)
+        kt64 = [x.clone() for x in (kt64.cam[1 - sel_t], kt64.points[1 - sel_t], kt64.dp,
+                                    kt64.step_c)]
+        pt64 = lm.trial_plain(st, tpairs[0][sel_t].double(), tpairs[1][sel_t].double(),
+                              *in64(torch, rest))
         torch.cuda.synchronize()
         trial_rel = max(rel_err(a, b) for a, b in zip(kt, pt64))
         trial_rel64 = max(rel_err(a, b) for a, b in zip(kt64, pt64))
@@ -2119,31 +2274,59 @@ def phase3g(torch, card, p3):
                                  f"version: {trial_rel} (bar {SCHUR_RTOL}), in float64 "
                                  f"{trial_rel64} (bar {ROW_RTOL_F64})")
 
-        # the accept: the natural step, then forced accepted and rejected
-        def accept(fn, values, typed, cost=None):
-            st = state(values, typed)
-            if cost is not None:
-                st.values[lm.COST] = cost
-            cur = (kept(J), kept(r), cam.clone(), points.clone())
-            res = fn(st, mesh, shards, num_ref, cur[0], cur[1], J_t, r_t, t, cur[2], cur[3],
-                     g_c, g_p, cam_diag, pt_diag, u, jd, cg_count, gate)
-            torch.cuda.synchronize()
-            return st, res
+        # the accept: the plain one on the halves' current and trial copies
+        now = lm_unflat([None if p is None else p[sel0] for p in apairs], J)
+        nxt = lm_unflat([None if p is None else p[1 - sel0] for p in apairs], J)
+        t_plain = lm.Trial(nxt[0], nxt[1], t.dp, t.step_c)
+
+        def kernel_accept(values, typed):
+            """A fresh state and halves: (state, halves, its arrays, accept)."""
+            s = state(values, typed)
+            hk, arrays = lm_halves(torch, s, apairs)
+            _, _, rk, Jk = lm_unflat(arrays, J)
+
+            def go():
+                lm.accept_cuda(s, mesh, shards, Jk, rk, t, g_c, g_p, cam_diag, pt_diag, u, jd,
+                               cg_count, gate, halves=hk)
+            return s, hk, [a for a in arrays if a is not None], go
+
+        def both_halves(hk, arrays):
+            return [hk.pair(a).clone() for a in arrays]
 
         lm.RECORD_LAUNCH = True
         try:
-            natural, _ = accept(lm.accept_cuda, av, at)
+            natural, _, _, go = kernel_accept(av, at)
+            go()
+            torch.cuda.synchronize()
+            launch = dict(lm.LAST_LAUNCH)
         finally:
             lm.RECORD_LAUNCH = False
         new_cost = float(natural.values[lm.NEW_COST])
         cases = {"accepted": 2.0 * abs(new_cost) + 1.0, "rejected": 0.5 * new_cost}
         scalars = (("new_cost", lm.NEW_COST), ("pred", lm.PRED), ("rho", lm.RHO),
                    ("lam", lm.LAM), ("nu", lm.NU), ("rel_decrease", lm.REL), ("cost", lm.COST))
-        rec = {}
+        resets = {case: av.clone() for case in cases}
         for case, cost in cases.items():
-            (ks, kres), (ks2, kres2) = (accept(lm.accept_cuda, av, at, cost) for _ in range(2))
-            ps, pres = accept(lm.accept_plain, av, at, cost)
-            kv, pv = ks.values.cpu(), ps.values.cpu()
+            resets[case][lm.COST] = cost
+        rec, runs, notes = {}, {}, []
+        for case in cases:
+            ks = []
+            for _ in range(2):
+                s, hk, arrays, go = kernel_accept(resets[case], at)
+                before = both_halves(hk, arrays)
+                go()
+                torch.cuda.synchronize()
+                moved = not all(torch.equal(a, b) for a, b in zip(before, both_halves(hk,
+                                                                                      arrays)))
+                if moved:
+                    raise AssertionError(f"phase 3g {label} {case}: the accept changed the "
+                                         f"halves' arrays (it must copy nothing)")
+                ks.append(s)
+            ps = state(resets[case], at)
+            lm.accept_plain(ps, mesh, shards, num_ref, now[3], now[2], nxt[3], nxt[2], t_plain,
+                            now[0], now[1], g_c, g_p, cam_diag, pt_diag, u, jd, cg_count, gate)
+            torch.cuda.synchronize()
+            kv, pv = ks[0].values.cpu(), ps.values.cpu()
             good = bool(kv[lm.GOOD])
             if good != (case == "accepted") or bool(pv[lm.GOOD]) != good:
                 raise AssertionError(f"phase 3g {label} {case}: good {good} (plain "
@@ -2152,119 +2335,118 @@ def phase3g(torch, card, p3):
                 if float(kv[slot]) != float(pv[slot]):
                     raise AssertionError(f"phase 3g {label} {case}: slot {slot} {float(kv[slot])} "
                                          f"against the plain {float(pv[slot])}")
-            if bool(ks.halt) != bool(ps.halt):
-                raise AssertionError(f"phase 3g {label} {case}: the stop flag differs")
-            rels = {n: abs(float(kv[s]) - float(pv[s])) / max(abs(float(pv[s])), 1e-300)
-                    for n, s in scalars}
+            sels = (int(ks[0].sel), int(ps.sel), sel0 ^ good)
+            if bool(ks[0].halt) != bool(ps.halt) or len(set(sels)) != 1:
+                raise AssertionError(f"phase 3g {label} {case}: the stop flag or sel differs "
+                                     f"(sel kernel, plain, wanted: {sels})")
+            rels = {n: abs(float(kv[s_]) - float(pv[s_])) / max(abs(float(pv[s_])), 1e-300)
+                    for n, s_ in scalars}
             if not all(v <= LM_RTOL for v in rels.values()):
                 raise AssertionError(f"phase 3g {label} {case}: scalars off the plain accept: "
                                      f"{rels} (bar {LM_RTOL})")
-            if not (torch.equal(ks.values, ks2.values) and torch.equal(ks.typed, ks2.typed)):
+            if not (torch.equal(ks[0].values, ks[1].values)
+                    and torch.equal(ks[0].typed, ks[1].typed)):
                 raise AssertionError(f"phase 3g {label} {case}: two launches differ")
-            kcam, kpts, kJ, kr = kres
-            want = (t.cam, t.points, J_t, r_t) if good else (cam, points, J, r)
+            # two replays of one captured accept, the state reset first in each
+            s, hk, arrays, go = kernel_accept(resets[case], at)
+            v0 = s.values.clone()
 
-            def same(a, b):
-                if isinstance(a, torch.Tensor):
-                    return torch.equal(a, b)
-                if a is None or b is None:
-                    return a is None and b is None
-                return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
-            if not all(same(a, b) for a, b in zip((kcam, kpts, kJ, kr), want)):
-                raise AssertionError(f"phase 3g {label} {case}: the kept state is not bit for "
-                                     f"bit the {'trial' if good else 'current'} one")
-            if not all(same(a, b) for a, b in zip(kres2, kres)):
-                raise AssertionError(f"phase 3g {label} {case}: two launches kept other "
-                                     f"states")
-            rec[case] = {"good": good, "done": bool(kv[lm.DONE]), "rel": rels}
+            def reset_go(s=s, v0=v0, go=go):
+                s.values.copy_(v0)
+                go()
+            replay = graphed(torch, reset_go)
+            replays = []
+            for _ in range(2):
+                replay()
+                torch.cuda.synchronize()
+                replays.append(s.values.clone())
+            if not (torch.equal(replays[0], replays[1]) and torch.equal(replays[0], ks[0].values)):
+                raise AssertionError(f"phase 3g {label} {case}: two replays of a captured "
+                                     f"accept differ, or differ from a launch")
+            rec[case] = {"good": good, "done": bool(kv[lm.DONE]), "sel": sels[0], "rel": rels}
+            # the times of this case: eager after a reset; LM_GRAPH_REPEAT in a graph
+            runs[f"accept_{case}"] = reset_go
+            runs[f"accept_{case}_graph"] = graphed(torch, reset_go, LM_GRAPH_REPEAT)
+            sp = state(resets[case], at)
+            v0p = sp.values.clone()
 
-        # times: the trial, and each accept after a reset of the state
-        runs, notes = {}, []
-        st_t = state(tv, tt)
-        st_k, st_p = state(av, at), state(av, at)
-        cur_k = (kept(J), kept(r), cam.clone(), points.clone())
-        cur_p = (kept(J), kept(r), cam.clone(), points.clone())
-        resets = {case: av.clone() for case in cases}
-        for case, cost in cases.items():
-            resets[case][lm.COST] = cost
-
-        def acc(fn, st, cur, v0):
-            def go():
-                st.values.copy_(v0)
-                fn(st, mesh, shards, num_ref, cur[0], cur[1], J_t, r_t, t, cur[2], cur[3], g_c,
-                   g_p, cam_diag, pt_diag, u, jd, cg_count, gate)
-            return go
-
-        eager = {"trial": lambda: lm.trial_cuda(st_t, *targs),
-                 "trial_plain": lambda: lm.trial_plain(st_t, *targs),
-                 "reset": lambda: st_k.values.copy_(resets["accepted"])}
-        for case in cases:
-            eager[f"accept_{case}"] = acc(lm.accept_cuda, st_k, cur_k, resets[case])
-            eager[f"accept_{case}_plain"] = acc(lm.accept_plain, st_p, cur_p, resets[case])
-        for key, fn in list(eager.items()):
-            runs[key] = fn
+            def plain_go(sp=sp, v0p=v0p):
+                sp.values.copy_(v0p)
+                lm.accept_plain(sp, mesh, shards, num_ref, now[3], now[2], nxt[3], nxt[2],
+                                t_plain, now[0], now[1], g_c, g_p, cam_diag, pt_diag, u, jd,
+                                cg_count, gate)
+            runs[f"accept_{case}_plain"] = plain_go
             try:
-                runs[key + "_graph"] = graphed(torch, fn)
+                runs[f"accept_{case}_plain_graph"] = graphed(torch, plain_go, LM_GRAPH_REPEAT)
             except Exception as e:      # a capture that fails is reported
                 torch.cuda.synchronize()
-                notes.append(f"{key} not captured from a graph: {type(e).__name__}: "
+                notes.append(f"plain {case} not captured from a graph: {type(e).__name__}: "
                              f"{str(e).splitlines()[0][:120]}")
+            if case == "accepted":
+                runs["reset"] = lambda s=s, v0=v0: s.values.copy_(v0)
+                runs["reset_graph"] = graphed(torch, runs["reset"], LM_GRAPH_REPEAT)
+
+        # the trial's times (the state never halted: it writes the same half)
+        st_t = state(tv, tt)
+        h_t, (cam_t, pts_t) = lm_halves(torch, st_t, tpairs)
+        runs["trial"] = lambda: lm.trial_cuda(st_t, cam_t, pts_t, *rest, halves=h_t)
+        runs["trial_graph"] = graphed(torch, runs["trial"])
+        runs["trial_plain"] = lambda: lm.trial_plain(st_t, tpairs[0][sel_t], tpairs[1][sel_t],
+                                                     *rest)
+        runs["trial_plain_graph"] = graphed(torch, runs["trial_plain"])
         times = {}
         order = list(runs.items())
         for key, fn in order + order[::-1]:          # in turns, the better of two
             ms = per_call_ms(torch, fn, reps=20)
+            if key.endswith("_graph") and (key.startswith("accept") or key.startswith("reset")):
+                ms /= LM_GRAPH_REPEAT
             times[key] = min(times.get(key, ms), ms)
         ms = {}
         for key in times:
             if key.startswith("accept"):
                 base = "reset_graph" if key.endswith("_graph") else "reset"
-                ms[key] = times[key] - times.get(base, 0.0)
-            elif key != "reset" and key != "reset_graph":
+                ms[key] = times[key] - times[base]
+            elif not key.startswith("reset"):
                 ms[key] = times[key]
-        bound, bound_by, nbytes, copy_bound, copy_bytes = lm_step_bound(targs, aargs)
-        # the copy: accepted less rejected accept, from CUDA graphs where both
-        # were captured (eager, the host's launch time moves the difference)
-        copy_from = "graph" if {"accept_accepted_graph", "accept_rejected_graph"} <= set(ms) \
-            else "eager"
-        sfx = "_graph" if copy_from == "graph" else ""
-        copy_ms = ms["accept_accepted" + sfx] - ms["accept_rejected" + sfx]
-        rows = sum(x.numel() for x in r_t)
+        bound, bound_by, nbytes = lm_step_bound(targs, aargs)
+        ratio = ms["accept_accepted_graph"] / ms["accept_rejected_graph"]
+        rows = sum(x.numel() for x in r)
         opt = lambda k: f"{ms[k]:.4f}" if k in ms else "not measured"   # noqa: E731
         print(f"[phase3g] {label}: {mesh.size} shard(s), {rows} residuals, {P} points, {C} "
-              f"camera parameters, {dt}: trial max |diff| / max |plain in float64| "
-              f"{trial_rel:.3g} (in float64 {trial_rel64:.3g}); accept (the natural step "
-              f"{'accepted' if bool(natural.values[lm.GOOD]) else 'rejected'}) against the "
-              f"plain accept: {json.dumps(rec)}; ms: trial {opt('trial')} (graph "
-              f"{opt('trial_graph')}), plain {opt('trial_plain')} (graph "
-              f"{opt('trial_plain_graph')}); accept accepted {opt('accept_accepted')} (graph "
-              f"{opt('accept_accepted_graph')}), rejected {opt('accept_rejected')} (graph "
-              f"{opt('accept_rejected_graph')}); plain accepted {opt('accept_accepted_plain')} "
-              f"(graph {opt('accept_accepted_plain_graph')}), rejected "
-              f"{opt('accept_rejected_plain')} (graph {opt('accept_rejected_plain_graph')}); "
-              f"a state reset {times['reset']:.4f} (taken out of each accept); bound of a "
-              f"trial and an accept {bound:.4f} ms ({nbytes / 1e6:.2f} MB, by {bound_by}; "
-              f"share {bound / (ms['trial'] + ms['accept_accepted']):.4f} of a trial and an "
-              f"accepted accept, {bound / (ms['trial'] + ms['accept_rejected']):.4f} of a trial "
-              f"and a rejected one); the accepted step's "
-              f"copy (accepted less rejected accept, {copy_from}) {copy_ms:.4f} ms against "
-              f"its bound {copy_bound:.4f} ms ({copy_bytes / 1e6:.2f} MB); grid "
-              f"{lm.LAST_LAUNCH or 'not recorded'}; "
-              f"{'; '.join(notes)}{'; ' if notes else ''}ptxas (registers, spill stores, "
-              f"spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
+              f"camera parameters, {dt}, the path's sel {sel0}: trial max |diff| / max |plain "
+              f"in float64| {trial_rel:.3g} (in float64 {trial_rel64:.3g}); accept (the "
+              f"natural step {'accepted' if bool(natural.values[lm.GOOD]) else 'rejected'}) "
+              f"against the plain accept: {json.dumps(rec)}; both halves bit for bit as they "
+              f"were after each accept; ms: trial {opt('trial')} (graph {opt('trial_graph')}), "
+              f"plain {opt('trial_plain')} (graph {opt('trial_plain_graph')}); accept accepted "
+              f"{opt('accept_accepted')} (graph {opt('accept_accepted_graph')}), rejected "
+              f"{opt('accept_rejected')} (graph {opt('accept_rejected_graph')}); plain accepted "
+              f"{opt('accept_accepted_plain')} (graph {opt('accept_accepted_plain_graph')}), "
+              f"rejected {opt('accept_rejected_plain')} (graph "
+              f"{opt('accept_rejected_plain_graph')}); a state reset {times['reset']:.4f} (graph "
+              f"{times['reset_graph']:.4f}; taken out of each accept); accepted / rejected "
+              f"accept from graphs {ratio:.4f} (bar {LM_ACCEPT_RATIO}); bound of a trial and an "
+              f"accept {bound:.4f} ms ({nbytes / 1e6:.2f} MB, by {bound_by}; share "
+              f"{bound / (ms['trial'] + ms['accept_accepted']):.4f} of a trial and an accepted "
+              f"accept, from graphs "
+              f"{bound / (ms['trial_graph'] + ms['accept_accepted_graph']):.4f}; of the accept "
+              f"alone from a graph {bound / ms['accept_rejected_graph']:.4f} rejected); grid "
+              f"{launch or 'not recorded'}; {'; '.join(notes)}{'; ' if notes else ''}ptxas "
+              f"(registers, spill stores, spill loads, stack bytes): {json.dumps(regs)} "
+              f"[{card}]", flush=True)
+        if label == "cube" and ratio > LM_ACCEPT_RATIO:
+            raise AssertionError(f"phase 3g {label}: an accepted accept takes {ratio:.4f} times "
+                                 f"a rejected one from graphs (bar {LM_ACCEPT_RATIO})")
         out[label] = {"ms": ms["trial"] + ms["accept_accepted"],
                       "plain_ms": ms["trial_plain"] + ms["accept_accepted_plain"],
-                      "kernel_graph_ms": (ms["trial_graph"] + ms["accept_accepted_graph"]
-                                          if "trial_graph" in ms and
-                                          "accept_accepted_graph" in ms else None),
+                      "kernel_graph_ms": ms["trial_graph"] + ms["accept_accepted_graph"],
                       "plain_graph_ms": (ms["trial_plain_graph"]
                                          + ms["accept_accepted_plain_graph"]
-                                         if "trial_plain_graph" in ms and
-                                         "accept_accepted_plain_graph" in ms else None),
+                                         if "accept_accepted_plain_graph" in ms else None),
                       "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-                      "copy_ms": copy_ms, "copy_from": copy_from, "copy_bound_ms": copy_bound,
-                      "copy_bytes": copy_bytes,
-                      "max_abs_err": trial_err,
-                      "library_ms": None, "times_ms": ms, "accept": rec, "ptxas": regs}
+                      "accepted_over_rejected_graph": ratio, "max_abs_err": trial_err,
+                      "library_ms": None, "times_ms": ms, "accept": rec, "grid": launch,
+                      "ptxas": regs}
 
     # LM_CHECK_EVERY 1 against 2 on phase 3's solve, two runs each
     scene, state0, solver = p3["problem"]
@@ -3539,16 +3721,15 @@ def main() -> int:
          "by_system": {k: v["step"] for k, v in p3f.items()}},
         # no single PyTorch call computes an LM step's trial and accept:
         # library_ms is null; the times are of a trial and an accepted step's
-        # accept (with its copy of the blocks), the bound of what the function
-        # needs (no copy), and the copy's measured time and bound apart;
-        # max_abs_err the trial's
+        # accept (nothing copied: the halves' selector flips), max_abs_err the
+        # trial's
         {"name": "lm_step", "route": "cuda", "source": LM_SOURCE,
          "replaces": "multiview_tpu/solver/schur.py:1241-1295 (the LM body's trial point, "
                      "model reduction, accept and lam update), XLA code: no pallas_call",
          "launches": sum(LM_PATHS.values()), "launches_by_path": LM_PATHS,
          **{k: p3g["cube"][k] for k in keys},
          "share": p3g["cube"]["bound_ms"] / p3g["cube"]["ms"],
-         "copy_ms": p3g["cube"]["copy_ms"], "copy_bound_ms": p3g["cube"]["copy_bound_ms"],
+         "accepted_over_rejected_graph": p3g["cube"]["accepted_over_rejected_graph"],
          "plain_graph_ms": p3g["cube"]["plain_graph_ms"],
          "kernel_graph_ms": p3g["cube"]["kernel_graph_ms"],
          "per_iteration": p3g["per_iteration"],

@@ -51,7 +51,10 @@
 // computed; a lane computes its row from shared memory. The rows pass walks
 // the tiles forward, the blocks pass in reverse, starting on the tiles the
 // rows pass left in the ring: a system whose rows fit in the blocks' shared
-// memory (calibrate's) is read from device memory once. Sums over rows:
+// memory (calibrate's) is read from device memory once. In the LM loop the
+// table holds half 0 of the loop's current and trial halves
+// (solver/lm_step.py::Halves): each tile's copy reads the state's `sel` (an
+// __ldg, cached) and stages J and r from the half it picks. Sums over rows:
 //   poses     a warp whose lanes share one pose sums each value with a
 //             reduce-scatter of shuffles; otherwise a __match_any_sync
 //             shuffle tree over the lanes of each pose; then one add a pose
@@ -152,6 +155,8 @@ struct Params {
   T* pose_inv;              // [num_ref, 7, 7]
   int* singular;            // set to 1 where a pose block has a zero pivot
   const int* halt;          // set: return at once (the LM loop's stop flag), or null
+  const int* sel;           // the LM loop's current half of J and r (null: as given)
+  long long half;           // bytes from half 0 to half 1 of the LM loop's halves
   long long* marks;         // [grid, kMarks] %globaltimer a block, or null
   int window, stride;       // poses of the per-warp copies, doubles a pose (14 or 28)
   int max_const;            // the most constant columns of a family
@@ -201,24 +206,28 @@ template <typename T>
 __device__ __forceinline__ void issue_tile(const Params<T>& p, const TileRef& t,
                                            unsigned char* slot) {
   using row_tiles::copy_async;
+  // bytes from the table's J and r (half 0) to the current half's (the LM loop's sel)
+  const long long off = p.sel ? static_cast<long long>(__ldg(p.sel)) * p.half : 0;
   const Family& f = p.f[t.f];
   const SlotLayout l = slot_layout(f, p.tile_rows, sizeof(T));
   const long long rk = static_cast<long long>(t.rows) * f.k;
   if (f.j_cam) {
-    copy_async(slot, static_cast<const unsigned char*>(f.j_cam) + t.row0 * f.k * f.b * sizeof(T),
+    copy_async(slot,
+               static_cast<const unsigned char*>(f.j_cam) + off + t.row0 * f.k * f.b * sizeof(T),
                rk * f.b * sizeof(T));
     copy_async(slot + l.beg, reinterpret_cast<const unsigned char*>(f.beg + t.row0), t.rows * 8ll);
     copy_async(slot + l.end, reinterpret_cast<const unsigned char*>(f.end + t.row0), t.rows * 8ll);
   }
   if (f.j_pt) {
     copy_async(slot + l.jp,
-               static_cast<const unsigned char*>(f.j_pt) + t.row0 * f.k * 3 * sizeof(T),
+               static_cast<const unsigned char*>(f.j_pt) + off + t.row0 * f.k * 3 * sizeof(T),
                rk * 3 * sizeof(T));
     copy_async(slot + l.pidx, reinterpret_cast<const unsigned char*>(f.pidx + t.row0),
                t.rows * 8ll);
   }
   if (f.r)
-    copy_async(slot + l.r, static_cast<const unsigned char*>(f.r) + t.row0 * f.k * sizeof(T),
+    copy_async(slot + l.r,
+               static_cast<const unsigned char*>(f.r) + off + t.row0 * f.k * sizeof(T),
                rk * sizeof(T));
 }
 
@@ -960,11 +969,13 @@ cudaError_t run(const long long* table, int families, int passes, int zero_first
                 const void* cf, const void* lam, long long num_points, long long total,
                 long long num_ref, double* acc, double* blocks, double* hinv, void* g_c,
                 void* g_p, void* hpp, void* cam_diag, void* pt_diag, void* hpp_inv, void* dc,
-                void* precond, void* pose_inv, int* singular, const int* halt, long long* marks,
-                long long* info, cudaStream_t stream) {
-  if (families < 0 || families > kMaxFamilies) return cudaErrorInvalidValue;
+                void* precond, void* pose_inv, int* singular, const int* halt, const int* sel,
+                long long half, long long* marks, long long* info, cudaStream_t stream) {
+  if (families < 0 || families > kMaxFamilies || half < 0) return cudaErrorInvalidValue;
   Params<T> p{};
   p.halt = halt;
+  p.sel = sel;
+  p.half = half;
   p.count = families;
   p.passes = passes;
   p.zero_first = zero_first;
@@ -1114,10 +1125,12 @@ cudaError_t run(const long long* table, int families, int passes, int zero_first
 // cam_free; sums into blocks [28 num_ref] float64), 8 the poses pass (reads
 // blocks, acc, lam, cam_free; writes pose_inv [num_ref,7,7] and sets
 // *singular to 1 on a zero pivot). `halt` (null: never): where *halt is set
-// the launch returns at once (the LM loop has stopped). `zero_first`: 1, the launch zeroes acc
-// (rows pass) and blocks (blocks pass) first; 0, it finds them at 0 and
-// leaves them at 0 after reading them (the launch of every pass: the caller
-// allocates them zeroed once). `marks` (null: not asked) receives 5
+// the launch returns at once (the LM loop has stopped). `sel` (null: J and r
+// as the table holds them): the table holds half 0 of the LM loop's halves,
+// and the launch reads J and r in half *sel, `half` bytes on. `zero_first`:
+// 1, the launch zeroes acc (rows pass) and blocks (blocks pass) first; 0, it
+// finds them at 0 and leaves them at 0 after reading them (the launch of
+// every pass: the caller allocates them zeroed once). `marks` (null: not asked) receives 5
 // %globaltimer stamps a block: its start and the end of each pass it ran.
 // `info` (null: not asked) receives the grid, the threads a block, the
 // dynamic shared memory, the poses of the warps' window copies, the rows a
@@ -1130,16 +1143,17 @@ extern "C" int mv_lm_assembly(int elem, const long long* table, int families, in
                               double* acc, double* blocks, double* hinv, void* g_c, void* g_p,
                               void* hpp, void* cam_diag, void* pt_diag, void* hpp_inv, void* dc,
                               void* precond, void* pose_inv, int* singular, const int* halt,
-                              long long* marks, long long* info, void* stream) {
+                              const int* sel, long long half, long long* marks, long long* info,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (passes < 1 || passes > 15) return cudaErrorInvalidValue;
   if (elem == 4)
     return run<float>(table, families, passes, zero_first, cam_free, lam, num_points, total,
                       num_ref, acc, blocks, hinv, g_c, g_p, hpp, cam_diag, pt_diag, hpp_inv, dc,
-                      precond, pose_inv, singular, halt, marks, info, s);
+                      precond, pose_inv, singular, halt, sel, half, marks, info, s);
   if (elem == 8)
     return run<double>(table, families, passes, zero_first, cam_free, lam, num_points, total,
                        num_ref, acc, blocks, hinv, g_c, g_p, hpp, cam_diag, pt_diag, hpp_inv, dc,
-                       precond, pose_inv, singular, halt, marks, info, s);
+                       precond, pose_inv, singular, halt, sel, half, marks, info, s);
   return cudaErrorInvalidValue;
 }

@@ -567,16 +567,31 @@ struct Args {
   T* j_cam;
   T* j_pt;
   const int* halt;  // set: return at once (the LM loop's stop flag; null: never)
+  const int* sel;   // the LM loop's current half (null: the arrays as given)
+  long long half;   // bytes from half 0 to half 1 of the LM loop's halves
+  int flip;         // 1: the arrays of half 1 - sel (the trial point), 0: of half sel
 };
+
+// The LM loop keeps its current and trial point, blocks and residual in two
+// halves (solver/lm_step.py::Halves): Args holds half 0, and a launch reads
+// the state's arrays (poses, rig, offset, intrinsics, depth_to_image, scale,
+// points) and writes its outputs `o` bytes on (0: half 0, or no halves). The
+// observations are not halved.
+template <typename P>
+MV_HD P* at_half(P* p, long long o) {
+  return reinterpret_cast<P*>(reinterpret_cast<unsigned long long>(p) + o);
+}
 
 // The row's own numbers (gathered poses and point), in C
 struct Row {
   C beg[7], end[7], x[3], dt_cam, dt_bracket, mask;
 };
 
-template <typename T> MV_HD void load_bracket(const Args<T>& a, long long i, Row& r) {
-  const T* b = a.poses + a.beg[i] * 7;
-  const T* e = a.poses + a.end[i] * 7;
+template <typename T> MV_HD void load_bracket(const Args<T>& a, long long i, Row& r,
+                                              long long o = 0) {
+  const T* poses = at_half(a.poses, o);
+  const T* b = poses + a.beg[i] * 7;
+  const T* e = poses + a.end[i] * 7;
 #pragma unroll
   for (int j = 0; j < 7; ++j) {
     r.beg[j] = b[j];
@@ -591,19 +606,19 @@ template <typename T> MV_HD void load_bracket(const Args<T>& a, long long i, Row
 // dist_half 11-12, dist 13.. (rpc: the distort half); depth: d2i
 // 8..8+nd-1, scale 8+nd
 MV_HD int pixel_sensor_count(int model, int ndist) { return 13 + coeffs_read(model, ndist); }
-template <typename T> MV_HD C pixel_sensor_value(const Args<T>& a, int i) {
-  if (i < 7) return a.rig[i];
-  if (i == 7) return a.offset[0];
-  if (i == 8) return a.focal[0];
-  if (i < 11) return a.ctr[i - 9];
+template <typename T> MV_HD C pixel_sensor_value(const Args<T>& a, int i, long long o = 0) {
+  if (i < 7) return at_half(a.rig, o)[i];
+  if (i == 7) return at_half(a.offset, o)[0];
+  if (i == 8) return at_half(a.focal, o)[0];
+  if (i < 11) return at_half(a.ctr, o)[i - 9];
   if (i < 13) return a.dist_half[i - 11];
-  return a.dist[i - 13];
+  return at_half(a.dist, o)[i - 13];
 }
-template <typename T> MV_HD C depth_sensor_value(const Args<T>& a, int nd, int i) {
-  if (i < 7) return a.rig[i];
-  if (i == 7) return a.offset[0];
-  if (i < 8 + nd) return a.d2i[i - 8];
-  return a.dscale[0];
+template <typename T> MV_HD C depth_sensor_value(const Args<T>& a, int nd, int i, long long o = 0) {
+  if (i < 7) return at_half(a.rig, o)[i];
+  if (i == 7) return at_half(a.offset, o)[0];
+  if (i < 8 + nd) return at_half(a.d2i, o)[i - 8];
+  return at_half(a.dscale, o)[0];
 }
 template <typename T> MV_HD void load_pixel_sensor(const Args<T>& a, int model, C* sp) {
   for (int i = 0; i < pixel_sensor_count(model, a.ndist); ++i) sp[i] = pixel_sensor_value(a, i);
@@ -974,20 +989,22 @@ MV_HD void prior_row_into(const T* pt, const T* ref, C mask, C weight, C a2, boo
 
 // The row's inputs gathered, then the row into the given outputs
 template <typename T, int MODEL>
-MV_HD void pixel_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp) {
+MV_HD void pixel_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp,
+                        long long o = 0) {
   const int deg = MODEL == kRpc ? rpc_degree(a.ndist / 2) : 0;
   const int B = 25 + (MODEL == kRpc ? a.ndist : num_coeffs(MODEL));
   Row in;
-  load_bracket(a, i, in);
-  const T* pt = a.points + a.pidx[i] * 3;
+  load_bracket(a, i, in, o);
+  const T* pt = at_half(a.points, o) + a.pidx[i] * 3;
   for (int j = 0; j < 3; ++j) in.x[j] = pt[j];
   pixel_row_into<T, MODEL>(in, a.pix + 2 * i, sp, a.a2, deg, B, res, jc, jp);
 }
 
 template <typename T, bool AFFINE, bool MESH>
-MV_HD void depth_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp) {
+MV_HD void depth_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* jc, T* jp,
+                        long long o = 0) {
   Row in;
-  load_bracket(a, i, in);
+  load_bracket(a, i, in, o);
   C target[3] = {C(0), C(0), C(0)};
   if constexpr (MESH) {
     // mesh_target: a miss is zeroed before the residual, and masked
@@ -997,7 +1014,7 @@ MV_HD void depth_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* j
     if (!hit) in.mask = C(0);
     for (int j = 0; j < 3; ++j) in.x[j] = C(0);
   } else {
-    const T* pt = a.points + a.pidx[i] * 3;
+    const T* pt = at_half(a.points, o) + a.pidx[i] * 3;
     for (int j = 0; j < 3; ++j) in.x[j] = pt[j];
   }
   depth_row_into<T, AFFINE, MESH>(in, a.depth_xyz + 3 * i, target, sp, a.weight, a.a2, res, jc,
@@ -1005,8 +1022,8 @@ MV_HD void depth_row_at(const Args<T>& a, const C* sp, long long i, T* res, T* j
 }
 
 template <typename T>
-MV_HD void prior_row_at(const Args<T>& a, long long i, T* res, T* jp) {
-  const T* pt = a.points + a.pidx[i] * 3;
+MV_HD void prior_row_at(const Args<T>& a, long long i, T* res, T* jp, long long o = 0) {
+  const T* pt = at_half(a.points, o) + a.pidx[i] * 3;
   const C mask = a.mask[i] ? C(1) : C(0);
   prior_row_into<T>(pt, a.ref_xyz + 3 * i, mask, a.weight, a.a2, a.robust != 0, res, jp);
 }
@@ -1072,6 +1089,9 @@ struct RowBlocksArgs {
   void* j_cam;
   void* j_pt;
   const void* halt;  // int32: where set, the launch returns at once (null: never)
+  const void* sel;   // int32: the LM loop's current half, or null (see at_half)
+  long long half;    // bytes from half 0 to half 1
+  int flip;          // 1: evaluate the half other than sel's
 };
 
 template <typename T>
@@ -1107,6 +1127,9 @@ rowblocks::Args<T> typed_args(const RowBlocksArgs& h) {
   a.j_cam = static_cast<T*>(h.j_cam);
   a.j_pt = static_cast<T*>(h.j_pt);
   a.halt = static_cast<const int*>(h.halt);
+  a.sel = static_cast<const int*>(h.sel);
+  a.half = h.half;
+  a.flip = h.flip;
   return a;
 }
 
@@ -1122,6 +1145,13 @@ struct Tile {
 };
 
 constexpr int kSensorBytes = kSensorMax * sizeof(C);
+
+// bytes from the table's half 0 to the half a launch reads and writes (the
+// LM loop's sel ^ flip), once a thread
+template <typename T>
+__device__ __forceinline__ long long half_offset(const Args<T>& a) {
+  return a.sel ? ((*a.sel ^ a.flip) & 1) * a.half : 0;
+}
 
 // count values of T from shared memory to the global span dst, by every
 // thread: 16-byte stores where both ends allow
@@ -1143,15 +1173,15 @@ __device__ __forceinline__ void store_span(T* dst, const T* src, long long count
 // The block's staged outputs to their spans of res, J_cam and J_pt
 template <typename T>
 __device__ __forceinline__ void store_tile(const Args<T>& a, const Tile& t, const unsigned char* smem,
-                                           long long row0, int rows) {
+                                           long long row0, int rows, long long o) {
   __syncthreads();
-  store_span(a.res + row0 * t.k, reinterpret_cast<const T*>(smem + t.res),
+  store_span(at_half(a.res, o) + row0 * t.k, reinterpret_cast<const T*>(smem + t.res),
              static_cast<long long>(rows) * t.k);
   if (t.kb)
-    store_span(a.j_cam + row0 * t.kb, reinterpret_cast<const T*>(smem + t.jc),
+    store_span(at_half(a.j_cam, o) + row0 * t.kb, reinterpret_cast<const T*>(smem + t.jc),
                static_cast<long long>(rows) * t.kb);
   if (t.kp)
-    store_span(a.j_pt + row0 * t.kp, reinterpret_cast<const T*>(smem + t.jp),
+    store_span(at_half(a.j_pt, o) + row0 * t.kp, reinterpret_cast<const T*>(smem + t.jp),
                static_cast<long long>(rows) * t.kp);
 }
 
@@ -1159,9 +1189,10 @@ template <typename T, int MODEL>
 __global__ void __launch_bounds__(kRows, kPixelMinBlocks) pixel_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
+  const long long o = half_offset(a);
   C* sp = reinterpret_cast<C*>(smem);
   for (int i = threadIdx.x; i < pixel_sensor_count(MODEL, a.ndist); i += blockDim.x)
-    sp[i] = pixel_sensor_value(a, i);
+    sp[i] = pixel_sensor_value(a, i, o);
   __syncthreads();
   const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
   const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
@@ -1169,17 +1200,18 @@ __global__ void __launch_bounds__(kRows, kPixelMinBlocks) pixel_kernel(Args<T> a
   if (r < rows)
     pixel_row_at<T, MODEL>(a, sp, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
                            reinterpret_cast<T*>(smem + t.jc) + r * t.kb,
-                           reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
-  store_tile(a, t, smem, row0, rows);
+                           reinterpret_cast<T*>(smem + t.jp) + r * t.kp, o);
+  store_tile(a, t, smem, row0, rows, o);
 }
 
 template <typename T, bool AFFINE, bool MESH>
 __global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
+  const long long o = half_offset(a);
   constexpr int ND = AFFINE ? 12 : 7;
   C* sp = reinterpret_cast<C*>(smem);
-  for (int i = threadIdx.x; i < 9 + ND; i += blockDim.x) sp[i] = depth_sensor_value(a, ND, i);
+  for (int i = threadIdx.x; i < 9 + ND; i += blockDim.x) sp[i] = depth_sensor_value(a, ND, i, o);
   __syncthreads();
   const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
   const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
@@ -1187,21 +1219,23 @@ __global__ void __launch_bounds__(kRows) depth_kernel(Args<T> a, Tile t) {
   if (r < rows)
     depth_row_at<T, AFFINE, MESH>(a, sp, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
                                   reinterpret_cast<T*>(smem + t.jc) + r * t.kb,
-                                  MESH ? nullptr : reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
-  store_tile(a, t, smem, row0, rows);
+                                  MESH ? nullptr : reinterpret_cast<T*>(smem + t.jp) + r * t.kp,
+                                  o);
+  store_tile(a, t, smem, row0, rows, o);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kRows) prior_kernel(Args<T> a, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (a.halt && *a.halt) return;  // the solve has stopped (written by an earlier launch)
+  const long long o = half_offset(a);
   const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
   const int rows = static_cast<int>(min(static_cast<long long>(blockDim.x), a.n - row0));
   const int r = threadIdx.x;
   if (r < rows)
     prior_row_at<T>(a, row0 + r, reinterpret_cast<T*>(smem + t.res) + r * t.k,
-                    reinterpret_cast<T*>(smem + t.jp) + r * t.kp);
-  store_tile(a, t, smem, row0, rows);
+                    reinterpret_cast<T*>(smem + t.jp) + r * t.kp, o);
+  store_tile(a, t, smem, row0, rows, o);
 }
 
 constexpr int kTileBudget = 52 * 1024;   // a block's shared memory, for 4 blocks an SM

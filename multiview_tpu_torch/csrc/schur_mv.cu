@@ -48,6 +48,11 @@
 // reverse order of the point pass, so that the rows the point pass read last
 // (the likeliest to be still in the 50 MB L2) come first.
 //
+// In the LM loop the table holds half 0 of the loop's current and trial
+// halves (solver/lm_step.py::Halves): each tile's copy reads the state's
+// `sel` (an __ldg, cached) and fetches J from the half it picks (`half` bytes
+// on a half).
+//
 // Sums. The camera pass's, in each thread's registers over its rows: a row
 // whose begin and end pose are one pose adds its two 7-column halves first
 // (every row of the benchmark's cube, every dt_bracket = 0 row); a thread
@@ -149,6 +154,8 @@ struct Params {
                             // back by the camera pass of the same launch)
   T* w;                     // [num_points, 3] scratch: Hpp^-1 g_p
   const int* halt;          // set: the launch returns at once (the LM loop's stop flag), or null
+  const int* sel;           // the LM loop's current half of J (null: J as the table holds it)
+  long long half;           // bytes from half 0 to half 1 of the LM loop's halves
   long long num_points, total, num_ref;
   int tile_rows, slots, full_x, wposes, copies, max_const;
   int off_xcf, off_g, off_const, off_slots, slot_bytes;
@@ -173,16 +180,19 @@ __host__ __device__ __forceinline__ SlotLayout slot_layout(int tile_rows, int k,
 template <typename T>
 __device__ __forceinline__ void issue_tile(const Params<T>& p, const TileRef& t,
                                            unsigned char* slot) {
+  // bytes from the table's J (half 0) to the current half's (the LM loop's sel)
+  const long long off = p.sel ? static_cast<long long>(__ldg(p.sel)) * p.half : 0;
   const Family& f = p.f[t.f];
   const int kb = f.k * f.b;
   const SlotLayout l = slot_layout(p.tile_rows, f.k, f.b, f.j_pt != nullptr, sizeof(T));
   using row_tiles::copy_async;
-  copy_async(slot, static_cast<const unsigned char*>(f.j_cam) + t.row0 * kb * sizeof(T),
+  copy_async(slot, static_cast<const unsigned char*>(f.j_cam) + off + t.row0 * kb * sizeof(T),
              static_cast<long long>(t.rows) * kb * sizeof(T));
   copy_async(slot + l.beg, reinterpret_cast<const unsigned char*>(f.beg + t.row0), t.rows * 8ll);
   copy_async(slot + l.end, reinterpret_cast<const unsigned char*>(f.end + t.row0), t.rows * 8ll);
   if (f.j_pt) {
-    copy_async(slot + l.jp, static_cast<const unsigned char*>(f.j_pt) + t.row0 * f.k * 3 * sizeof(T),
+    copy_async(slot + l.jp,
+               static_cast<const unsigned char*>(f.j_pt) + off + t.row0 * f.k * 3 * sizeof(T),
                static_cast<long long>(t.rows) * f.k * 3 * sizeof(T));
     copy_async(slot + l.pidx, reinterpret_cast<const unsigned char*>(f.pidx + t.row0),
                t.rows * 8ll);
@@ -1055,12 +1065,15 @@ template <typename T>
 cudaError_t run(const long long* table, int families, int passes, const void* x, const void* cf,
                 const void* dc, const void* hpp_inv, long long num_points, long long total,
                 long long num_ref, void* g_p, void* w, void* out, void* u, const int* halt,
-                long long* info, cudaStream_t stream) {
+                const int* sel, long long half, long long* info, cudaStream_t stream) {
   Params<T> p{};
   cudaError_t err = plan(table, families, num_points, total, num_ref, p);
   if (err != cudaSuccess) return err;
+  if (half < 0) return cudaErrorInvalidValue;
   p.passes = passes;
   p.halt = halt;
+  p.sel = sel;
+  p.half = half;
   p.x = static_cast<const T*>(x);
   p.cf = static_cast<const T*>(cf);
   p.dc = static_cast<const T*>(dc);
@@ -1090,8 +1103,8 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
                       long long num_points, long long total, long long num_ref, int iterations,
                       int force, double tol2, void* x, void* r, void* pv, void* ap, void* u,
                       void* g_p, void* w, double* state, long long* count, const int* halt,
-                      long long* info, cudaStream_t stream) {
-  if (total < 1 || nposes < 0 || 7 * nposes > total || (nposes > 0 && !pose_inv) ||
+                      const int* sel, long long half, long long* info, cudaStream_t stream) {
+  if (total < 1 || half < 0 || nposes < 0 || 7 * nposes > total || (nposes > 0 && !pose_inv) ||
       iterations < 0 || force < -1 || !g_c || !g_in || !precond || !x || !r || !pv || !ap ||
       !u || !g_p || !w || !state || !count)
     return cudaErrorInvalidValue;
@@ -1118,6 +1131,8 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
   q.state = state;
   q.count = count;
   p.halt = halt;
+  p.sel = sel;
+  p.half = half;
   q.tol2 = tol2;
   q.iterations = iterations;
   q.force = force;
@@ -1142,7 +1157,9 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
 // g_p null: no point side; w [num_points, 3] scratch for Hpp^-1 g_p), 3 both
 // (S x; u, where given, is stored by the point pass and read back by the
 // camera pass). `halt` (null: never): where *halt is set the launch returns
-// at once (the LM loop has stopped). `info` (null: not asked) receives
+// at once (the LM loop has stopped). `sel` (null: J as the table holds it):
+// the table holds half 0 of the LM loop's halves, and the launch reads J in
+// half *sel, `half` bytes on. `info` (null: not asked) receives
 // the grid, the threads a block, the rows a tile, the ring's slots, the rows
 // the camera pass found in shared memory, the poses whose columns a block sums
 // in shared memory, whether x * cam_free was kept whole there (1) or read
@@ -1151,16 +1168,16 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
 extern "C" int mv_schur(int elem, const long long* table, int families, int passes,
                         const void* x, const void* cam_free, const void* dc, const void* hpp_inv,
                         long long num_points, long long total, long long num_ref, void* g_p,
-                        void* w, void* out, void* u, const int* halt, long long* info,
-                        void* stream) {
+                        void* w, void* out, void* u, const int* halt, const int* sel,
+                        long long half, long long* info, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (passes < 1 || passes > 3) return cudaErrorInvalidValue;
   if (elem == 4)
     return run<float>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
-                      num_ref, g_p, w, out, u, halt, info, s);
+                      num_ref, g_p, w, out, u, halt, sel, half, info, s);
   if (elem == 8)
     return run<double>(table, families, passes, x, cam_free, dc, hpp_inv, num_points, total,
-                       num_ref, g_p, w, out, u, halt, info, s);
+                       num_ref, g_p, w, out, u, halt, sel, half, info, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1175,7 +1192,7 @@ extern "C" int mv_schur(int elem, const long long* table, int families, int pass
 // with no test. Outputs: x [total]; state [4] float64: rz, stop2, whether a
 // next step would run, the steps run; count [1] int64: the steps run. Where
 // *halt is set (halt null: never) it returns at once (the LM loop has
-// stopped). Scratch: r, p, ap [2 total] each, u
+// stopped); `sel` and `half` as mv_schur takes them. Scratch: r, p, ap [2 total] each, u
 // [sum n k] (zeros where a family has no camera block), g_p and w
 // [num_points, 3]; u ends as J_c (cam_free * x) and g_p as J_p^T u (the
 // back-substitution's product). `info` (null: not asked) receives the grid, the threads a block,
@@ -1189,16 +1206,17 @@ extern "C" int mv_cg_solve(int elem, const long long* table, int families, const
                            long long nposes, long long num_points, long long total,
                            long long num_ref, int iterations, int force, double tol2, void* x,
                            void* r, void* p, void* ap, void* u, void* g_p, void* w,
-                           double* state, long long* count, const int* halt, long long* info,
-                           void* stream) {
+                           double* state, long long* count, const int* halt, const int* sel,
+                           long long half, long long* info, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 4)
     return run_solve<float>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                             pose_inv, nposes, num_points, total, num_ref, iterations, force, tol2,
-                            x, r, p, ap, u, g_p, w, state, count, halt, info, s);
+                            x, r, p, ap, u, g_p, w, state, count, halt, sel, half, info, s);
   if (elem == 8)
     return run_solve<double>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                              pose_inv, nposes, num_points, total, num_ref, iterations, force,
-                             tol2, x, r, p, ap, u, g_p, w, state, count, halt, info, s);
+                             tol2, x, r, p, ap, u, g_p, w, state, count, halt, sel, half, info,
+                             s);
   return cudaErrorInvalidValue;
 }

@@ -201,7 +201,7 @@ def knn2_cuda_fma(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
     qn = torch.empty((P, N), dtype=torch.float32, device=dev)
     tn = torch.empty((P, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = cuda_build.stream(dev)
         err = fn(q.data_ptr(), t.data_ptr(), qn.data_ptr(), tn.data_ptr(),
                  P, N, M, D, best_idx.data_ptr(), best.data_ptr(),
                  second.data_ptr(), stream)
@@ -244,7 +244,7 @@ def knn2_cuda_wgmma(query: torch.Tensor, train: torch.Tensor,
         clocks.append(torch.zeros((P * q_tiles * splits, 2, 4), dtype=torch.int64, device=dev))
         clock_ptr = clocks[-1].data_ptr()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = cuda_build.stream(dev)
         err = fn(q.data_ptr(), t.data_ptr(), q_img, t_img, P, N, M, D, splits,
                  part, part + part_bytes, part + 2 * part_bytes,
                  best_idx.data_ptr(), best.data_ptr(), second.data_ptr(), clock_ptr, stream)

@@ -27,7 +27,9 @@ Hpp is inverted, then the 7x7 pass runs per shard on the summed Hpp^-1 and
 raises on the CPU; the kernel sets a device flag instead, which
 ``stop_test`` reads in the LM loop's host read of its state
 (``lm_step.read``) and raises on. Where the loop's stop flag ``halt`` is
-set, the one-shard launch returns at once. ``LAUNCHES`` counts the kernel's launches. A family is any object
+set, the one-shard launch returns at once; with the LM loop's ``halves`` the
+launches read J and r in the half its selector picks. ``LAUNCHES`` counts
+the kernel's launches. A family is any object
 as ``schur_matvec`` takes it (``beg_idx`` / ``end_idx`` / ``const_cols`` where
 it has a camera block, ``point_idx`` where it touches points)."""
 
@@ -43,6 +45,7 @@ import torch
 from multiview_tpu_torch.parallel.sharding import ShardMesh
 from multiview_tpu_torch.solver import schur_matvec as smv
 from multiview_tpu_torch.utils import cuda_build
+from multiview_tpu_torch.utils.cuda_build import ptr as _ptr
 from multiview_tpu_torch.utils.device import indexed_device as _device
 
 SOURCE = "lm_assembly.cu"
@@ -176,7 +179,8 @@ def _lib():
     lib = cuda_build.load_library(SOURCE)
     if lib.mv_lm_assembly.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_lm_assembly.argtypes = [i32, p, i32, i32, i32, p, p, i64, i64, i64] + [p] * 17
+        lib.mv_lm_assembly.argtypes = ([i32, p, i32, i32, i32, p, p, i64, i64, i64] + [p] * 15
+                                       + [i64] + [p] * 3)
         lib.mv_lm_assembly.restype = ctypes.c_int
     return lib
 
@@ -189,7 +193,8 @@ class _ShardTable:
     their tensors checked once; ``refresh`` points it at one LM iteration's
     J and r (the index tensors stay those of the solve)."""
 
-    def __init__(self, fams, jc, jp, r: Optional[torch.Tensor], dtype, dev, s: int):
+    def __init__(self, fams, jc, jp, r: Optional[torch.Tensor], dtype, dev, s: int,
+                 halves=None):
         i64 = torch.int64
         fields, self.shapes, off = [], [], 0
         for i, (f, a, b) in enumerate(zip(fams, jc, jp)):
@@ -227,11 +232,17 @@ class _ShardTable:
         self.rows = off
         self.table = (ctypes.c_longlong * max(len(fields), 1))(*fields)
         self.families = len(fams)
-        self.refresh(jc, jp, r)
+        self._last = None
+        self.refresh(jc, jp, r, halves)
 
-    def refresh(self, jc, jp, r: Optional[torch.Tensor]) -> None:
+    def refresh(self, jc, jp, r: Optional[torch.Tensor], halves=None) -> None:
         """The J and r pointers of this iteration's tensors (each of the
-        solve's shape, contiguous: ``torch.where`` of two such makes one)."""
+        solve's shape, contiguous: ``torch.where`` of two such makes one;
+        with ``halves``, half-0 arrays of the LM loop's halves)."""
+        last = (halves, tuple(None if x is None else (x.data_ptr(), x.shape, x.is_contiguous())
+                              for x in (*jc, *jp, r)))
+        if last == self._last:
+            return
         if r is not None and (r.numel() != self.rows or not r.is_contiguous()):
             raise ValueError(f"lm_assembly kernel: {r.numel()} residuals for the table's "
                              f"{self.rows}, or not contiguous")
@@ -245,10 +256,10 @@ class _ShardTable:
             t[i * _FIELDS] = 0 if a is None else a.data_ptr()
             t[i * _FIELDS + 1] = 0 if b is None else b.data_ptr()
             t[i * _FIELDS + 6] = 0 if r is None else r.data_ptr() + off * r.element_size()
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+        if halves is not None:
+            for x in (*jc, *jp, r):
+                halves.check("lm_assembly kernel: a block or the residual", x)
+        self._last = last
 
 
 _OUTPUTS = ("g_c", "g_p", "hpp", "cam_diag", "pt_diag", "hpp_inv", "dc", "precond", "pose_inv")
@@ -258,20 +269,22 @@ _INFO = ("grid", "threads", "shared_bytes", "window_poses", "tile_rows", "slots"
 
 def _launch(passes: int, zero_first: bool, table: _ShardTable, dev, cam_free, lam,
             num_points: int, num_ref: int, acc=None, blocks=None, hinv=None,
-            out: Optional[dict] = None, singular=None, halt=None) -> None:
+            out: Optional[dict] = None, singular=None, halt=None, halves=None) -> None:
     """One cooperative launch of csrc/lm_assembly.cu on ``dev`` (``halt``: the
-    LM loop's stop flag on ``dev``, where set the launch returns at once)."""
+    LM loop's stop flag on ``dev``, where set the launch returns at once;
+    ``halves``: the LM loop's ``lm_step.Halves``, whose current half of the
+    table's J and r the launch reads)."""
     global LAUNCHES, LAST_LAUNCH, LAST_MARKS
     out = out or {}
     info = (ctypes.c_longlong * len(_INFO))() if RECORD_LAUNCH else None
     marks = torch.zeros((_MAX_GRID, 5), dtype=torch.int64, device=dev) if RECORD_MARKS else None
+    sel, half = halves.of(dev) if halves is not None else (None, 0)
     with torch.cuda.device(dev):
         err = _lib().mv_lm_assembly(
             cam_free.element_size(), table.table, table.families, passes, int(zero_first),
             cam_free.data_ptr(), lam.data_ptr(), num_points, cam_free.shape[0], num_ref,
             _ptr(acc), _ptr(blocks), _ptr(hinv), *(_ptr(out.get(k)) for k in _OUTPUTS),
-            _ptr(singular), _ptr(halt), _ptr(marks), info,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(singular), _ptr(halt), sel, half, _ptr(marks), info, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f"lm_assembly kernel (passes {passes}) failed with cudaError {err}")
     LAUNCHES += 1
@@ -312,7 +325,7 @@ class AssemblyPlan:
         self._key = self._cam_free = self._singular = self._halt = None
 
     def _build(self, key, mesh: ShardMesh, shards, J, r, cam_free, num_ref: int,
-               num_points: int, block_precond: bool) -> None:
+               num_points: int, block_precond: bool, halves) -> None:
         lead = _device(mesh.lead)
         dtype, C, P, R = cam_free.dtype, cam_free.shape[0], num_points, num_ref
         self.devs = [_device(d) for d in mesh.devices]
@@ -320,7 +333,7 @@ class AssemblyPlan:
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"lm_assembly kernel: float32 or float64, got {dtype}")
         self.tables = [_ShardTable(fams, jc, jp, None if r is None else r[s], dtype,
-                                   self.devs[s], s)
+                                   self.devs[s], s, halves)
                        for s, (fams, (jc, jp)) in enumerate(zip(shards, J))]
         f64 = torch.float64
         self.out = {"hpp": torch.empty((P, 3, 3), dtype=dtype, device=lead),
@@ -350,13 +363,14 @@ class AssemblyPlan:
     def __call__(self, mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
                  cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
                  block_precond: bool, singular: Optional[torch.Tensor] = None,
-                 halt: Optional[torch.Tensor] = None) -> Assembly:
+                 halt: Optional[torch.Tensor] = None, halves=None) -> Assembly:
         key = (cam_free.dtype, r is None, block_precond, cam_free.shape[0], num_points, num_ref)
         if not (self._key == key and self._mesh is mesh and self._shards is shards):
-            self._build(key, mesh, shards, J, r, cam_free, num_ref, num_points, block_precond)
+            self._build(key, mesh, shards, J, r, cam_free, num_ref, num_points, block_precond,
+                        halves)
         else:
             for s, (table, (jc, jp)) in enumerate(zip(self.tables, J)):
-                table.refresh(jc, jp, None if r is None else r[s])
+                table.refresh(jc, jp, None if r is None else r[s], halves)
         lead, P, R = _device(mesh.lead), num_points, num_ref
         # cam_free and the flag stay over a solve: checked when they change;
         # lam is new each LM iteration: its dtype, device and shape
@@ -379,16 +393,17 @@ class AssemblyPlan:
             # one shard over every process: one launch of every pass
             passes = _ROWS | _POINTS | ((_BLOCKS | _POSES) if block_precond else 0)
             _launch(passes, False, self.tables[0], lead, cam_free, lam, P, R, self.acc[0],
-                    self.blocks[0], hinv, out, singular, halt)
+                    self.blocks[0], hinv, out, singular, halt, halves)
         else:
             for table, acc, d in zip(self.tables, self.acc, self.devs):
-                _launch(_ROWS, True, table, d, cam_free.to(d), lam.to(d), P, R, acc)
+                _launch(_ROWS, True, table, d, cam_free.to(d), lam.to(d), P, R, acc,
+                        halves=halves)
             acc = mesh.sum(self.acc)
             _launch(_POINTS, True, _EMPTY, lead, cam_free, lam, P, R, acc, None, hinv, out)
             if block_precond:
                 for table, part, d in zip(self.tables, self.blocks, self.devs):
                     _launch(_BLOCKS, True, table, d, cam_free.to(d), lam.to(d), P, R, None, part,
-                            hinv.to(d))
+                            hinv.to(d), halves=halves)
                 _launch(_POSES, True, _EMPTY, lead, cam_free, lam, P, R, acc,
                         mesh.sum(self.blocks), None, out, singular)
         return Assembly(*(out.get(k) for k in _OUTPUTS))
@@ -398,7 +413,7 @@ def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]
                   cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
                   block_precond: bool, singular: Optional[torch.Tensor] = None,
                   plan: Optional[AssemblyPlan] = None,
-                  halt: Optional[torch.Tensor] = None) -> Assembly:
+                  halt: Optional[torch.Tensor] = None, halves=None) -> Assembly:
     """The assembly on the card: one cooperative launch on one shard, else a
     launch a pass and shard with ``mesh.sum`` between them. ``singular`` (an
     int32 0-d tensor on the lead device, from ``new_flag``) is set to 1 where
@@ -407,9 +422,11 @@ def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]
     reuses its table and buffers; without it the call builds its own.
     ``halt`` (an int32 0-d tensor on the lead device: the LM loop's stop
     flag, ``lm_step.LMState.halt``): where it is set, the one-shard launch
-    returns at once and the outputs keep their last values."""
+    returns at once and the outputs keep their last values. ``halves`` (the
+    LM loop's ``lm_step.Halves``, None: J and r as given): J and r are its
+    half-0 arrays, and the launches read the half its selector picks."""
     return (plan or AssemblyPlan())(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
-                                    block_precond, singular, halt)
+                                    block_precond, singular, halt, halves)
 
 
 # ----------------------------------------------------------------------------
@@ -420,19 +437,20 @@ def assemble_cuda(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]
 def assemble(mesh: ShardMesh, shards, J, r: Optional[Sequence[torch.Tensor]],
              cam_free: torch.Tensor, lam: torch.Tensor, num_ref: int, num_points: int,
              block_precond: bool, singular: Optional[torch.Tensor] = None,
-             plan: Optional[AssemblyPlan] = None, halt: Optional[torch.Tensor] = None) -> Assembly:
+             plan: Optional[AssemblyPlan] = None, halt: Optional[torch.Tensor] = None,
+             halves=None) -> Assembly:
     """One LM iteration's assembly: ``shards`` per local shard of ``mesh`` its
     families, ``J`` per shard (camera blocks [N,k,B] or None, point blocks
     [N,k,3] or None) in family order, ``r`` per shard the flat residuals
     (None: no gradient), ``cam_free`` [C] and the 0-d ``lam`` on the lead
     device; ``block_precond``: also SCHUR_JACOBI's 7x7 inverses. The plain
-    version for CPU tensors, the kernel for CUDA ones (``plan``, ``halt``:
-    see ``assemble_cuda``; the plain version takes neither)."""
+    version for CPU tensors, the kernel for CUDA ones (``plan``, ``halt``,
+    ``halves``: see ``assemble_cuda``; the plain version takes none)."""
     if cam_free.device.type == "cpu":
         return assemble_plain(mesh, shards, J, r, cam_free, lam, num_ref, num_points,
                               block_precond, singular)
     return assemble_cuda(mesh, shards, J, r, cam_free, lam, num_ref, num_points, block_precond,
-                         singular, plan, halt)
+                         singular, plan, halt, halves)
 
 
 def stop_test(done: torch.Tensor, singular: torch.Tensor):

@@ -157,7 +157,7 @@ class CudaCG:
                            v.data_ptr(), M.precond.data_ptr(),
                            None if M.pose_inv is None else M.pose_inv.data_ptr(), self.tol2,
                            self.state.data_ptr(),
-                           torch.cuda.current_stream(self.rhs.device).cuda_stream)
+                           cuda_build.stream(self.rhs.device))
         if err != 0:
             raise RuntimeError(f"cg_step kernel (mode {mode}) failed with cudaError {err}")
         LAUNCHES += 1
@@ -183,7 +183,7 @@ class CudaCG:
 def empty_launch(device) -> None:
     """One launch of an empty kernel on ``device``'s current stream (the
     least time of a launch, the CG step's bound)."""
-    err = _lib().mv_cg_empty(torch.cuda.current_stream(device).cuda_stream)
+    err = _lib().mv_cg_empty(cuda_build.stream(device))
     if err != 0:
         raise RuntimeError(f"cg_step empty kernel failed with cudaError {err}")
 

@@ -98,7 +98,8 @@ def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
     """One launch of cg_solve_kernel: the stop test at every step on the
     device (``force=m``: exactly m steps, no test). ``buffers``: see
     ``SolveBuffers`` (None: the call's own); ``halt``: the LM loop's stop
-    flag (an int32 0-d tensor on the shard's device)."""
+    flag (an int32 0-d tensor on the shard's device). A system with the LM
+    loop's halves is read in the half its selector picks."""
     global LAUNCHES, LAST_LAUNCH
     if system.mesh.size != 1:
         raise ValueError(f"cg_solve kernel: the observations lie in {system.mesh.size} "
@@ -122,7 +123,8 @@ def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
     b = (buffers or SolveBuffers()).get(C, P, plan.u_len, plan.u_zero, dt, dev)
     x, r, p, ap, u, jtp_u, w = (b[k] for k in ("x", "r", "p", "ap", "u", "jtp_u", "w"))
     info = (ctypes.c_longlong * len(_INFO))() if RECORD_LAUNCH else None
-    ptr = smv._ptr
+    ptr = cuda_build.ptr
+    sel, half = smv.halves_of(system, dev)
     with torch.cuda.device(dev):
         err = smv._lib().mv_cg_solve(
             dt.itemsize, plan.table, plan.families, plan.cam_free.data_ptr(),
@@ -130,8 +132,8 @@ def solve_cuda(system: smv.SchurSystem, g_c: torch.Tensor, g_p: torch.Tensor,
             M.precond.data_ptr(), ptr(M.pose_inv), nposes, P, C, system.num_ref, iterations,
             -1 if force is None else force, float(tolerance) ** 2, x.data_ptr(),
             r.data_ptr(), p.data_ptr(), ap.data_ptr(), u.data_ptr(), jtp_u.data_ptr(),
-            w.data_ptr(), b["state"].data_ptr(), b["count"].data_ptr(), smv._ptr(halt), info,
-            torch.cuda.current_stream(dev).cuda_stream)
+            w.data_ptr(), b["state"].data_ptr(), b["count"].data_ptr(), ptr(halt), sel, half,
+            info, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f"cg_solve kernel failed with cudaError {err}")
     LAUNCHES += 1

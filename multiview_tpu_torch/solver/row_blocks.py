@@ -192,7 +192,8 @@ class _Args(ctypes.Structure):
                    ("poses", "beg", "end", "points", "pidx", "dt_cam", "dt_bracket", "mask",
                     "rig", "offset", "pix", "focal", "ctr", "dist", "dist_half", "depth_xyz",
                     "d2i", "dscale", "mesh_xyz", "mesh_mask", "ref_xyz", "res", "j_cam",
-                    "j_pt", "halt")])
+                    "j_pt", "halt", "sel")]
+                + [("half", ctypes.c_longlong), ("flip", ctypes.c_int)])
 
 
 def _lib():
@@ -211,6 +212,9 @@ class _Checker:
 
     def __init__(self, family: str, like: torch.Tensor):
         self.family = family
+        # the tensors of the LM loop's state and the outputs: a launch over
+        # the loop's halves reads and writes them in the half it is given
+        self.halved = []
         self.dev = _device(like.device)
         self.dtype = like.dtype
         if self.dtype not in (torch.float32, torch.float64):
@@ -222,7 +226,8 @@ class _Checker:
             raise ValueError(f"row_blocks kernel ({self.family}): the tensors lie on "
                              f"{self.dev}, not on a CUDA device")
 
-    def __call__(self, name: str, t: Optional[torch.Tensor], shape, dtype=None) -> int:
+    def __call__(self, name: str, t: Optional[torch.Tensor], shape, dtype=None,
+                 halved: bool = False) -> int:
         dtype = self.dtype if dtype is None else dtype
         where = f"row_blocks kernel ({self.family}): {name}"
         if t is None:
@@ -235,6 +240,8 @@ class _Checker:
             raise ValueError(f"{where} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{where} is not contiguous")
+        if halved:
+            self.halved.append((name, t))
         return t.data_ptr()
 
 
@@ -242,28 +249,39 @@ def _bracket(chk: _Checker, a: _Args, state: prob.RigState, obs, n: int):
     """The fields every pixel and depth row reads: poses, bracket, rig, offset."""
     s = obs.sensor
     a.n = n
-    a.poses = chk("world_to_ref", state.world_to_ref, (state.world_to_ref.shape[0], 7))
+    a.poses = chk("world_to_ref", state.world_to_ref, (state.world_to_ref.shape[0], 7),
+                  halved=True)
     a.beg = chk("beg_idx", obs.beg_idx, (n,), torch.int64)
     a.end = chk("end_idx", obs.end_idx, (n,), torch.int64)
     a.dt_cam = chk("dt_cam", obs.dt_cam, (n,))
     a.dt_bracket = chk("dt_bracket", obs.dt_bracket, (n,))
     a.mask = chk("mask", obs.mask, (n,), torch.bool)
-    a.rig = chk("ref_to_cam[sensor]", state.ref_to_cam[s], (7,))
+    a.rig = chk("ref_to_cam[sensor]", state.ref_to_cam[s], (7,), halved=True)
     a.offset = chk("timestamp_offsets", state.timestamp_offsets,
-                   (state.timestamp_offsets.shape[0],)) + s * state.dtype.itemsize
+                   (state.timestamp_offsets.shape[0],), halved=True) + s * state.dtype.itemsize
 
 
-def _outputs(chk: _Checker, res, shapes):
+def _outputs(chk: _Checker, out, shapes):
     """The launch's outputs (shapes: the blocks', None where the family has
-    no such block, then the residual's): new tensors, but the residual where
-    the caller gives ``res`` (checked: a span of its flat residual)."""
-    *blocks, res_shape = shapes
-    if res is None:
-        res = torch.empty(res_shape, dtype=chk.dtype, device=chk.dev)
-    else:
-        chk("the output res", res, res_shape)
-    return tuple(None if sh is None else torch.empty(sh, dtype=chk.dtype, device=chk.dev)
-                 for sh in blocks) + (res,)
+    no such block, then the residual's): new tensors, but where the caller
+    gives ``out`` (as ``RowLaunch.out`` holds them, None for a new tensor),
+    those (checked: the residual a span of its flat residual)."""
+    out = (None,) * len(shapes) if out is None else tuple(out)
+    if len(out) != len(shapes):
+        raise ValueError(f"row_blocks kernel ({chk.family}): {len(out)} outputs given for "
+                         f"{len(shapes)}")
+    names = ["the output J_cam", "the output J_pt"][-(len(shapes) - 1):] + ["the output res"]
+    got = []
+    for name, t, sh in zip(names, out, shapes):
+        if sh is None:
+            got.append(None)
+        elif t is None:
+            got.append(torch.empty(sh, dtype=chk.dtype, device=chk.dev))
+            chk.halved.append((name, got[-1]))
+        else:
+            chk(name, t, sh, halved=True)
+            got.append(t)
+    return tuple(got)
 
 
 def _launch(chk: _Checker, a: _Args) -> None:
@@ -273,8 +291,7 @@ def _launch(chk: _Checker, a: _Args) -> None:
         return
     a.elem = chk.dtype.itemsize
     with torch.cuda.device(chk.dev):
-        err = _lib().mv_row_blocks(ctypes.byref(a),
-                                   torch.cuda.current_stream(chk.dev).cuda_stream)
+        err = _lib().mv_row_blocks(ctypes.byref(a), cuda_build.stream(chk.dev))
     if err != 0:
         what = "no kernel for these arguments" if err < 0 else f"cudaError {err}"
         raise RuntimeError(f"row_blocks kernel ({chk.family}) failed: {what}")
@@ -282,8 +299,8 @@ def _launch(chk: _Checker, a: _Args) -> None:
 
 
 def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob.BAOptions,
-                res=None):
-    """(checker, args, outputs) of a pixel family (``res``: see ``_outputs``)."""
+                out=None):
+    """(checker, args, outputs) of a pixel family (``out``: see ``_outputs``)."""
     n = len(obs)
     s = obs.sensor
     chk = _Checker("pixel", state.world_to_ref)
@@ -291,14 +308,15 @@ def _pixel_args(state: prob.RigState, obs: prob.PixelObs, model: str, opts: prob
     a = _Args(family=_PIXEL, model=model_code(model, d), ndist=d)
     _bracket(chk, a, state, obs, n)
     a.threshold = float(opts.robust_threshold)
-    a.points = chk("points", state.points, (state.points.shape[0], 3))
+    a.points = chk("points", state.points, (state.points.shape[0], 3), halved=True)
     a.pidx = chk("point_idx", obs.point_idx, (n,), torch.int64)
     a.pix = chk("pix", obs.pix, (n, 2))
-    a.focal = chk("focal", state.focal, (state.focal.shape[0],)) + s * state.dtype.itemsize
-    a.ctr = chk("optical_center[sensor]", state.optical_center[s], (2,))
-    a.dist = chk("dist[sensor]", state.dist[s], (d,)) if d else None
+    a.focal = chk("focal", state.focal, (state.focal.shape[0],), halved=True) \
+        + s * state.dtype.itemsize
+    a.ctr = chk("optical_center[sensor]", state.optical_center[s], (2,), halved=True)
+    a.dist = chk("dist[sensor]", state.dist[s], (d,), halved=True) if d else None
     a.dist_half = chk("dist_half_size", obs.dist_half_size, (2,))
-    out = _outputs(chk, res, ((n, 2, 25 + d), (n, 2, 3), (n, 2)))
+    out = _outputs(chk, out, ((n, 2, 25 + d), (n, 2, 3), (n, 2)))
     a.j_cam, a.j_pt, a.res = (t.data_ptr() for t in out)
     return chk, a, out
 
@@ -310,7 +328,7 @@ def pixel_row_blocks_cuda(state: prob.RigState, obs: prob.PixelObs, model: str,
 
 
 def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
-                mesh_variant: bool, res=None):
+                mesh_variant: bool, out=None):
     n = len(obs)
     s = obs.sensor
     chk = _Checker("depth", state.world_to_ref)
@@ -320,9 +338,9 @@ def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
     a.threshold = float(opts.robust_threshold)
     a.weight = float(opts.depth_mesh_weight if mesh_variant else opts.depth_tri_weight)
     a.depth_xyz = chk("depth_xyz", obs.depth_xyz, (n, 3))
-    a.d2i = chk("depth_to_image[sensor]", state.depth_to_image[s], (nd,))
+    a.d2i = chk("depth_to_image[sensor]", state.depth_to_image[s], (nd,), halved=True)
     a.dscale = chk("depth_scale", state.depth_scale,
-                   (state.depth_scale.shape[0],)) + s * state.dtype.itemsize
+                   (state.depth_scale.shape[0],), halved=True) + s * state.dtype.itemsize
     if mesh_variant:
         if obs.mesh_xyz is None:
             raise ValueError("the depth-mesh family needs DepthObs.mesh_xyz")
@@ -330,9 +348,9 @@ def _depth_args(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
         if obs.mesh_mask is not None:
             a.mesh_mask = chk("mesh_mask", obs.mesh_mask, (n,), torch.bool)
     else:
-        a.points = chk("points", state.points, (state.points.shape[0], 3))
+        a.points = chk("points", state.points, (state.points.shape[0], 3), halved=True)
         a.pidx = chk("point_idx", obs.point_idx, (n,), torch.int64)
-    j_cam, j_pt, res = _outputs(chk, res, ((n, 3, 23 + nd), None if mesh_variant else (n, 3, 3),
+    j_cam, j_pt, res = _outputs(chk, out, ((n, 3, 23 + nd), None if mesh_variant else (n, 3, 3),
                                            (n, 3)))
     a.j_cam, a.res = j_cam.data_ptr(), res.data_ptr()
     a.j_pt = None if j_pt is None else j_pt.data_ptr()
@@ -346,16 +364,16 @@ def depth_row_blocks_cuda(state: prob.RigState, obs: prob.DepthObs, opts: prob.B
 
 
 def _prior_args(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th: float,
-                res=None):
+                out=None):
     m = prior.point_idx.shape[0]
     chk = _Checker("prior", state.points)
     a = _Args(family=_PRIOR, robust=int(th > 0), n=m, weight=float(weight),
               threshold=float(th) if th > 0 else 0.0)
-    a.points = chk("points", state.points, (state.points.shape[0], 3))
+    a.points = chk("points", state.points, (state.points.shape[0], 3), halved=True)
     a.pidx = chk("point_idx", prior.point_idx, (m,), torch.int64)
     a.ref_xyz = chk("ref_xyz", prior.ref_xyz, (m, 3))
     a.mask = chk("mask", prior.mask, (m,), torch.bool)
-    j_pt, res = _outputs(chk, res, ((m, 3, 3), (m, 3)))
+    j_pt, res = _outputs(chk, out, ((m, 3, 3), (m, 3)))
     a.j_pt, a.res = j_pt.data_ptr(), res.data_ptr()
     return chk, a, (j_pt, res)
 
@@ -371,40 +389,49 @@ class RowLaunch:
     and bound once (``*_row_launch``): the LM loop on the card evaluates its
     current and its trial point into the same tensors every iteration, so a
     call is the launch alone. ``out``: the outputs, as the family's entry
-    point returns them."""
+    point returns them. With ``halves`` (the LM loop's ``lm_step.Halves``,
+    whose half-0 arrays hold the state's tensors and the outputs) a call
+    evaluates the half that the loop's selector picks (``flip``)."""
 
-    def __init__(self, chk: _Checker, args: _Args, out):
+    def __init__(self, chk: _Checker, args: _Args, out, halves=None):
         self.chk, self.args, self.out = chk, args, out
+        if halves is not None:
+            for name, t in chk.halved:
+                halves.check(f"row_blocks kernel ({chk.family}): {name}", t)
+            args.sel, args.half = halves.of(chk.dev)
 
-    def __call__(self, halt: Optional[torch.Tensor] = None):
+    def __call__(self, halt: Optional[torch.Tensor] = None, flip: int = 0):
         """Launches (``halt``: the LM loop's stop flag, an int32 0-d tensor on
-        the family's device; where set the launch returns at once) and
-        returns ``out``."""
+        the family's device; where set the launch returns at once; ``flip``
+        1: the half other than the current one, the trial point) and returns
+        ``out`` (half 0)."""
         if halt is not None:
             self.chk("the stop flag", halt, (), torch.int32)
         self.args.halt = None if halt is None else halt.data_ptr()
+        self.args.flip = int(flip)
         _launch(self.chk, self.args)
         return self.out
 
 
 def pixel_row_launch(state: prob.RigState, obs: prob.PixelObs, model: str,
-                     opts: prob.BAOptions, res=None) -> RowLaunch:
+                     opts: prob.BAOptions, out=None, halves=None) -> RowLaunch:
     """A pixel family's ``RowLaunch`` at ``state`` (its tensors read at each
-    launch), writing its blocks into new tensors and its residual into
-    ``res`` (None: a new tensor); ``RowLaunch.out`` holds them."""
-    return RowLaunch(*_pixel_args(state, obs, model, opts, res))
+    launch), writing into ``out`` ((J_cam, J_pt, res), None entries and
+    None: new tensors); ``RowLaunch.out`` holds them. ``halves``: see
+    ``RowLaunch``."""
+    return RowLaunch(*_pixel_args(state, obs, model, opts, out), halves)
 
 
 def depth_row_launch(state: prob.RigState, obs: prob.DepthObs, opts: prob.BAOptions,
-                     mesh_variant: bool, res=None) -> RowLaunch:
+                     mesh_variant: bool, out=None, halves=None) -> RowLaunch:
     """As ``pixel_row_launch``; ``out``: (J_cam, J_pt | None, res)."""
-    return RowLaunch(*_depth_args(state, obs, opts, mesh_variant, res))
+    return RowLaunch(*_depth_args(state, obs, opts, mesh_variant, out), halves)
 
 
 def prior_row_launch(state: prob.RigState, prior: prob.XyzPriorObs, weight: float, th: float,
-                     res=None) -> RowLaunch:
+                     out=None, halves=None) -> RowLaunch:
     """As ``pixel_row_launch``; ``out``: (J_pt, res)."""
-    return RowLaunch(*_prior_args(state, prior, weight, th, res))
+    return RowLaunch(*_prior_args(state, prior, weight, th, out), halves)
 
 
 # ----------------------------------------------------------------------------

@@ -412,66 +412,111 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 return f.obs.point_idx.shape[0], 3
             return len(f.obs), 2 if f.kind == "pix" else 3
 
-        def row_launches(cam_vec, pts):
-            """On the card: (launch, J, r), ``launch(halt)`` evaluating every
-            family's row blocks at what ``cam_vec`` and ``pts`` then hold into
-            ``J`` and ``r``, allocated once (a ``RowLaunch`` a family, which
-            allocates its blocks and writes its span of the flat residual;
-            a shard on another device than the lead's reads copies that
-            ``launch`` refreshes, and its launches are not halted)."""
+        def block_shapes(f: _Family):
+            """(camera block, point block) shapes of a family's rows (None
+            where it has no such block), as the row-block kernel writes them."""
+            n, k = family_rows(f)
+            if f.kind == "prior":
+                return None, (n, 3, 3)
+            b = 25 + int(template.dist[f.obs.sensor].numel()) if f.kind == "pix" else \
+                23 + (12 if opts.affine_depth_to_image else 7)
+            return (n, k, b), (None if f.kind == "depth_mesh" else (n, k, 3))
+
+        def row_launches(halves: lm_step.Halves):
+            """On the card: (launch, cam, points, J, r) with the current and
+            the trial point, blocks and residuals in ``halves`` (cam, points,
+            J and r: their half-0 arrays, allocated once); ``launch(halt,
+            flip)`` evaluates every family's row blocks at the cameras and
+            points of the half the state's sel picks (``flip`` 1: the other
+            half, the trial point) into that half's J and r (a ``RowLaunch``
+            a family, which writes its span of the flat residual; a shard on
+            another device than the lead's reads both halves' copies of the
+            cameras and points that ``launch`` refreshes, and its launches
+            are not halted)."""
+            C = layout.total
+            halves.reserve(lead, (C,))
+            halves.reserve(lead, (num_points, 3))
+            sizes = []
+            for s, fams in enumerate(shards):
+                dev = indexed_device(devs[s])
+                if dev != lead:
+                    halves.reserve(dev, (C,))
+                    halves.reserve(dev, (num_points, 3))
+                sizes.append([family_rows(f) for f in fams])
+                halves.reserve(dev, (sum(n * k for n, k in sizes[-1]),))
+                for f in fams:
+                    for shape in block_shapes(f):
+                        if shape is not None:
+                            halves.reserve(dev, shape)
+            arrays = iter(halves.allocate())
+            cam_vec, pts = next(arrays), next(arrays)
             copies, launches, J, r = [], [], [], []
             for s, fams in enumerate(shards):
                 dev = indexed_device(devs[s])
                 c, p = cam_vec, pts
                 if dev != lead:
-                    c, p = torch.empty_like(cam_vec, device=dev), torch.empty_like(pts, device=dev)
-                    copies += [(c, cam_vec), (p, pts)]
+                    c, p = next(arrays), next(arrays)
+                    copies += [(halves.pair(c), halves.pair(cam_vec)),
+                               (halves.pair(p), halves.pair(pts))]
                 state = unpack(c, p)
-                kw = dict(dtype=dtype, device=dev)
-                sizes = [family_rows(f) for f in fams]
-                flat = torch.empty(sum(n * k for n, k in sizes), **kw)
+                flat = next(arrays)
                 jc, jp, ls, off = [], [], [], 0
-                for f, (n, k) in zip(fams, sizes):
+                for f, (n, k) in zip(fams, sizes[s]):
                     res = flat[off:off + n * k].view(n, k)
                     off += n * k
+                    a, b = (None if shape is None else next(arrays) for shape in block_shapes(f))
                     if f.kind == "pix":
-                        ls.append(pixel_row_launch(state, f.obs, models[f.obs.sensor], opts, res))
+                        ls.append(pixel_row_launch(state, f.obs, models[f.obs.sensor], opts,
+                                                   (a, b, res), halves))
                     elif f.kind != "prior":
                         ls.append(depth_row_launch(state, f.obs, opts, f.kind == "depth_mesh",
-                                                   res))
+                                                   (a, b, res), halves))
                     else:
-                        ls.append(prior_row_launch(state, f.obs, f.weight, f.th, res))
-                    out = ls[-1].out         # (J_cam, J_pt, res); a prior's (J_pt, res)
-                    jc.append(None if f.kind == "prior" else out[0])
-                    jp.append(out[-2])
+                        ls.append(prior_row_launch(state, f.obs, f.weight, f.th, (b, res),
+                                                   halves))
+                    jc.append(a)
+                    jp.append(b)
                 launches.append((dev == lead, ls))
                 J.append((jc, jp))
                 r.append(flat)
 
-            def launch(halt):
+            def launch(halt, flip):
                 for dst, src in copies:
                     dst.copy_(src)
                 for here, ls in launches:
                     for fn in ls:
-                        fn(halt if here else None)
-            return launch, J, r
+                        fn(halt if here else None, flip)
+            return launch, cam_vec, pts, J, r
 
         on_card = indexed_device(device).type == "cuda"
         lead = indexed_device(device)
         st = lm_step.LMState(dtype, device, layout.total, num_points)
+        halves = J_t = r_t = None
         if on_card:
-            # the current point and its blocks, and the trial's, in tensors of
-            # the solve's own: the accept kernel copies the trial's over the
-            # current ones, and each launch reads them where they lie
-            cam = torch.empty(layout.total, dtype=dtype, device=device).copy_(cam0)
-            points = torch.empty((num_points, 3), dtype=dtype, device=device).copy_(points0)
-            rows_now, J, r = row_launches(cam, points)
-            rows_trial, J_t, r_t = row_launches(st.trial.cam, st.trial.points)
-            rows_now(None)
+            # the current point, its blocks and residual and the trial's in the
+            # two halves of one allocation a device: the state's sel, which
+            # every kernel of the loop reads, picks the current half, and an
+            # accepted step flips it; the kernels' tables hold half 0
+            halves = lm_step.Halves(st)
+            rows_at, cam, points, J, r = row_launches(halves)
+            cam.copy_(cam0)
+            points.copy_(points0)
+            rows_at(None, 0)
         else:
             cam, points = cam0, points0
             J, r = blocks_at(cam, points)
         lm_step.init(st, mesh, r, lam0)
+
+        def current(sel: int):
+            """(cam, points, J) as plain PyTorch reads them: on the card the
+            views of half ``sel`` (which the host learns at its read of the
+            state), on the CPU the accept's own."""
+            if not on_card:
+                return cam, points, J
+            return (halves.pair(cam)[sel], halves.pair(points)[sel],
+                    [tuple([None if a is None else halves.pair(a)[sel] for a in side]
+                           for side in sj) for sj in J])
+
         # the assembly kernel's table and buffers, the one-launch CG's
         # buffers, kept over the solve
         asm_plan = assembly.AssemblyPlan()
@@ -482,9 +527,12 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
         one_launch = linear_solver == "cg_blocks" and mesh.size == 1
         # the host reads the LM state every LM_CHECK_EVERY iterations where an
         # iteration has no sync of its own and every launch tests the stop
-        # flag (one shard of cg_blocks), else every iteration
+        # flag (one shard of cg_blocks), else every iteration; on the card the
+        # other linear solvers read the blocks in plain PyTorch, in the half
+        # that read found current (every iteration, debug_unroll_lm too)
         check_every = LM_CHECK_EVERY if one_launch else 1
-        iterations = cg_total = 0
+        host_sel = on_card and linear_solver != "cg_blocks"
+        iterations = cg_total = sel = 0
         n_iter = debug_unroll_lm or max_iterations
 
         for it in range(n_iter):
@@ -492,15 +540,17 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
             # kernels return at once where the state's halt flag is set; the
             # CPU reads it here (for free)
             if not lm_step.halted(st):
+                # what plain PyTorch reads of the current point and blocks
+                cam_pl, pts_pl, J_pl = current(sel) if host_sel else (cam, points, J)
                 # the products with J and J^T of this iteration: the row
                 # blocks, or in "cg" mode the residual function linearized here
                 if linear_solver == "cg":
-                    r_lin, vjp_fn = torch.func.vjp(residual_fn, cam, points)
-                    lin_at = (cam, points)
+                    r_lin, vjp_fn = torch.func.vjp(residual_fn, cam_pl, pts_pl)
+                    lin_at = (cam_pl, pts_pl)
 
                     def Jx(xc, xp):
-                        t = (torch.zeros_like(cam) if xc is None else xc,
-                             torch.zeros_like(points) if xp is None else xp)
+                        t = (torch.zeros_like(cam_pl) if xc is None else xc,
+                             torch.zeros_like(pts_pl) if xp is None else xp)
                         return [torch.func.jvp(residual_fn, lin_at, t)[1]]
 
                     def JTc(u):
@@ -512,14 +562,14 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     gc_raw, g_p = vjp_fn(r_lin)
                     g_c = gc_raw * cam_free
                 else:
-                    Jx, JTc, JTp = (functools.partial(fn, J) for fn in (Jmv, JTmv_c, JTmv_p))
+                    Jx, JTc, JTp = (functools.partial(fn, J_pl) for fn in (Jmv, JTmv_c, JTmv_p))
 
                 # the gradient (but in "cg"), Hpp, the Jacobi diagonal,
                 # Hpp^-1, dc and the preconditioner: csrc/lm_assembly.cu on
                 # the card, plain on the CPU
                 asm = assembly.assemble(mesh, shards, J, None if linear_solver == "cg" else r,
                                         cam_free, st.lam, num_ref, num_points, block_precond,
-                                        st.singular, asm_plan, st.halt)
+                                        st.singular, asm_plan, st.halt, halves)
                 if linear_solver != "cg":
                     g_c, g_p = asm.g_c, asm.g_p
                 cam_diag, pt_diag, hpp_inv, dc = asm.cam_diag, asm.pt_diag, asm.hpp_inv, asm.dc
@@ -530,7 +580,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 M = cg.Preconditioner(asm.precond, asm.pose_inv)
                 solved = None
                 if linear_solver == "dense_schur":
-                    dc_step = dense_schur_solve(J, hpp_inv, cam_free, dc, -(
+                    dc_step = dense_schur_solve(J_pl, hpp_inv, cam_free, dc, -(
                         g_c - JTc(Jx(None, solve3(g_p))) * cam_free))
                     cg_k = no_cg
                 else:
@@ -542,7 +592,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                         if not (system and system.J is J and system.dc is dc
                                 and system.hpp_inv is hpp_inv):
                             system = smv.SchurSystem(mesh, shards, J, cam_free, dc, hpp_inv,
-                                                     num_ref)
+                                                     num_ref, halves)
 
                         def schur_mv(x):
                             nonlocal matvecs
@@ -564,9 +614,9 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                         # the camera side on dense blocks in "cg_dense_j", by
                         # the linearization in "cg"; the point side is the row blocks'
                         if linear_solver == "cg_dense_j":
-                            dense = densify(J)
-                            cg_Jx = functools.partial(Jmv, J, dense=dense)
-                            cg_JTc = functools.partial(JTmv_c, J, dense=dense)
+                            dense = densify(J_pl)
+                            cg_Jx = functools.partial(Jmv, J_pl, dense=dense)
+                            cg_JTc = functools.partial(JTmv_c, J_pl, dense=dense)
                         else:
                             cg_Jx, cg_JTc = Jx, JTc
 
@@ -598,9 +648,9 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 # reduction, the accept and lam: csrc/lm_step.cu on the card,
                 # plain on the CPU
                 t = lm_step.trial(st, cam, points, dc_step, cam_free, lower, upper, hpp_inv,
-                                  g_p, jtp_u)
+                                  g_p, jtp_u, halves)
                 if on_card:
-                    rows_trial(st.halt)
+                    rows_at(st.halt, 1)
                 else:
                     J_t, r_t = blocks_at(t.cam, t.points)
                 # Jd's camera half: u where the step is unbounded (step_c is
@@ -616,7 +666,7 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                         # the products with every camera column (cam_free = 1),
                         # into tensors of the solve's own on the card
                         bound_system = smv.SchurSystem(mesh, shards, J, torch.ones_like(cam_free),
-                                                       dc, hpp_inv, num_ref)
+                                                       dc, hpp_inv, num_ref, halves)
                         bound_out = None if not on_card else [
                             (torch.empty((num_points, 3), dtype=dtype, device=d),
                              torch.zeros_like(rs)) for d, rs in zip(devs, r)]
@@ -626,15 +676,22 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                 cam, points, J, r = lm_step.accept(st, mesh, shards, num_ref, J, r, J_t, r_t, t,
                                                    cam, points, g_c, g_p, cam_diag, pt_diag,
                                                    None if jd is not None else u, jd, cg_k,
-                                                   not debug_unroll_lm)
-            if it + 1 == n_iter or (not debug_unroll_lm and (it + 1) % check_every == 0):
-                # the host's read of the state: stop, the counts, the singular flag
-                stop, iterations, cg_total = lm_step.read(st)
+                                                   not debug_unroll_lm, halves)
+            if it + 1 == n_iter or host_sel or (not debug_unroll_lm and
+                                                (it + 1) % check_every == 0):
+                # the host's read of the state: stop, the counts, the
+                # singular flag and the current half
+                stop, iterations, cg_total, sel = lm_step.read(st)
                 if stop:
                     break
 
         if one_launch and on_card:
             matvecs += cg_total          # the one-launch CG solves: a matvec a step
+        # the result from the half the last read found current (on the card
+        # copies: the halves' allocation is the solve's)
+        cam, points, _ = current(sel)
+        if on_card:
+            cam, points = cam.clone(), points.clone()
         return SchurLMResult(cam, points, st.cost.clone(),
                              st.values[lm_step.C0].to(dtype, copy=True),
                              iterations, st.lam.clone(),

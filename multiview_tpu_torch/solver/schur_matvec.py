@@ -38,6 +38,7 @@ import torch
 
 from multiview_tpu_torch.parallel.sharding import ShardMesh
 from multiview_tpu_torch.utils import cuda_build
+from multiview_tpu_torch.utils.cuda_build import ptr as _ptr
 from multiview_tpu_torch.utils.device import indexed_device as _device
 
 SOURCE = "schur_mv.cu"
@@ -146,7 +147,7 @@ class SchurSystem:
     (camera blocks [N,k,B] or None, point blocks [N,k,3] or None) in family
     order, on the shard's device. ``cam_free`` and ``dc`` [C] and ``hpp_inv``
     [P,3,3] lie on the lead device. The kernels' tables are made at the first
-    product on the card."""
+    product on the card. The plain products read J as given."""
 
     mesh: ShardMesh
     shards: Sequence[Sequence[object]]
@@ -155,6 +156,9 @@ class SchurSystem:
     dc: torch.Tensor
     hpp_inv: torch.Tensor
     num_ref: int
+    # the LM loop's ``lm_step.Halves`` (None: J as given): J holds its half-0
+    # arrays, and the kernels read the half its selector picks
+    halves: Optional[object] = dataclasses.field(default=None, repr=False)
     _plans: Optional[list] = dataclasses.field(default=None, repr=False)
 
     @property
@@ -223,12 +227,13 @@ def _lib():
     lib = cuda_build.load_library(SOURCE)
     if lib.mv_schur.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mv_schur.argtypes = [i32, p, i32, i32, p, p, p, p, i64, i64, i64, p, p, p, p, p, p, p]
+        lib.mv_schur.argtypes = ([i32, p, i32, i32, p, p, p, p, i64, i64, i64] + [p] * 6
+                                 + [i64, p, p])
         lib.mv_schur.restype = ctypes.c_int
         # cg_solve_kernel's entry (solver/cg_solve.py)
         f64 = ctypes.c_double
         lib.mv_cg_solve.argtypes = ([i32, p, i32] + [p] * 7 + [i64] * 4 + [i32, i32, f64]
-                                    + [p] * 12)
+                                    + [p] * 11 + [i64, p, p])
         lib.mv_cg_solve.restype = ctypes.c_int
     return lib
 
@@ -262,6 +267,9 @@ def _shard_plan(system: SchurSystem, s: int) -> _ShardPlan:
             if b is not None:
                 _check(f"family {i}'s point block", b, (n, k, 3), dtype, dev)
                 _check(f"family {i}'s point_idx", f.point_idx, (n,), i64, dev)
+            if system.halves is not None:
+                for x in (a, b):
+                    system.halves.check(f"schur_mv kernel: family {i}'s block", x)
             fields += [a.data_ptr(), 0 if b is None else b.data_ptr(), f.beg_idx.data_ptr(),
                        f.end_idx.data_ptr(), f.const_cols.data_ptr(),
                        0 if b is None else f.point_idx.data_ptr(), n, u_len, k, B]
@@ -287,8 +295,10 @@ def _plans(system: SchurSystem, x: Optional[torch.Tensor]) -> List[_ShardPlan]:
     return system._plans
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def halves_of(system: SchurSystem, dev):
+    """(the address of the LM loop's selector on ``dev``, the halves'
+    stride in bytes), or (None, 0) for a system without halves."""
+    return (None, 0) if system.halves is None else system.halves.of(dev)
 
 
 def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out, u,
@@ -300,12 +310,13 @@ def _launch(system: SchurSystem, plan: _ShardPlan, passes: int, x, dc, g_p, out,
     info = (ctypes.c_longlong * 8)() if RECORD_LAUNCH else None
     w = torch.empty((system.num_points, 3), dtype=dt, device=plan.device) if passes & _CAMERA \
         else None
+    sel, half = halves_of(system, plan.device)
     with torch.cuda.device(plan.device):
         err = _lib().mv_schur(
             dt.itemsize, plan.table, plan.families, passes, _ptr(x), plan.cam_free.data_ptr(),
             _ptr(dc), plan.hpp_inv.data_ptr(), system.num_points, system.total,
-            system.num_ref, _ptr(g_p), _ptr(w), _ptr(out), _ptr(u), _ptr(halt), info,
-            torch.cuda.current_stream(plan.device).cuda_stream)
+            system.num_ref, _ptr(g_p), _ptr(w), _ptr(out), _ptr(u), _ptr(halt), sel, half, info,
+            cuda_build.stream(plan.device))
     if err != 0:
         raise RuntimeError(f"schur_mv kernel (passes {passes}) failed with cudaError {err}")
     LAUNCHES += 1

@@ -130,3 +130,14 @@ def check_tensor(kernel: str, name: str, t, shape, dtype, dev) -> None:
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def ptr(t) -> "int | None":
+    """A tensor's device address for a kernel's argument (None for None)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(dev) -> int:
+    """The current CUDA stream of ``dev``, as a kernel's launch takes it."""
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream

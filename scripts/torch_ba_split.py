@@ -35,7 +35,8 @@ before), the back-substitution, since ``solver/cg_solve.py`` the CG solve
 of one shard (``cg_solve.solve``: the right-hand side, the CG and the
 back-substitution's product in one launch on the card), since
 ``solver/lm_step.py`` the trial point (``lm_step.trial``), the row blocks
-at it (``rows_trial`` on the card) and the accept (``lm_step.accept``: the
+at it (``rows_trial`` on the card; ``rows_at`` since the current and trial
+halves) and the accept (``lm_step.accept``: the
 model reduction, the accept, lam and the counts), the host's read of the
 stop test (``lm_step.read``; ``assembly.stop_test`` before), and the LM
 bookkeeping (every other line). A part's statement that spans several
@@ -69,7 +70,7 @@ from pathlib import Path
 # (the statement that begins a part of the LM loop, the part); a part ends
 # where the next begins; "until" parts end after the named statement
 PARTS = [("blocks_at(", "row blocks"), ("rows_now(", "row blocks"),
-         ("rows_trial(", "row blocks"),
+         ("rows_trial(", "row blocks"), ("rows_at(", "row blocks"),
          ("lm_step.trial(", "trial point (lm_step.trial)"),
          ("lm_step.accept(", "accept (lm_step.accept)"),
          ("stop_test(", "stop test (host read)"), ("lm_step.read(", "stop test (host read)"),

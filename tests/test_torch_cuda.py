@@ -1315,45 +1315,79 @@ def _lm_state(lm, dtype, device, C, P, cost, lam=3e-3, nu=4.0):
     return st
 
 
+def _lm_halves(lm, st, x, J, J_t):
+    """The inputs' current point, blocks and residual in the half ``st.sel``
+    picks and the trial's blocks and residual in the other (the trial half's
+    cameras and points start as the current ones): (halves, cam, points, r,
+    J) as half-0 arrays."""
+    (jc, jp), (jc_t, jp_t) = J[0], J_t[0]
+    now = [x["cam"], x["points"], x["r"], *jc, *jp]
+    trial = [x["cam"], x["points"], x["r_t"], *jc_t, *jp_t]
+    h, a = lm.halves_for(st, now, trial)
+    n = len(jc)
+    return h, a[0], a[1], a[2], [(a[3:3 + n], a[3 + n:])]
+
+
+def _halves_bytes(h, arrays):
+    """Both halves of every array, cloned."""
+    return [h.pair(a).clone() for a in arrays if a is not None]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("bounded", [False, True], ids=["unbounded", "bounded"])
-def test_lm_step_kernel_matches_plain_version(cuda_device, dtype, bounded):
-    """The trial within 1e-6 (float32) / 1e-12 (float64) of max |plain in
-    float64| (step_c of max |cam_t|); the accept at an accepted and a rejected step: good, done,
-    the counters and the stop flag equal, the scalars within 1e-12 relative
-    (both sum in float64, in other orders), the kept state and blocks bit
-    for bit the trial's or the current ones, two launches bit for bit
-    alike; then a halted state: nothing launched does anything."""
+@pytest.mark.parametrize("sel", [0, 1])
+def test_lm_step_kernel_matches_plain_version(cuda_device, dtype, bounded, sel):
+    """The current state in half ``sel`` of the halves, the trial's in the
+    other. The trial within 1e-6 (float32) / 1e-12 (float64) of max |plain
+    in float64| (step_c of max |cam_t|), written into half 1 - sel; the
+    accept at an accepted and a rejected step: good, done, the counters and
+    the stop flag equal to the plain accept's, the scalars within 1e-12
+    relative (both sum in float64, in other orders), ``sel`` flipped on the
+    accepted step only (the plain accept's flips from 0 alike), both halves
+    of every array bit for bit as they were (an accepted step copies
+    nothing; a rejected one leaves the current half), two launches and two
+    replays of one CUDA graph bit for bit alike (the ticket counter is reset
+    by each launch); then a halted state: nothing launched does anything."""
     from multiview_tpu_torch.solver import lm_step as lm
     x, mesh, shards, J, J_t = _lm_inputs(cuda_device, dtype, bounded=bounded)
     C, P = x["cam"].shape[0], x["points"].shape[0]
-    targs = tuple(x[k] for k in ("cam", "points", "x", "cam_free", "lower", "upper", "hpp_inv",
-                                 "g_p", "jtp_u"))
+    rest = tuple(x[k] for k in ("x", "cam_free", "lower", "upper", "hpp_inv", "g_p", "jtp_u"))
     st = _lm_state(lm, dtype, cuda_device, C, P, 1.0)
+    st.sel.fill_(sel)
+    h, cam, pts, r, Jh = _lm_halves(lm, st, x, J, J_t)
     before = lm.LAUNCHES
-    t = lm.trial_cuda(st, *targs)
+    t = lm.trial_cuda(st, cam, pts, *rest, halves=h)
     assert lm.LAUNCHES == before + 1
-    ref = lm.trial_plain(st, *(a.double() if a is not None else None for a in targs))
+    ref = lm.trial_plain(st, *(a.double() if a is not None else None
+                               for a in (x["cam"], x["points"]) + rest))
     # each output within tol of its scale: step_c = cam_t - cam carries cam_t's
     # rounding, so its scale is the cameras'
     tol = 1e-6 if dtype == torch.float32 else 1e-12
-    for a, b, scale in zip(t, ref, (ref.cam, ref.points, ref.dp, ref.cam)):
+    got = (t.cam[1 - sel], t.points[1 - sel], t.dp, t.step_c)
+    for a, b, scale in zip(got, ref, (ref.cam, ref.points, ref.dp, ref.cam)):
         assert float((a.double() - b).abs().max()) <= tol * float(scale.abs().max())
-    t = lm.Trial(*(a.clone() for a in t))
+    assert torch.equal(t.cam[sel], x["cam"]) and torch.equal(t.points[sel], x["points"])
+    t_plain = lm.Trial(*(a.clone() for a in got))
     new_cost = 0.5 * float((x["r_t"].double() ** 2).sum())
+    args = (x["g_c"], x["g_p"], x["cam_diag"], x["pt_diag"], [x["u"]], None,
+            torch.tensor(7, device=cuda_device), True)
     for cost, accepted in ((2.0 * new_cost, True), (0.5 * new_cost, False)):
         outs = []
-        for fn in (lm.accept_cuda, lm.accept_cuda, lm.accept_plain):
+        for _ in range(2):
             s = _lm_state(lm, dtype, cuda_device, C, P, cost)
-            Jc = [tuple([None if a is None else a.clone() for a in side] for side in J[0])]
-            cur = (x["r"].clone(), x["cam"].clone(), x["points"].clone())
-            res = fn(s, mesh, shards, 0, Jc, [cur[0]], J_t, [x["r_t"]], t, cur[1], cur[2],
-                     x["g_c"], x["g_p"], x["cam_diag"], x["pt_diag"], [x["u"]], None,
-                     torch.tensor(7, device=cuda_device), True)
+            s.sel.fill_(sel)
+            hk, camk, ptsk, rk, Jk = _lm_halves(lm, s, x, J, J_t)
+            arrays = [camk, ptsk, rk, *Jk[0][0], *Jk[0][1]]
+            kept = _halves_bytes(hk, arrays)
+            lm.accept_cuda(s, mesh, shards, Jk, [rk], t_plain, *args, halves=hk)
             torch.cuda.synchronize()
-            outs.append((s, res))
-        (k1, r1), (k2, r2), (p, rp) = outs
+            assert all(torch.equal(a, b) for a, b in zip(kept, _halves_bytes(hk, arrays)))
+            outs.append(s)
+        p = _lm_state(lm, dtype, cuda_device, C, P, cost)
+        lm.accept_plain(p, mesh, shards, 0, J, [x["r"]], J_t, [x["r_t"]], t_plain, x["cam"],
+                        x["points"], *args)
+        k1, k2 = outs
         v1, v2, vp = k1.values.cpu(), k2.values.cpu(), p.values.cpu()
         assert torch.equal(v1, v2) and torch.equal(k1.typed, k2.typed)
         assert bool(v1[lm.GOOD]) == bool(vp[lm.GOOD]) == accepted
@@ -1361,32 +1395,52 @@ def test_lm_step_kernel_matches_plain_version(cuda_device, dtype, bounded):
             assert float(v1[slot]) == float(vp[slot])
         assert int(v1[lm.ITER]) == 6 and int(v1[lm.CG_TOTAL]) == 47
         assert bool(k1.halt) == bool(p.halt)
+        assert int(k1.sel) == sel ^ accepted and int(p.sel) == int(accepted)
         for slot in (lm.NEW_COST, lm.PRED, lm.RHO, lm.LAM, lm.NU, lm.REL, lm.COST):
             a, b = float(v1[slot]), float(vp[slot])
             assert abs(a - b) <= 1e-12 * abs(b), (slot, a, b)
-        cam, pts, Jn, rn = r1
-        want = (t.cam, t.points, J_t[0], x["r_t"]) if accepted else \
-            (x["cam"], x["points"], J[0], x["r"])
-        assert torch.equal(cam, want[0]) and torch.equal(pts, want[1])
-        assert torch.equal(rn[0], want[3])
-        for side, wside in zip(Jn[0], want[2]):
-            for a, b in zip(side, wside):
-                assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+        # two replays of one captured accept (the state reset first in each)
+        g = _lm_state(lm, dtype, cuda_device, C, P, cost)
+        g.sel.fill_(sel)
+        hg, camg, ptsg, rg, Jg = _lm_halves(lm, g, x, J, J_t)
+        v0 = g.values.clone()
+
+        def step():
+            g.values.copy_(v0)
+            lm.accept_cuda(g, mesh, shards, Jg, [rg], t_plain, *args, halves=hg)
+        step()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(g.values.clone())
+        assert torch.equal(replays[0], replays[1]) and torch.equal(replays[0].cpu(), v1)
     # halted: the trial and the accept launch and do nothing
     st = _lm_state(lm, dtype, cuda_device, C, P, 2.0 * new_cost)
+    st.sel.fill_(sel)
+    h, cam, pts, r, Jh = _lm_halves(lm, st, x, J, J_t)
     st.halt.fill_(1)
-    st.trial.cam.fill_(7.0)
-    values = st.values.clone()
+    arrays = [cam, pts, r, *Jh[0][0], *Jh[0][1]]
+    kept, values = _halves_bytes(h, arrays), st.values.clone()
     before = lm.LAUNCHES
-    lm.trial_cuda(st, *targs)
-    lm.accept_cuda(st, mesh, shards, 0, J, [x["r"]], J_t, [x["r_t"]], t, x["cam"], x["points"],
-                   x["g_c"], x["g_p"], x["cam_diag"], x["pt_diag"], [x["u"]], None, None, True)
+    lm.trial_cuda(st, cam, pts, *rest, halves=h)
+    lm.accept_cuda(st, mesh, shards, Jh, [r], t_plain, *args, halves=h)
     torch.cuda.synchronize()
     assert lm.LAUNCHES == before + 2
-    assert torch.equal(st.values, values) and bool((st.trial.cam == 7.0).all())
+    assert torch.equal(st.values, values)
+    assert all(torch.equal(a, b) for a, b in zip(kept, _halves_bytes(h, arrays)))
     other = torch.float64 if dtype == torch.float32 else torch.float32
     with pytest.raises(TypeError):
-        lm.trial_cuda(st, *(None if a is None else a.to(other) for a in targs))
+        lm.trial_cuda(st, cam, pts, *(None if a is None else a.to(other) for a in rest),
+                      halves=h)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,11 @@
   order; the residuals are dyadic, so the costs are exact in both).
 - ``halt``: the plain versions do nothing once it is set, and leave it
   unset where the caller does not ask for it.
+- ``sel``, the half the kernels on the card read as current: the plain
+  accept keeps it with the kernel's meaning (0 at the start, flipped on each
+  accepted step), and ``read`` returns it; on the rig where both packages
+  reject the first step it stays 0 there (and through the four rejected
+  steps after) and flips on each of the three accepted ones that follow.
 - The port's CPU solve against the JAX package's solver (CPU, x64) on the
   graft scene, stopping before ``max_iterations``: the same LM and CG
   counts, cost, lam, cameras and points (1e-10: the two packages' float64
@@ -177,6 +182,7 @@ def test_plain_trial_and_accept_match_the_reference_body(case, jd_given, bounded
     v = st.values
     assert bool(v[lm.GOOD]) == ref["good"] and bool(v[lm.DONE]) == ref["done"]
     assert bool(st.halt) == ref["done"]
+    assert int(st.sel) == int(ref["good"]) == lm.read(st)[3]
     assert int(v[lm.ITER]) == 6 and int(v[lm.CG_TOTAL]) == 47
     for slot, key in ((lm.NEW_COST, "new_cost"), (lm.PRED, "pred"), (lm.RHO, "rho"),
                       (lm.LAM, "lam"), (lm.NU, "nu"), (lm.REL, "rel"), (lm.COST, "cost")):
@@ -209,7 +215,7 @@ def test_the_plain_versions_honour_halt():
     assert bool(st.values[lm.DONE]) and not bool(st.halt) and not lm.halted(st)
     lm.accept(st, mesh, [fams], 0, J, [tx["r"]], J_t, [tx["r_t"]], t, tx["cam"], tx["points"],
               tx["g_c"], tx["g_p"], tx["cam_diag"], tx["pt_diag"], [tx["u"]], None, None, True)
-    assert bool(st.halt) and lm.halted(st) and lm.read(st) == (True, 2, 0)
+    assert bool(st.halt) and lm.halted(st) and lm.read(st) == (True, 2, 0, 0)
     before = st.values.clone()
     assert lm.trial(st, *args) is None
     out = lm.accept(st, mesh, [fams], 0, J, [tx["r"]], J_t, [tx["r_t"]], t, tx["cam"],
@@ -232,6 +238,39 @@ def test_the_kernel_paths_refuse_a_cpu_state(monkeypatch):
                       tx["hpp_inv"], tx["g_p"], tx["jtp_u"])
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lm.init_cuda(st, ShardMesh((torch.device("cpu"),)), [tx["r"]], 1e-4)
+
+
+def test_the_plain_sel_stays_at_a_rejected_first_step_and_flips_on_each_accepted_one(
+        monkeypatch):
+    """On the rig whose first LM step both packages reject
+    (``tests/test_torch_row_blocks.py``), the plain accept leaves ``sel`` at 0
+    after it and flips it on each accepted step after; the loop's reads
+    return the state's ``sel``."""
+    from row_block_scenes import every_family_scene
+    state0, obs, models, opts, mask = every_family_scene()
+    seen, reads = [], []
+    accept, read = lm.accept, lm.read
+
+    def spy_accept(st, *args, **kw):
+        out = accept(st, *args, **kw)
+        seen.append((bool(st.values[lm.GOOD]), int(st.sel)))
+        return out
+
+    def spy_read(st):
+        got = read(st)
+        reads.append((got[3], seen[-1][1]))
+        return got
+
+    monkeypatch.setattr(lm, "accept", spy_accept)
+    monkeypatch.setattr(lm, "read", spy_read)
+    TS.make_schur_solver(state0, obs, models, opts, mask, max_iterations=8, cg_iterations=20)(
+        TPr.pack_state(state0, include_points=False), state0.points)
+    assert [good for good, _ in seen] == [False] * 5 + [True] * 3
+    parity = 0
+    for good, sel in seen:
+        parity ^= good
+        assert sel == parity
+    assert reads and all(a == b for a, b in reads)
 
 
 KW = dict(max_iterations=40, cg_iterations=60, cg_tolerance=1e-2)
