@@ -108,7 +108,12 @@ printing a result):
    step of the kernel, the per-step path (csrc/schur_mv.cu's matvecs and
    csrc/cg_step.cu's steps), the plain solve eager and from a CUDA graph,
    the kernel from a graph, the bound, the bytes of rows a step reads from
-   device memory, registers and spills; the per-step path (the sharded
+   device memory, registers and spills; whether two launches give the
+   same bits (forced and early-stopped; the sums' atomics may change the
+   last bits), the float64 check repeated 20 times on phase 4's system
+   (each launch's pass counted), a step's time against the bound of what a
+   step must read (the rows that the grid's shared memory cannot hold,
+   once, and the vectors), the launch's grid barriers a step; the per-step path (the sharded
    paths') against the same plain solve, at the same bars, its early-stopped
    count equal to the plain loop's; then the CG step kernel of the
    per-step path: ms a step of the kernel, the plain
@@ -116,9 +121,11 @@ printing a result):
    beside them (the step's practical floor);
 3g. the LM step kernel (``solver/lm_step.py``, csrc/lm_step.cu: an LM
    iteration's trial point, model reduction, accept and lam update) on the
-   first trial and accept of phases 3 and 4, the current and trial state in
-   the halves of the LM loop (``lm_step.Halves``) as the path left them: the
-   trial against the plain one in float64, the accept at an accepted and a
+   first trial and accept of phases 3 and 4 (the trial's inputs those of the
+   CG solve that wrote it in its tail, one shard of cg_blocks), the current
+   and trial state in the halves of the LM loop (``lm_step.Halves``) as the
+   path left them: the trial kernel against the plain trial in float64 and
+   bit for bit against the CG solve's trial point, the accept at an accepted and a
    forced rejected step against the plain accept (decisions, ``sel``,
    counters and the stop flag equal, the scalars within LM_RTOL, both halves
    bit for bit as they were: nothing copied, the current half kept; two
@@ -127,7 +134,8 @@ printing a result):
    accept against the rejected one from graphs, registers; phase 3's
    solve with the LM state read every iteration and every second one (the
    counts equal, the cost within the spread of two runs); per LM iteration
-   the kernel launches, the host reads and the eager ATen operations (none);
+   the kernel launches (4: row blocks, assembly, CG solve, accept; no trial
+   launch), the host reads and the eager ATen operations (none);
 4. the main path with the depth camera, ``--sharded`` (on one card it shards
    nothing and prints no sharding line): the same workspace plus haz_cam (11
    pinhole frames with a ``.pc`` cloud each) whose depth_to_image in
@@ -391,6 +399,8 @@ ROW_SOURCE = "multiview_tpu_torch/csrc/row_blocks.cu"
 CG_DRIFT = 2.0
 ASM_SOURCE = "multiview_tpu_torch/csrc/lm_assembly.cu"
 CG_SOURCE = "multiview_tpu_torch/csrc/cg_step.cu"
+# launches of phase 3f's float64 check on phase 4's system
+F64_REPEATS = 20
 CG_FORCED = 30
 # phase 3g: the LM step kernel against its plain version on the same inputs:
 # the accept's scalars (float64 sums in both, in other orders) within LM_RTOL
@@ -427,6 +437,9 @@ def card_line() -> str:
 # per path, each counted from 0 (schur_counted)
 SCHUR_PATHS = {}
 SOLVE_PATHS = {}
+# of the LM step kernel's launches, the trial's (0 on one shard of cg_blocks,
+# whose CG solve writes the trial point)
+TRIAL_PATHS = {}
 ROW_PATHS = {}
 ASM_PATHS = {}
 CG_PATHS = {}
@@ -462,8 +475,12 @@ def schur_counted(tag, path: str = "solve"):
     from multiview_tpu_torch.solver import (assembly as asm, cg, cg_solve, lm_step as lm,
                                             row_blocks as rb, schur_matvec as smv)
     smv.LAUNCHES = rb.LAUNCHES = asm.LAUNCHES = cg.LAUNCHES = cg_solve.LAUNCHES = 0
-    lm.LAUNCHES = 0
+    lm.LAUNCHES = lm.TRIAL_LAUNCHES = 0
     yield
+    TRIAL_PATHS[tag] = lm.TRIAL_LAUNCHES
+    if path == "solve" and lm.TRIAL_LAUNCHES:
+        raise AssertionError(f"{tag}: {lm.TRIAL_LAUNCHES} trial launches on one shard of "
+                             f"cg_blocks (the CG solve writes the trial point)")
     wanted = PATH_KERNELS[path] | {"row_blocks", "lm_assembly", "lm_step"}
     for name, paths, mod in (("schur_mv", SCHUR_PATHS, smv), ("cg_solve", SOLVE_PATHS, cg_solve),
                              ("row_blocks", ROW_PATHS, rb), ("lm_assembly", ASM_PATHS, asm),
@@ -557,10 +574,31 @@ def first_lm_step(key):
     ``lm_step.accept`` the path's BA calls (tensors cloned: ``kept``), with
     the LM state's values as the call found them and both halves of the
     LM loop's arrays that each reads (``lm_halves``: the cameras and points;
-    the accept's also every block and residual)."""
-    from multiview_tpu_torch.solver import lm_step as lm
-    originals = (lm.trial, lm.accept)
+    the accept's also every block and residual). Where the CG solve writes
+    the trial point (one shard of cg_blocks), the first such call's trial
+    inputs in ``lm_step.trial``'s order (its x and J_p^T u among them) and
+    what it wrote (``"folded"``: dp, step_c and the trial's cameras and
+    points)."""
+    from multiview_tpu_torch.solver import cg_solve, lm_step as lm
+    originals = (lm.trial, lm.accept, cg_solve.solve)
     calls = LM_CALLS.setdefault(key, {})
+
+    def solve_spy(*args):
+        tin = args[11] if len(args) > 11 else None
+        if tin is None or "trial" in calls:
+            return originals[2](*args)
+        st, h = tin.st, tin.halves
+        values, typed = st.values.clone(), st.typed.clone()
+        pairs = [h.pair(tin.cam).clone(), h.pair(tin.points).clone()]
+        out = originals[2](*args)
+        system, g_p = args[0], args[2]
+        calls["trial"] = (values, typed,
+                          kept((tin.cam, tin.points, out.x, system.cam_free, tin.lower, tin.upper,
+                                system.hpp_inv, g_p, out.jtp_u, h)), pairs)
+        sel = int(st.sel)
+        calls["folded"] = [x.clone() for x in (out.trial.cam[1 - sel], out.trial.points[1 - sel],
+                                               out.trial.dp, out.trial.step_c)]
+        return out
 
     def spy(i, name):
         def fn(st, *args):
@@ -573,11 +611,11 @@ def first_lm_step(key):
             return originals[i](st, *args)
         return fn
 
-    lm.trial, lm.accept = spy(0, "trial"), spy(1, "accept")
+    lm.trial, lm.accept, cg_solve.solve = spy(0, "trial"), spy(1, "accept"), solve_spy
     try:
         yield
     finally:
-        lm.trial, lm.accept = originals
+        lm.trial, lm.accept, cg_solve.solve = originals
 
 
 def lm_arrays(J, r, cam, points):
@@ -1924,6 +1962,33 @@ def cg_solve_bound(system, nposes: int, steps: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def grid_smem_bytes(torch) -> int:
+    """The shared memory that one block an SM can hold across the card: the
+    SMs times a block's opt-in shared memory (227 KiB on an H100 where the
+    properties do not give it)."""
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count * getattr(props, "shared_memory_per_block_optin",
+                                                 227 * 1024)
+
+
+def cg_step_read_bound(system, nposes: int, smem: int):
+    """(bound ms, "bytes" | "operations", bytes) of one CG step of the
+    one-launch solve, from the system and the card: the rows a matvec reads
+    (the blocks and their int64 indices, ``schur_work``'s) less the ``smem``
+    bytes the grid's shared memory could keep between steps, read once, and
+    the step's vectors (p, Ap, r, x, dc, cam_free, the preconditioner, the
+    7x7 inverses and Hpp^-1) over the memory rate; a matvec's operations and
+    a step's vector work over the FP32 rate."""
+    item = system.cam_free.element_size()
+    C, P = system.total, system.num_points
+    mv_bytes, mv_flop = schur_work(system)
+    rows = mv_bytes - item * (4 * C + 9 * P)
+    nbytes = max(0, rows - smem) + item * (8 * C + 49 * nposes + 9 * P)
+    flop = mv_flop + 12 * C + 13 * 7 * nposes + (C - 7 * nposes)
+    t_bytes, t_ops = nbytes / MEM_PEAK * 1e3, flop / FP32_CORES_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
 def phase3f(torch, card):
     """The one-launch CG solve (``solver/cg_solve.py``, cg_solve_kernel of
     csrc/schur_mv.cu) and the CG step kernel of the per-step path
@@ -1955,7 +2020,15 @@ def phase3f(torch, card):
     floor, one empty launch on the card. The solve is also run as the LM loop
     launches it, its blocks in the halves (``halved``: half 1 read through
     the selector): x held to the plain solve alike, timed eager and from a
-    graph. Returns the records by system."""
+    graph. Whether two forced solves and two early-stopped ones give x, u,
+    J_p^T u and the count bit for bit (printed: the sums' float atomics may
+    change the last bits); phase 4's system's float64 check repeated
+    F64_REPEATS times (the passes printed and recorded); the launch's grid
+    barriers a step and a step's time (a CG_FORCED-step solve less a 0-step
+    one, over CG_FORCED) against the bound of what a step must read
+    (``cg_step_read_bound``) beside the solve's (``cg_solve_bound``). The
+    trial point the solve writes in its tail is held to csrc/lm_step.cu's
+    trial kernel in phase 3g. Returns the records by system."""
     import dataclasses
     from multiview_tpu_torch.solver import cg, cg_solve, schur_matvec as smv
 
@@ -1964,6 +2037,7 @@ def phase3f(torch, card):
     empty_graph = graphed(torch, lambda: cg.empty_launch(dev))
     empty_graph_ms = min(per_call_ms(torch, empty_graph, reps=200) for _ in range(3))
     regs = {k: v for k, v in ptxas_report("schur_mv.cu").items() if "cg_solve_kernel" in k}
+    smem = grid_smem_bytes(torch)
     out = {}
     for label in ("cube", "rig"):
         system, g_c, g_p, M, iterations, tolerance, check_every = SOLVE_CALLS[label][:7]
@@ -1998,12 +2072,30 @@ def phase3f(torch, card):
         if launches != (1, 0, 0) or int(sol.count) != CG_FORCED:
             raise AssertionError(f"phase 3f {label}: {CG_FORCED} forced steps took (solve, "
                                  f"matvec, step) launches {launches}, {int(sol.count)} steps")
+        # whether two launches, forced and stopped by the test, give the same bits
+        same_bits = {}
+        for force in (CG_FORCED, None):
+            one, two = ([t.clone() for t in (o.x, o.u[0], o.jtp_u, o.count)]
+                        for o in (fused(system, M, g_c, g_p, force),
+                                  fused(system, M, g_c, g_p, force)))
+            same_bits["forced" if force else "stopped"] = all(
+                torch.equal(x, y) for x, y in zip(one, two))
         sol64 = fused(sys64, M64, g_c64, g_p64)
         ref = plain(sys64, M64, g_c64, g_p64)
         ref32 = plain(system, M, g_c, g_p)
         rel, rel64, plain_own = rel_err(sol.x, ref.x), rel_err(sol64.x, ref.x), \
             rel_err(ref32.x, ref.x)
         rel_jtpu = rel_err(sol64.jtp_u, ref.jtp_u)
+        passes64 = None
+        if label == "rig":
+            passes64 = 0
+            for _ in range(F64_REPEATS):
+                again = fused(sys64, M64, g_c64, g_p64)
+                passes64 += int(rel_err(again.x, ref.x) <= SCHUR_RTOL
+                                and rel_err(again.jtp_u, ref.jtp_u) <= SCHUR_RTOL)
+            print(f"[phase3f] {label}: the float64 check (x and J_p^T u within {SCHUR_RTOL} of "
+                  f"the plain float64 solve after {CG_FORCED} forced steps) passed {passes64} of "
+                  f"{F64_REPEATS} more launches [{card}]", flush=True)
         err = float((sol.x.double() - ref.x).abs().max())
         rel1 = rel_err(fused(system, M, g_c, g_p, 1).x, plain(sys64, M64, g_c64, g_p64, 1).x)
         Jh, _, hh = halved(torch, system.J)
@@ -2021,6 +2113,7 @@ def phase3f(torch, card):
                           plain(sys64, M64, g_c64, g_p64, 1).x)
         ps_k = int(per_step(system, M, g_c, g_p, None)[2])
         runs = [("kernel", lambda: fused(system, M, g_c, g_p)),
+                ("kernel0", lambda: fused(system, M, g_c, g_p, 0)),
                 ("per_step", lambda: per_step(system, M, g_c, g_p)),
                 ("plain", lambda: plain(system, M, g_c, g_p)),
                 ("plain_graph", graphed(torch, lambda: plain(system, M, g_c, g_p))),
@@ -2037,7 +2130,9 @@ def phase3f(torch, card):
             ms = per_call_ms(torch, fn, reps=10)
             times[key] = min(times.get(key, ms), ms)
         bound_ms, bound_by = cg_solve_bound(system, nposes, CG_FORCED)
+        step_bound, step_bound_by, step_bytes = cg_step_read_bound(system, nposes, smem)
         per = {k: v / CG_FORCED for k, v in times.items()}
+        a_step = (times["kernel"] - times["kernel0"]) / CG_FORCED
         kg = times.get("kernel_graph")
         print(f"[phase3f] {label} solve: {system.total} camera parameters, "
               f"{'SCHUR_JACOBI' if nposes else 'jacobi'}, {g_c.dtype}: {CG_FORCED} forced "
@@ -2045,8 +2140,11 @@ def phase3f(torch, card):
               f"{launch['tile_rows']} rows a tile, {launch['slots']} slots, "
               f"{launch['resident_rows']} rows in shared memory at a pass's start, "
               f"x * cam_free in shared memory {bool(launch['x_in_shared'])}, "
-              f"{launch['row_bytes_a_step'] / 1e6:.3f} MB of rows read from device memory a "
-              f"step; x max |diff| / max |plain in float64|: kernel {rel:.3g} (in float64 "
+              f"row_bytes_a_step {launch['row_bytes_a_step']} "
+              f"({launch['row_bytes_a_step'] / 1e6:.3f} MB of rows read from device memory a "
+              f"step), barriers_a_step {launch['barriers_a_step']}; two launches bit for bit "
+              f"alike: {json.dumps(same_bits)}; x max |diff| / max |plain "
+              f"in float64|: kernel {rel:.3g} (in float64 "
               f"{rel64:.3g}, J_p^T u {rel_jtpu:.3g}; one step {rel1:.3g}); the plain solve in "
               f"float32 {plain_own:.3g}; early-stopped CG (tolerance {tolerance:g}, tested "
               f"every step): {k_fused} steps in float32, {k_fused64} in float64, {k_plain} "
@@ -2059,9 +2157,13 @@ def phase3f(torch, card):
               f"selector (half 1 of the halves read; x {rel_sel:.3g} off the plain float64 "
               f"solve) {times['kernel_sel']:.4f}, from a graph "
               f"{times['kernel_sel_graph'] if 'kernel_sel_graph' in times else 'not measured'}"
-              f"; bound {bound_ms:.4f} ms "
-              f"by {bound_by}, share {bound_ms / times['kernel']:.4f}; ptxas (registers, spill "
-              f"stores, spill loads, stack bytes): {json.dumps(regs)} [{card}]", flush=True)
+              f"; bound of the solve (every input once) {bound_ms:.4f} ms by {bound_by}, share "
+              f"{bound_ms / times['kernel']:.4f}; a step (a {CG_FORCED}-step solve less a "
+              f"0-step one) {a_step:.5f} ms, its bound (the rows that {smem} bytes of the "
+              f"grid's shared memory cannot keep, once, and the vectors: "
+              f"{step_bytes / 1e6:.3f} MB) {step_bound:.5f} ms by {step_bound_by}, share "
+              f"{step_bound / a_step:.4f}; ptxas (registers, spill stores, spill loads, stack "
+              f"bytes): {json.dumps(regs)} [{card}]", flush=True)
         bar = max(SCHUR_RTOL, CG_DRIFT * plain_own)
         if not (rel1 <= SCHUR_RTOL and rel <= bar and rel_sel <= bar and rel64 <= SCHUR_RTOL
                 and rel_jtpu <= SCHUR_RTOL):
@@ -2090,6 +2192,10 @@ def phase3f(torch, card):
         record = {"ms": times["kernel"], "plain_ms": times["plain"],
                   "per_step_path_ms": times["per_step"], "plain_graph_ms": times["plain_graph"],
                   "kernel_graph_ms": kg, "ms_a_step": per, "bound_ms": bound_ms,
+                  "a_step_ms": a_step, "step_bound_ms": step_bound,
+                  "step_bound_by": step_bound_by, "step_bound_bytes": step_bytes,
+                  "float64_passes": passes64, "same_bits": same_bits,
+                  "barriers_a_step": launch["barriers_a_step"],
                   "sel_ms": times["kernel_sel"], "sel_graph_ms": times.get("kernel_sel_graph"),
                   "rel_sel": rel_sel,
                   "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
@@ -2273,6 +2379,16 @@ def phase3g(torch, card, p3):
             raise AssertionError(f"phase 3g {label}: the trial kernel disagrees with its plain "
                                  f"version: {trial_rel} (bar {SCHUR_RTOL}), in float64 "
                                  f"{trial_rel64} (bar {ROW_RTOL_F64})")
+        # the trial point the path's CG solve wrote in its tail: bit for bit the
+        # trial kernel's on the same inputs (the solve's x and J_p^T u)
+        folded = LM_CALLS[label].get("folded")
+        folded_equal = folded is not None and all(torch.equal(a, b) for a, b in zip(folded, kt))
+        print(f"[phase3g] {label}: the trial point of the path's CG solve (its tail) against "
+              f"the trial kernel on the same inputs: cameras, points, dp and step_c bit for bit "
+              f"{folded_equal} [{card}]", flush=True)
+        if not folded_equal:
+            raise AssertionError(f"phase 3g {label}: the CG solve's trial point differs from "
+                                 f"the trial kernel's")
 
         # the accept: the plain one on the halves' current and trial copies
         now = lm_unflat([None if p is None else p[sel0] for p in apairs], J)
@@ -2487,6 +2603,7 @@ def phase3g(torch, card, p3):
     per = {}
     for k in (4, 8):
         before = {n: m.LAUNCHES for n, m in mods.items()}
+        before["trial"] = lm.TRIAL_LAUNCHES
         del reads[:]
         lm.read = counted_read
         try:
@@ -2495,9 +2612,10 @@ def phase3g(torch, card, p3):
                 torch.cuda.synchronize()
         finally:
             lm.read = read0
-        per[k] = ({n: m.LAUNCHES - before[n] for n, m in mods.items()}, ops["n"],
-                  dict(ops["names"]))
-    launches = {n: (per[8][0][n] - per[4][0][n]) / 4 for n in mods}
+        counted = {n: m.LAUNCHES - before[n] for n, m in mods.items()}
+        counted["trial"] = lm.TRIAL_LAUNCHES - before["trial"]
+        per[k] = (counted, ops["n"], dict(ops["names"]))
+    launches = {n: (per[8][0][n] - per[4][0][n]) / 4 for n in per[8][0]}
     ops_it = (per[8][1] - per[4][1]) / 4
     names = {n: (per[8][2].get(n, 0) - per[4][2].get(n, 0)) / 4
              for n in set(per[8][2]) | set(per[4][2])}
@@ -2509,6 +2627,12 @@ def phase3g(torch, card, p3):
           f"{json.dumps(names)} [{card}]", flush=True)
     if ops_it != 0 or names:
         raise AssertionError(f"phase 3g: an LM iteration ran eager ATen operations: {names}")
+    total = sum(v for n, v in launches.items() if n != "trial")
+    print(f"[phase3g] per LM iteration: {total:g} kernel launches, {launches['trial']:g} of them "
+          f"the trial kernel's (the CG solve writes the trial point) [{card}]", flush=True)
+    if total != 4 or launches["trial"] != 0:
+        raise AssertionError(f"phase 3g: {total} launches and {launches['trial']} trial "
+                             f"launches an LM iteration (expected 4 and 0)")
     out["per_iteration"] = {"launches": launches, "reads": reads_it, "aten_ops": ops_it}
     return out
 
@@ -3707,6 +3831,8 @@ def main() -> int:
          "steps": CG_FORCED, "per_step_path_ms": p3f["cube"]["solve"]["per_step_path_ms"],
          "plain_graph_ms": p3f["cube"]["solve"]["plain_graph_ms"],
          "kernel_graph_ms": p3f["cube"]["solve"]["kernel_graph_ms"],
+         "a_step_ms": p3f["cube"]["solve"]["a_step_ms"],
+         "step_bound_ms": p3f["cube"]["solve"]["step_bound_ms"],
          "by_system": {k: v["solve"] for k, v in p3f.items()}},
         # no single PyTorch call computes a CG step: library_ms is null; the
         # sharded paths launch it
@@ -3733,6 +3859,7 @@ def main() -> int:
          "plain_graph_ms": p3g["cube"]["plain_graph_ms"],
          "kernel_graph_ms": p3g["cube"]["kernel_graph_ms"],
          "per_iteration": p3g["per_iteration"],
+         "trial_launches_by_path": TRIAL_PATHS,
          "by_system": {k: v for k, v in p3g.items() if k != "per_iteration"}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

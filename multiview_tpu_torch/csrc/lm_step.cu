@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "cg_step.cuh"
+#include "lm_trial.cuh"
 
 namespace {
 
@@ -431,15 +432,8 @@ struct TrialParams {
   const int* halt;
 };
 
-template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) {   // torch.maximum: NaN from either side
-  return a != a ? a : (b != b ? b : (a > b ? a : b));
-}
-template <typename T>
-__device__ __forceinline__ T tmin(T a, T b) {
-  return a != a ? a : (b != b ? b : (a < b ? a : b));
-}
-
+// The trial point (lm_trial.cuh: the same arithmetic as the tail of
+// schur_mv.cu's cg_solve_kernel, which computes it on one shard of cg_blocks)
 template <typename T>
 __global__ void __launch_bounds__(kThreads) trial_kernel(const __grid_constant__ TrialParams<T> p) {
   if (p.halt && *p.halt) return;
@@ -447,27 +441,26 @@ __global__ void __launch_bounds__(kThreads) trial_kernel(const __grid_constant__
   const long long now = h * p.half, next = (1 - h) * p.half;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < p.C) {
-    const T c = at<T>(p.cam, now)[i];
-    // x * cam_free is exact (cam_free is 0 or 1): one rounding, as the plain sum
-    T v = c + p.x[i] * p.cam_free[i];
-    if (p.lower) v = tmax(v, p.lower[i]);
-    if (p.upper) v = tmin(v, p.upper[i]);
+    T step;
+    const T v = lm_trial::camera(at<T>(p.cam, now)[i], p.x[i], p.cam_free[i], p.lower, p.upper,
+                                 i, step);
     at_w<T>(p.cam, next)[i] = v;
-    p.step_c[i] = v - c;
+    p.step_c[i] = step;
   }
   if (i < p.P) {
-    T g[3];
+    T g[3], ju[3], dp[3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) g[j] = -p.g_p[i * 3 + j] - p.jtp_u[i * 3 + j];
-    const T* h3 = p.hpp_inv + i * 9;
+    for (int j = 0; j < 3; ++j) {
+      g[j] = p.g_p[i * 3 + j];
+      ju[j] = p.jtp_u[i * 3 + j];
+    }
+    lm_trial::point(p.hpp_inv + i * 9, g, ju, dp);
     const T* pt = at<T>(p.points, now) + i * 3;
     T* pt_t = at_w<T>(p.points, next) + i * 3;
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      const T step = static_cast<T>(d(h3[3 * r]) * d(g[0]) + d(h3[3 * r + 1]) * d(g[1]) +
-                                    d(h3[3 * r + 2]) * d(g[2]));
-      p.dp[i * 3 + r] = step;
-      pt_t[r] = pt[r] + step;
+      p.dp[i * 3 + r] = dp[r];
+      pt_t[r] = lm_trial::add(pt[r], dp[r]);
     }
   }
 }

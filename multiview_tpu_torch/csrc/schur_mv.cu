@@ -27,7 +27,8 @@
 // sum is added scaled by its column's cam_free. Which launch runs what:
 //   one shard:    a whole CG solve of cg_blocks is one launch of
 //                 cg_solve_kernel (below): the right-hand side, every step's
-//                 matvec and update, the back-substitution's product. Called
+//                 matvec and update, the back-substitution's product and,
+//                 where asked, the LM iteration's trial point. Called
 //                 alone, S x is one launch of both passes of schur_kernel; the
 //                 right-hand side one launch of the camera pass with u = 0 (x
 //                 null, dc null); the back-substitution's product one launch
@@ -100,6 +101,7 @@
 #include <algorithm>
 
 #include "cg_step.cuh"
+#include "lm_trial.cuh"
 #include "row_tiles.cuh"
 
 namespace cg = cooperative_groups;
@@ -763,7 +765,14 @@ __global__ void __launch_bounds__(kThreads, 1) schur_kernel(const __grid_constan
 //      g_p, its camera pass into ap[k % 2] (g_p cleared for the next point
 //      pass meanwhile), then the step of cg_step.cuh;
 //   4. the back-substitution's point pass on the final x: u = J_c (cam_free *
-//      x) and J_p^T u into g_p.
+//      x) and J_p^T u into g_p;
+//   5. where asked, the LM iteration's trial point (lm_trial.cuh, the
+//      arithmetic of lm_step.cu's trial_kernel, so the bits are its): each
+//      thread's camera entries cam + x * cam_free, clamped, and step_c, then,
+//      after a grid barrier (every block's J_p^T u summed), its points' dp =
+//      Hpp^-1 (-g_p - J_p^T u) and points + dp, read in half *sel of the LM
+//      loop's halves and written in half 1 - *sel. The LM iteration launches
+//      no trial kernel of its own.
 // A step crosses three grid barriers (a fourth where x * cam_free does not
 // fit in shared memory). The step's vector work runs in every block alike:
 // the dots take cg_step.cuh's fixed order in each, so every block reads the
@@ -794,7 +803,23 @@ struct SolveParams {
   long long* count;         // the step count in int64
   double tol2;
   int iterations, force;
+  // the trial point (cam null: none): cam [total] and points [P, 3] half 0 of
+  // the LM loop's halves (read in half *m.sel, written in half 1 - *m.sel),
+  // lower and upper [total] (null: unbounded), dp [P, 3] and step_c [total]
+  const T* cam;
+  const T* points;
+  const T* lower;
+  const T* upper;
+  T* dp;
+  T* step_c;
 };
+
+// a of the LM loop's half h (`half` bytes a half)
+template <typename T>
+__device__ __forceinline__ T* half_of(const T* a, int h, long long half) {
+  return reinterpret_cast<T*>(
+      const_cast<unsigned char*>(reinterpret_cast<const unsigned char*>(a) + h * half));
+}
 
 // cg_step.cuh's vectors in the fused solve (see above); cur: the buffer of
 // the step's r, p and Ap, -1 at the start (r = rhs, computed where read)
@@ -915,6 +940,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       xcf[i] = __ldcg(q.x + i) * __ldg(p.cf + i);
   __syncthreads();
   b.point_pass(b.resident(), p.u_out);
+
+  // 5. the trial point
+  if (!q.cam) return;
+  const int h = __ldg(p.sel);
+  const T* cam = half_of(q.cam, h, p.half);
+  T* cam_t = half_of(q.cam, 1 - h, p.half);
+  for (long long i = gt; i < n; i += gs)
+    cam_t[i] = lm_trial::camera(cam[i], __ldcg(q.x + i), __ldg(p.cf + i), q.lower, q.upper, i,
+                                q.step_c[i]);
+  grid.sync();                     // every block's J_p^T u
+  const T* pts = half_of(q.points, h, p.half);
+  T* pts_t = half_of(q.points, 1 - h, p.half);
+  for (long long i = gt; i < P; i += gs) {
+    T g[3], ju[3], dp[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      g[j] = __ldg(q.g_in + i * 3 + j);
+      ju[j] = __ldcg(p.g_p + i * 3 + j);
+    }
+    lm_trial::point(p.hpp_inv + i * 9, g, ju, dp);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      q.dp[i * 3 + j] = dp[j];
+      pts_t[i * 3 + j] = lm_trial::add(pts[i * 3 + j], dp[j]);
+    }
+  }
 }
 
 // Per-device launch state: SM count and co-resident blocks an SM of each
@@ -1059,6 +1110,7 @@ void report(const Params<T>& p, int grid, bool first, long long* info) {
   info[6] = p.full_x;
   info[7] = p.copies;
   info[8] = reread;
+  info[9] = p.full_x ? 3 : 4;      // grid barriers a CG step
 }
 
 template <typename T>
@@ -1087,7 +1139,7 @@ cudaError_t run(const long long* table, int families, int passes, const void* x,
   err = grid_of(schur_kernel<T>, sizeof(T) == 8, grid);
   if (err != cudaSuccess) return err;
   if (info) {
-    long long shape[9];
+    long long shape[10];
     report(p, grid, false, shape);
     // the rows the camera pass finds in shared memory (after its point pass)
     if (!((passes & kPointPass) && (passes & kCameraPass))) shape[4] = 0;
@@ -1103,7 +1155,8 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
                       long long num_points, long long total, long long num_ref, int iterations,
                       int force, double tol2, void* x, void* r, void* pv, void* ap, void* u,
                       void* g_p, void* w, double* state, long long* count, const int* halt,
-                      const int* sel, long long half, long long* info, cudaStream_t stream) {
+                      const int* sel, long long half, const long long* trial, long long* info,
+                      cudaStream_t stream) {
   if (total < 1 || half < 0 || nposes < 0 || 7 * nposes > total || (nposes > 0 && !pose_inv) ||
       iterations < 0 || force < -1 || !g_c || !g_in || !precond || !x || !r || !pv || !ap ||
       !u || !g_p || !w || !state || !count)
@@ -1136,6 +1189,16 @@ cudaError_t run_solve(const long long* table, int families, const void* cf, cons
   q.tol2 = tol2;
   q.iterations = iterations;
   q.force = force;
+  if (trial) {
+    // cam, points, lower, upper, dp, step_c
+    if (!trial[0] || !trial[1] || !trial[4] || !trial[5] || !sel) return cudaErrorInvalidValue;
+    q.cam = reinterpret_cast<const T*>(trial[0]);
+    q.points = reinterpret_cast<const T*>(trial[1]);
+    q.lower = reinterpret_cast<const T*>(trial[2]);
+    q.upper = reinterpret_cast<const T*>(trial[3]);
+    q.dp = reinterpret_cast<T*>(trial[4]);
+    q.step_c = reinterpret_cast<T*>(trial[5]);
+  }
   int grid = 0;
   err = grid_of(cg_solve_kernel<T>, 2 + (sizeof(T) == 8), grid);
   if (err != cudaSuccess) return err;
@@ -1195,11 +1258,16 @@ extern "C" int mv_schur(int elem, const long long* table, int families, int pass
 // stopped); `sel` and `half` as mv_schur takes them. Scratch: r, p, ap [2 total] each, u
 // [sum n k] (zeros where a family has no camera block), g_p and w
 // [num_points, 3]; u ends as J_c (cam_free * x) and g_p as J_p^T u (the
-// back-substitution's product). `info` (null: not asked) receives the grid, the threads a block,
-// the rows a tile, the ring's slots, the rows a point pass finds in shared
-// memory at its start, the pose window, whether x * cam_free is kept whole in
-// shared memory, the copies of the pose columns, and the bytes of rows a step
-// reads from device memory.
+// back-substitution's product). `trial` (null: none) holds 6 addresses: cam
+// [total] and points [num_points, 3] (half 0 of the LM loop's halves: read in
+// half *sel, the trial point written in half 1 - *sel), lower and upper
+// [total] (each null where unbounded), dp [num_points, 3] and step_c [total];
+// the launch then ends with the LM iteration's trial point. `info` (null: not
+// asked) receives the grid, the threads a block, the rows a tile, the ring's
+// slots, the rows a point pass finds in shared memory at its start, the pose
+// window, whether x * cam_free is kept whole in shared memory, the copies of
+// the pose columns, the bytes of rows a step reads from device memory and the
+// grid barriers a step crosses.
 extern "C" int mv_cg_solve(int elem, const long long* table, int families, const void* cam_free,
                            const void* dc, const void* hpp_inv, const void* g_c,
                            const void* g_p_in, const void* precond, const void* pose_inv,
@@ -1207,16 +1275,18 @@ extern "C" int mv_cg_solve(int elem, const long long* table, int families, const
                            long long num_ref, int iterations, int force, double tol2, void* x,
                            void* r, void* p, void* ap, void* u, void* g_p, void* w,
                            double* state, long long* count, const int* halt, const int* sel,
-                           long long half, long long* info, void* stream) {
+                           long long half, const long long* trial, long long* info,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 4)
     return run_solve<float>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                             pose_inv, nposes, num_points, total, num_ref, iterations, force, tol2,
-                            x, r, p, ap, u, g_p, w, state, count, halt, sel, half, info, s);
+                            x, r, p, ap, u, g_p, w, state, count, halt, sel, half, trial, info,
+                            s);
   if (elem == 8)
     return run_solve<double>(table, families, cam_free, dc, hpp_inv, g_c, g_p_in, precond,
                              pose_inv, nposes, num_points, total, num_ref, iterations, force,
-                             tol2, x, r, p, ap, u, g_p, w, state, count, halt, sel, half, info,
-                             s);
+                             tol2, x, r, p, ap, u, g_p, w, state, count, halt, sel, half, trial,
+                             info, s);
   return cudaErrorInvalidValue;
 }

@@ -36,7 +36,9 @@ the same meaning (0 at the start, flipped on each accepted step) while they
 select the current tensors themselves (``torch.where``).
 
 On CUDA tensors ``trial`` and ``accept`` launch the hand-written kernel
-``csrc/lm_step.cu``: the trial one launch; the accept one ordinary launch on
+``csrc/lm_step.cu``: the trial one launch (on one shard of ``cg_blocks`` the
+LM loop takes the trial point from the CG solve's tail instead,
+``solver/cg_solve.py``, with the same arithmetic, ``csrc/lm_trial.cuh``); the accept one ordinary launch on
 one shard (a row a thread, each block's partial sums, then the last block to
 take a ticket sums them in block order and updates the state); with several
 shards a rows launch a shard, ``ShardMesh.sum`` of their two sums and a
@@ -65,8 +67,10 @@ from multiview_tpu_torch.utils.cuda_build import ptr as _ptr, stream as _stream
 from multiview_tpu_torch.utils.device import indexed_device as _device
 
 SOURCE = "lm_step.cu"
-# kernel launches of csrc/lm_step.cu, one each
+# kernel launches of csrc/lm_step.cu, one each; TRIAL_LAUNCHES: of them, the
+# trial's (none on one shard of cg_blocks, whose CG solve writes the trial)
 LAUNCHES = 0
+TRIAL_LAUNCHES = 0
 # with RECORD_LAUNCH set, the grid and threads of the last accept launch
 RECORD_LAUNCH = False
 LAST_LAUNCH: dict = {}
@@ -386,7 +390,7 @@ def trial_cuda(st: LMState, cam, points, x, cam_free, lower, upper, hpp_inv, g_p
     half-0 arrays of ``halves`` (on the lead device), read in half sel, the
     trial point written into half 1 - sel; dp and step_c into the state's
     buffers. Returns them with the pairs of both halves."""
-    global LAUNCHES
+    global LAUNCHES, TRIAL_LAUNCHES
     _on_card(st, halves, True)
     dev, dt = st.values.device, st.typed.dtype
     C, P = st.step_c.shape[0], st.dp.shape[0]
@@ -408,6 +412,7 @@ def trial_cuda(st: LMState, cam, points, x, cam_free, lower, upper, hpp_inv, g_p
     if err != 0:
         raise RuntimeError(f"lm_step kernel (trial) failed with cudaError {err}")
     LAUNCHES += 1
+    TRIAL_LAUNCHES += 1
     return Trial(halves.pair(cam), halves.pair(points), st.dp, st.step_c)
 
 

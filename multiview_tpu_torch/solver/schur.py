@@ -39,8 +39,9 @@ differs. CG stops at the reference's test: on the device at every step in
 the one-launch solve, else read on the host every ``CG_CHECK_EVERY``
 iterations. After the CG, each LM iteration's trial point, model reduction,
 accept and lam update run in ``solver/lm_step.py`` (on the card the
-hand-written kernel ``csrc/lm_step.cu``, two launches an iteration), whose
-state stays on the device; the host reads it every ``LM_CHECK_EVERY``
+hand-written kernel ``csrc/lm_step.cu``: the accept, and the trial point
+where the one-launch CG solve does not write it in its tail), whose state
+stays on the device; the host reads it every ``LM_CHECK_EVERY``
 iterations where an iteration has no sync of its own, else every iteration.
 Every residual family of the problem is supported: pixel reprojection,
 depth against the triangulated point, depth against the mesh (camera side
@@ -600,13 +601,16 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                             return smv.schur_matvec(system, x)
 
                         if mesh.size == 1:
-                            # the right-hand side, the CG and the
-                            # back-substitution's product: one launch of
-                            # csrc/schur_mv.cu's cg_solve_kernel on the card,
-                            # the plain loop on the CPU
+                            # the right-hand side, the CG, the
+                            # back-substitution's product and the trial
+                            # point: one launch of csrc/schur_mv.cu's
+                            # cg_solve_kernel on the card, the plain loop
+                            # and lm_step.trial_plain on the CPU
                             solved = cg_solve.solve(system, g_c, g_p, M, cg_iterations,
                                                     cg_tolerance, CG_CHECK_EVERY, debug_force_cg,
-                                                    schur_mv, solve_buffers, st.halt)
+                                                    schur_mv, solve_buffers, st.halt,
+                                                    cg_solve.TrialInputs(st, cam, points, lower,
+                                                                         upper, halves))
                             dc_step, cg_k = solved.x, solved.count
                         else:
                             rhs = smv.schur_rhs(system, g_c, g_p)
@@ -644,11 +648,13 @@ def make_schur_solver(template: prob.RigState, observations: prob.Observations,
                     u = Jx(dc_step * cam_free, None)
                     jtp_u = JTp(u)
 
-                # the trial point, its row blocks, then the exact model
-                # reduction, the accept and lam: csrc/lm_step.cu on the card,
-                # plain on the CPU
-                t = lm_step.trial(st, cam, points, dc_step, cam_free, lower, upper, hpp_inv,
-                                  g_p, jtp_u, halves)
+                # the trial point (the one-launch solve's, else
+                # csrc/lm_step.cu's trial on the card), its row blocks, then
+                # the exact model reduction, the accept and lam:
+                # csrc/lm_step.cu on the card, plain on the CPU
+                t = solved.trial if solved is not None else lm_step.trial(
+                    st, cam, points, dc_step, cam_free, lower, upper, hpp_inv, g_p, jtp_u,
+                    halves)
                 if on_card:
                     rows_at(st.halt, 1)
                 else:

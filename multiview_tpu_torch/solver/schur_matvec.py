@@ -233,7 +233,7 @@ def _lib():
         # cg_solve_kernel's entry (solver/cg_solve.py)
         f64 = ctypes.c_double
         lib.mv_cg_solve.argtypes = ([i32, p, i32] + [p] * 7 + [i64] * 4 + [i32, i32, f64]
-                                    + [p] * 11 + [i64, p, p])
+                                    + [p] * 11 + [i64, p, p, p])
         lib.mv_cg_solve.restype = ctypes.c_int
     return lib
 

@@ -33,8 +33,10 @@ a part of its own), the CG's set-up (the Schur system and its right-hand
 side), the CG (``cg.pcg`` since ``solver/cg.py``, the closure ``pcg``
 before), the back-substitution, since ``solver/cg_solve.py`` the CG solve
 of one shard (``cg_solve.solve``: the right-hand side, the CG and the
-back-substitution's product in one launch on the card), since
-``solver/lm_step.py`` the trial point (``lm_step.trial``), the row blocks
+back-substitution's product in one launch on the card, and since the
+solve writes it in its tail the trial point too), since
+``solver/lm_step.py`` the trial point (``lm_step.trial``; on one shard of
+``cg_blocks`` it launches nothing since the CG solve writes it), the row blocks
 at it (``rows_trial`` on the card; ``rows_at`` since the current and trial
 halves) and the accept (``lm_step.accept``: the
 model reduction, the accept, lam and the counts), the host's read of the
@@ -83,12 +85,12 @@ PARTS = [("blocks_at(", "row blocks"), ("rows_now(", "row blocks"),
          ("smv.SchurSystem(", "CG set-up"), ("smv.schur_rhs(", "CG set-up"),
          ("= pcg(", "CG"), ("= cg.pcg(", "CG"), ("= dense_schur_solve(", "CG"),
          ("row_products(", "back-substitution"),
-         ("cg_solve.solve(", "CG solve (right-hand side, CG, back-substitution)")]
+         ("cg_solve.solve(", "CG solve (right-hand side, CG, back-substitution, trial point)")]
 ONE_LINE = {"row blocks", "assembly (solver/assembly.py)", "gradient (J^T r)",
             "inv3x3_spd", "trial point (lm_step.trial)", "accept (lm_step.accept)",
             "stop test (host read)",
             "SCHUR_JACOBI torch.linalg.inv", "CG set-up", "CG", "back-substitution",
-            "CG solve (right-hand side, CG, back-substitution)"}
+            "CG solve (right-hand side, CG, back-substitution, trial point)"}
 BOOKKEEPING = "LM bookkeeping"
 
 

@@ -211,8 +211,11 @@ def test_the_build_key_follows_the_local_headers(tmp_path):
     (tmp_path / "bad.cu").write_text('#include "missing.cuh"\n')
     with pytest.raises(FileNotFoundError):
         cuda_build.local_headers("bad.cu", tmp_path)
-    # the package's sources: the fused solve and the step share one header
-    assert cuda_build.local_headers("schur_mv.cu") == ("cg_step.cuh", "row_tiles.cuh")
+    # the package's sources: the fused solve and the step share one header,
+    # the fused solve's tail and the trial kernel another
+    assert cuda_build.local_headers("schur_mv.cu") == ("cg_step.cuh", "lm_trial.cuh",
+                                                       "row_tiles.cuh")
+    assert cuda_build.local_headers("lm_step.cu") == ("cg_step.cuh", "lm_trial.cuh")
     assert cuda_build.local_headers("cg_step.cu") == ("cg_step.cuh",)
     assert cuda_build.local_headers("lm_assembly.cu") == ("row_tiles.cuh",)
     assert cuda_build.local_headers("knn2_wgmma.cu") == ()
@@ -221,3 +224,32 @@ def test_the_build_key_follows_the_local_headers(tmp_path):
     src = (cuda_build.CSRC_DIR / "knn2.cu").read_bytes()
     assert cuda_build.build_key("knn2.cu") == hashlib.sha256(
         src + " ".join(cuda_build.NVCC_FLAGS).encode()).hexdigest()
+
+
+def test_the_solve_and_its_trial_point_match_the_reference(monkeypatch):
+    """One LM iteration (``debug_unroll_lm=1``) in both packages: the plain
+    solve and the plain trial point that ``cg_solve.solve`` returns on the
+    CPU (``solve_plain`` then ``lm_step.trial_plain``, the card's one launch
+    in plain code) against the JAX package's accepted trial point, cameras
+    and points within 1e-10 (float64 sums in other orders)."""
+    cam0, pts0, scene, state0, mask = _cube()
+    jres = jax.jit(JS.make_schur_solver(state0, scene.observations, scene.models,
+                                        JPr.BAOptions(no_rig=True), mask, debug_unroll_lm=1,
+                                        **KW))(cam0, pts0)
+    assert float(jres.cost) < float(jres.initial_cost)      # accepted: the result is the trial
+    solver, st, _ = _port_solver(scene, state0, mask, debug_unroll_lm=1)
+    seen, solve = [], cg_solve.solve
+    monkeypatch.setattr(cg_solve, "solve", lambda *a: seen.append(solve(*a)) or seen[-1])
+    res = solver(TPr.pack_state(st, include_points=False), st.points)
+    (sol,) = seen
+    assert res.iterations == 1 and sol.trial is not None
+    np.testing.assert_allclose(sol.trial.cam.numpy(), np.asarray(jres.cam), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(sol.trial.points.numpy(), np.asarray(jres.points), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(sol.trial.dp.numpy(), np.asarray(jres.points) - np.asarray(pts0),
+                               rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(sol.trial.step_c.numpy(), np.asarray(jres.cam) - np.asarray(cam0),
+                               rtol=1e-8, atol=1e-10)
+    assert torch.equal(res.cam, sol.trial.cam) and torch.equal(res.points, sol.trial.points)
+

@@ -1073,7 +1073,8 @@ def test_cg_solve_kernel_matches_the_plain_solve(cuda_device, block_precond, dty
 @pytest.mark.cuda
 def test_cg_solve_kernel_rereads_what_shared_memory_cannot_hold(cuda_device):
     """More rows than the grid's shared memory holds, 160 poses: the passes
-    reread the rows that did not stay, and report the bytes a step reads."""
+    reread the rows that did not stay, and report the bytes a step reads and
+    the grid barriers a step crosses."""
     from multiview_tpu_torch.solver import assembly as asm, cg, cg_solve, schur_matvec as smv
     system, _ = _schur_system(cuda_device, torch.float64, [(120000, 2, 29, True)], "frame",
                               num_ref=160, num_points=2400)
@@ -1089,6 +1090,7 @@ def test_cg_solve_kernel_rereads_what_shared_memory_cannot_hold(cuda_device):
     finally:
         cg_solve.RECORD_LAUNCH = False
     assert 0 < record["resident_rows"] < 120000 and record["row_bytes_a_step"] > 0
+    assert record["barriers_a_step"] == 3 + (not record["x_in_shared"])
     ref = cg_solve.solve_plain(sys_k, a.g_c, a.g_p, M, 60, 1e-8, 1, force=6)
     _schur_close(got.x, ref.x, torch.float64)
     _schur_close(got.jtp_u, ref.jtp_u, torch.float64)
@@ -1107,6 +1109,89 @@ def test_cg_solve_kernel_refuses_what_it_does_not_take(cuda_device):
                            shards=2)
     with pytest.raises(ValueError, match="shards"):
         cg_solve.solve_cuda(two, g_c, g_p, M, 10, 1e-8)
+
+
+def _trial_case(dev, dtype, sel):
+    """A system whose blocks, cameras and points lie in new halves with the
+    state's sel at ``sel``, its assembly, the trial's inputs with bounds on
+    a few cameras, and the state."""
+    import dataclasses
+    from multiview_tpu_torch.solver import assembly as asm, cg, lm_step as lm
+    # calibrate's families (a depth family without point block among them),
+    # none empty: the halves hold no empty array
+    system, _ = _schur_system(dev, dtype, [f for f in _SCHUR_CASES["rig_families"] if f[0]],
+                              "track")
+    a = asm.assemble(*_assembly_inputs(system), False)
+    C, P = system.total, system.num_points
+    g = torch.Generator(device=dev).manual_seed(3)
+    cam = torch.randn(C, generator=g, device=dev, dtype=dtype)
+    pts = torch.randn((P, 3), generator=g, device=dev, dtype=dtype)
+    lower = torch.full((C,), -float("inf"), device=dev, dtype=dtype)
+    upper = torch.full((C,), float("inf"), device=dev, dtype=dtype)
+    lower[::5], upper[1::7] = cam[::5] - 1e-3, cam[1::7] + 1e-3
+    st = lm.LMState(dtype, dev, C, P)
+    st.sel.fill_(sel)
+    (jc, jp), = system.J
+    h, arrays = lm.halves_for(st, [cam, pts, *jc, *jp])
+    cam_h, pts_h, blocks = arrays[0], arrays[1], arrays[2:]
+    J = [(blocks[:len(jc)], blocks[len(jc):])]
+    sys_h = dataclasses.replace(system, J=J, dc=a.dc, hpp_inv=a.hpp_inv, halves=h, _plans=None)
+    return sys_h, a, cg.Preconditioner(a.precond), st, cam_h, pts_h, lower, upper, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_solve_kernel_trial_equals_the_trial_kernel(cuda_device, dtype, sel):
+    """The trial point in the solve's tail against lm_step.cu's trial kernel
+    on the solve's own x and J_p^T u: dp, step_c and both halves of the
+    cameras and points bit for bit, the state in half 0 and in half 1; no
+    trial launch of its own; within the Schur bars of the plain trial."""
+    from multiview_tpu_torch.solver import cg_solve, lm_step as lm
+    sys_h, a, M, st, cam, pts, lower, upper, h = _trial_case(cuda_device, dtype, sel)
+    now = h.pair(cam)[sel].clone()
+    before = lm.TRIAL_LAUNCHES
+    got = cg_solve.solve_cuda(sys_h, a.g_c, a.g_p, M, 60, 1e-8, force=12,
+                              trial=cg_solve.TrialInputs(st, cam, pts, lower, upper, h))
+    torch.cuda.synchronize()
+    assert lm.TRIAL_LAUNCHES == before
+    fused = [x.clone() for x in (got.trial.dp, got.trial.step_c, h.pair(cam), h.pair(pts))]
+    assert torch.equal(fused[2][sel], now) and not torch.equal(fused[2][1 - sel], now)
+    ref = lm.trial_cuda(st, cam, pts, got.x, sys_h.cam_free, lower, upper, sys_h.hpp_inv, a.g_p,
+                        got.jtp_u, halves=h)
+    torch.cuda.synchronize()
+    for x, y in zip(fused, (ref.dp, ref.step_c, h.pair(cam), h.pair(pts))):
+        assert torch.equal(x, y)
+    plain = lm.trial_plain(st, now.double(), h.pair(pts)[sel].double(), got.x.double(),
+                           sys_h.cam_free.double(), lower.double(), upper.double(),
+                           sys_h.hpp_inv.double(), a.g_p.double(), got.jtp_u.double())
+    _schur_close(fused[0].double(), plain.dp, dtype)
+    _schur_close(fused[2][1 - sel].double(), plain.cam, dtype)
+
+
+@pytest.mark.cuda
+def test_cg_solve_kernel_changes_nothing_when_halted(cuda_device):
+    """``halt`` set: the launch returns at once; x, u, J_p^T u, the count,
+    dp, step_c and both halves keep what they held."""
+    from multiview_tpu_torch.solver import cg_solve
+    sys_h, a, M, st, cam, pts, lower, upper, h = _trial_case(cuda_device, torch.float32, 1)
+    buffers = cg_solve.SolveBuffers()
+    trial = cg_solve.TrialInputs(st, cam, pts, lower, upper, h)
+    cg_solve.solve_cuda(sys_h, a.g_c, a.g_p, M, 60, 1e-8, force=5, buffers=buffers,
+                        trial=trial)
+    torch.cuda.synchronize()
+
+    def held():
+        return [t.clone() for t in (*buffers.t.values(), st.dp, st.step_c, h.pair(cam),
+                                    h.pair(pts)) if t is not None]
+
+    keep = held()
+    st.halt.fill_(1)
+    cg_solve.solve_cuda(sys_h, a.g_c * 2, a.g_p * 2, M, 60, 1e-8, force=7, buffers=buffers,
+                        halt=st.halt, trial=trial)
+    torch.cuda.synchronize()
+    for x, y in zip(keep, held()):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -1450,7 +1535,8 @@ def test_the_lm_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch, mode)
     the same LM and CG counts, cost within 1e-10 relative, cameras within
     1e-8; the LM state read every iteration and every second one on the
     card gives the same counts; every iteration launched the LM step
-    kernel (a trial and an accept) and nothing after done."""
+    kernel (an accept, and a trial but in cg_blocks, whose CG solve writes
+    the trial point) and nothing after done."""
     from multiview_tpu_torch.calib import problem as prob
     from multiview_tpu_torch.solver import lm_step as lm, row_blocks as rb, schur
     from multiview_tpu_torch.utils import synthetic as syn
@@ -1473,16 +1559,19 @@ def test_the_lm_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch, mode)
     assert ref.iterations < 40
     for every in (1, 2):
         monkeypatch.setattr(schur, "LM_CHECK_EVERY", every)
-        before = (lm.LAUNCHES, rb.LAUNCHES)
+        before = (lm.LAUNCHES, rb.LAUNCHES, lm.TRIAL_LAUNCHES)
         got = solve(cuda_device)
         torch.cuda.synchronize()
         assert got.iterations == ref.iterations
         assert int(got.cg_iters_total) == int(ref.cg_iters_total)
         assert abs(float(got.cost) - float(ref.cost)) <= 1e-10 * float(ref.cost)
         assert float((got.cam.cpu() - ref.cam).abs().max()) <= 1e-8
-        # init, then a trial and an accept an iteration; the row blocks at
-        # the start and at each trial point (one family); past done (the
-        # iterations up to the next read) the launches return at once
+        # init, then a trial (but in cg_blocks) and an accept an iteration;
+        # the row blocks at the start and at each trial point (one family);
+        # past done (the iterations up to the next read) the launches return
+        # at once
         stepped = (lm.LAUNCHES - before[0], rb.LAUNCHES - before[1])
         extra = 0 if every == 1 or mode != "cg_blocks" else ref.iterations % 2
-        assert stepped == (1 + 2 * (ref.iterations + extra), 1 + ref.iterations + extra)
+        per = 1 if mode == "cg_blocks" else 2
+        assert stepped == (1 + per * (ref.iterations + extra), 1 + ref.iterations + extra)
+        assert lm.TRIAL_LAUNCHES - before[2] == (per - 1) * (ref.iterations + extra)
