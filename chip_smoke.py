@@ -18,16 +18,18 @@ printing a result):
    together (the local headers csrc/cg_step.cuh and csrc/row_tiles.cuh are
    compiled into the sources that include them), and the track builder's
    host library (native/mv_native.cpp) with g++;
-1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for
-   D <= 128, narrower widths zero-padded to 64 or 128; the FMA kernel, the
-   FP32 oracle, for wider D) against ``knn2_plain``,
-   against ``knn2_split_plain`` and against the FMA kernel, at the main path's
-   shape (8 pairs of 4096x4096x128), at 10000x10000x128, on a ragged
-   1000x1037 case with planted exact duplicates and near-ties, at D = 64 and
-   at D = 96 (ragged, and the shape of phase 2b); median times over distinct
-   inputs of the kernel, the FMA kernel, the plain version and the product
-   ``torch.matmul`` alone, beside the operation bound; the FMA kernel held
-   to the plain version at every shape;
+1. the matcher on the card (``knn2_cuda``: the tensor-core kernel for every
+   width, two kernels a call) against ``knn2_plain``, against
+   ``knn2_split_plain`` and against the FMA kernel (the FP32 oracle), at the
+   main path's shape (8 pairs of 4096x4096x128), at 10000x10000x128, on a
+   ragged 1000x1037 case with planted exact duplicates and near-ties, at
+   D = 64, at D = 96 (ragged, and the shape of phase 2b), at the CLI's
+   default chunk (8 pairs of 1000x1000x128), at D = 256 and on a ragged
+   D = 160 case with the planted rows; median times over distinct inputs of
+   the kernel, the FMA kernel, the plain version and the product
+   ``torch.matmul`` alone, beside the operation bound and the 3xTF32 floor;
+   the device kernels of one call (torch.profiler, at most two); the FMA
+   kernel held to the plain version at every shape;
 2. the main path without the depth camera: a two-sensor rig workspace
    (1280x960, focal 1120 px, 12 reference + 11 radtan frames with a 0.13 s
    clock offset; the frames are rendered once, in worker processes, for this
@@ -37,7 +39,7 @@ printing a result):
    0.05 m) and the output files;
 2b. the odd-width path: ``match_pairs_batched`` over five images of 1000
    planted features with 96-wide descriptors, through the tensor-core kernel
-   (zero-padded to 128); checks the launch count and the planted
+   (three 32-dimension slabs); checks the launch count and the planted
    correspondences;
 3. Schur-LM bundle adjustment at the bench's size (cube scene 160 images x
    20x20 points per face, about 384k observations, float32, 10 LM x 30 CG
@@ -734,24 +736,41 @@ def compare(torch, mm, label, other, got, ref):
     return err
 
 
+def kernels_a_call(torch, fn, q, t):
+    """The names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(q, t)
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+
+
+# phase 1's shapes: label, pairs, N, M, D; the rows planted with exact
+# duplicates and near-ties in PLANTED
+PHASE1_SHAPES = [("main_path_8x4096", 8, 4096, 4096, 128), ("10k", 1, 10000, 10000, 128),
+                 ("ragged_1000x1037", 1, 1000, 1037, 128),
+                 ("d64_4x2048x2000", 4, 2048, 2000, 64), ("odd_d96_ragged", 2, 1000, 1037, 96),
+                 ("odd_path_d96", 2 * ODD_PATH[0] - 3, ODD_PATH[1], ODD_PATH[1], ODD_PATH[2]),
+                 ("cli_default_8x1000", 8, 1000, 1000, 128),
+                 ("d256_2x2048x2000", 2, 2048, 2000, 256), ("odd_d160_ragged", 1, 1000, 1037, 160)]
+PLANTED = ("ragged_1000x1037", "odd_d160_ragged")
+MAX_KERNELS_A_CALL = 2
+
+
 def phase1(torch, mm, device, card):
     """The matcher on the card against its plain versions and the FMA kernel.
     Returns {label: record} with times, bound and largest error per shape."""
     gen = torch.Generator(device=device).manual_seed(1)
     reps = 5
-    n_img, k_odd, d_odd = ODD_PATH
-    shapes = [("main_path_8x4096", 8, 4096, 4096, 128), ("10k", 1, 10000, 10000, 128),
-              ("ragged_1000x1037", 1, 1000, 1037, 128), ("d64_4x2048x2000", 4, 2048, 2000, 64),
-              ("odd_d96_ragged", 2, 1000, 1037, 96),
-              ("odd_path_d96", 2 * n_img - 3, k_odd, k_odd, d_odd)]
     out = {}
     product = lambda q, t: torch.matmul(q, t.transpose(-1, -2))  # noqa: E731
-    for label, P, N, M, D in shapes:
+    for label, P, N, M, D in PHASE1_SHAPES:
         inputs = []
         for _ in range(reps):
             q = descriptors(gen, P, N, D, device)
             t = descriptors(gen, P, M, D, device)
-            if label.startswith("ragged"):
+            if label in PLANTED:
                 t[0, 10] = q[0, 3]                      # exact duplicates:
                 t[0, 900] = q[0, 3]                     # second == best
                 t[0, 500] = q[0, 7]
@@ -772,29 +791,38 @@ def phase1(torch, mm, device, card):
         got = mm.knn2_cuda(q, t)
         torch.cuda.synchronize()
         launched = (mm.WGMMA_LAUNCHES - before[0], mm.FMA_LAUNCHES - before[1])
-        if launched != ((1, 0) if name == "knn2_wgmma" else (0, 1)):
-            raise AssertionError(f"phase 1 {label}: D={D} must launch {name} once, counted "
-                                 f"(tensor-core, FMA) = {launched}")
+        if name != "knn2_wgmma" or launched != (1, 0):
+            raise AssertionError(f"phase 1 {label}: D={D} must launch the tensor-core kernel "
+                                 f"once and the FMA kernel never, counted (tensor-core, FMA) = "
+                                 f"{launched} ({name})")
+        kernels = kernels_a_call(torch, mm.knn2_cuda, q, t)
+        print(f"[phase1] {label}: {len(kernels)} device kernels a call: {kernels}", flush=True)
+        if not 1 <= len(kernels) <= MAX_KERNELS_A_CALL or not any("knn2_wgmma" in k
+                                                                    for k in kernels):
+            raise AssertionError(f"phase 1 {label}: knn2_cuda ran {kernels}; at most "
+                                 f"{MAX_KERNELS_A_CALL} kernels, knn2_wgmma among them")
         plain = mm.knn2_plain(q, t)
         err = compare(torch, mm, label, "knn2_plain", got, plain)
         fma = mm.knn2_cuda_fma(q, t)
         fma_err = compare(torch, mm, label + " (FMA kernel)", "knn2_plain", fma, plain)
-        if name == "knn2_wgmma":
-            compare(torch, mm, label, "knn2_split_plain", got, mm.knn2_split_plain(q, t))
-            compare(torch, mm, label, "the FMA kernel", got, fma)
+        compare(torch, mm, label, "knn2_split_plain", got, mm.knn2_split_plain(q, t))
+        compare(torch, mm, label, "the FMA kernel", got, fma)
         flop = 2.0 * P * N * M * D
         nbytes = 4.0 * P * (N + M) * D + 12.0 * P * N
         bound_ms = max(flop / TF32_PEAK, nbytes / MEM_PEAK) * 1e3
         bound_by = "operations" if flop / TF32_PEAK >= nbytes / MEM_PEAK else "bytes"
+        floor_ms = 3 * flop / TF32_PEAK * 1e3
         print(f"[phase1] {label}: P={P} N={N} M={M} D={D} -> {name} {times['kernel']:.4f} ms "
               f"({flop / times['kernel'] / 1e9:.2f} TFLOP/s); FMA kernel {times['fma']:.4f} ms; "
               f"plain {times['plain']:.4f} ms; torch.matmul (product only, no top-2) "
               f"{times['product']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} (TF32 tensor "
-              f"cores; FP32 CUDA cores {flop / FP32_CORES_PEAK * 1e3:.4f} ms; memory "
-              f"{nbytes / MEM_PEAK * 1e3:.4f} ms); share of bound "
-              f"{bound_ms / times['kernel']:.4f} [{card}]", flush=True)
-        if label.startswith("ragged"):
-            print(f"[phase1] ragged duplicates: row 3 -> idx {int(got.best_idx[0, 3])} "
+              f"cores; 3xTF32 floor {floor_ms:.4f} ms; FP32 CUDA cores "
+              f"{flop / FP32_CORES_PEAK * 1e3:.4f} ms; memory {nbytes / MEM_PEAK * 1e3:.4f} ms); "
+              f"share of bound {bound_ms / times['kernel']:.4f}, of the 3xTF32 floor "
+              f"{floor_ms / times['kernel']:.4f}; {len(kernels)} kernels a call [{card}]",
+              flush=True)
+        if label in PLANTED:
+            print(f"[phase1] {label} duplicates: row 3 -> idx {int(got.best_idx[0, 3])} "
                   f"best {float(got.best_dist[0, 3]):.3g} second "
                   f"{float(got.second_dist[0, 3]):.3g}", flush=True)
             if int(got.best_idx[0, 3]) != 10 or float(got.second_dist[0, 3]) != float(
@@ -802,6 +830,7 @@ def phase1(torch, mm, device, card):
                 raise AssertionError("exact duplicate: lowest index and second == best expected")
         out[label] = {"ms": times["kernel"], "fma_ms": times["fma"], "plain_ms": times["plain"],
                       "library_ms": times["product"], "bound_ms": bound_ms, "bound_by": bound_by,
+                      "floor_3xtf32_ms": floor_ms, "kernels_a_call": len(kernels),
                       "max_abs_err": err, "fma_max_abs_err": fma_err}
     return out
 
@@ -1137,8 +1166,8 @@ def phase4b(torch, mm, device, card, workdir: Path, rig_true):
 
 
 def phase2b(torch, mm, device, card):
-    """Descriptors of a width the tensor-core kernel is not built for (96,
-    zero-padded to 128 on their way to it), through the front end's batched
+    """Descriptors of a width that is neither 64 nor 128 (96: three of the
+    tensor-core kernel's 32-dimension slabs), through the front end's batched
     matcher: planted correspondences must come back."""
     from multiview_tpu_torch.sfm import features as feat
     from multiview_tpu_torch.sfm import pipeline as fe
@@ -3788,8 +3817,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "knn2_wgmma", "route": "cuda", "source": WGMMA_SOURCE, "replaces": replaces,
          "launches": sum(paths.values()), "launches_by_path": paths,
-         **{k: chunk[k] for k in keys}},
-        # the FP32 oracle and the kernel for D > 128: no path launches it
+         **{k: chunk[k] for k in keys}, "floor_3xtf32_ms": chunk["floor_3xtf32_ms"],
+         "kernels_a_call": chunk["kernels_a_call"],
+         "by_shape": {label: {k: r[k] for k in ("ms", "library_ms", "bound_ms",
+                                                "floor_3xtf32_ms", "kernels_a_call")}
+                      for label, r in p1.items()}},
+        # the FP32 oracle: no path launches it
         {"name": "knn2_top2", "route": "cuda", "source": FMA_SOURCE, "replaces": replaces,
          "launches": 0, "on_path": False,
          **{k: chunk[k] for k in keys if k not in ("ms", "max_abs_err")},

@@ -4,9 +4,9 @@ The JAX package stays the reference; this package mirrors its layout
 (``io/``, ``calib/``, ``dense/``, ``geometry/``, ``sfm/``, ``solver/``,
 ``tools/``, ``utils/``) with PyTorch code that runs on an NVIDIA H100. Plain tensor
 math is PyTorch; the one TPU (Pallas) kernel of the reference, the fused
-descriptor distance + top-2 matcher, is a pair of hand-written CUDA kernels
-for Hopper (``csrc/knn2_wgmma.cu`` for 64- and 128-wide descriptors,
-``csrc/knn2.cu`` for any other width), built with nvcc at first use.
+descriptor distance + top-2 matcher, is a hand-written CUDA kernel for
+Hopper (``csrc/knn2_wgmma.cu``, every descriptor width; ``csrc/knn2.cu``,
+its FP32 oracle), built with nvcc at first use.
 
 Ported: everything the JAX package does. The ``calibrate`` path (rig BA
 with depth and mesh constraints, the dense LM and the RPC refit,

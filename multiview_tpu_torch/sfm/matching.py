@@ -7,18 +7,17 @@ tiles with the top-2 reduction so the [N,M] distance matrix never reaches
 memory. Here that kernel has two hand-written CUDA counterparts for Hopper:
 
 - ``csrc/knn2_wgmma.cu`` (``knn2_cuda_wgmma``): the products on the tensor
-  cores as split TF32 (3xTF32, FP32 accuracy), tiles loaded asynchronously;
-  descriptor widths 64 and 128, and every narrower width zero-padded to the
-  next of them (zeros change no product and no norm).
-- ``csrc/knn2.cu`` (``knn2_cuda_fma``): FP32 FMA on the CUDA cores; every
-  width, the FP32 oracle on the card, and the kernel for D > 128, which no
-  path of the port reaches.
+  cores as split TF32 (3xTF32, FP32 accuracy), slabs of 32 dimensions
+  loaded asynchronously; every descriptor width (a width that is not a
+  multiple of 32 is zero-filled by the kernel's loads: zeros change no
+  product and no norm); two launches a call.
+- ``csrc/knn2.cu`` (``knn2_cuda_fma``): FP32 FMA on the CUDA cores, every
+  width; the FP32 oracle on the card, which no path launches.
 
-Dispatch (``knn2``) is a rule on where the tensor lies and on its shape,
-never on a timing or on a failure: a tensor on the CPU goes to the plain
-PyTorch version (``knn2_plain``, same formula); a CUDA tensor goes to
-``knn2_cuda``, which launches the tensor-core kernel when D <= 128 (padded
-to 64 or 128) and the FMA kernel for any wider D, or raises. ``knn2_split_plain`` is the
+Dispatch (``knn2``) is a rule on where the tensor lies, never on a timing
+or on a failure: a tensor on the CPU goes to the plain PyTorch version
+(``knn2_plain``, same formula); a CUDA tensor goes to ``knn2_cuda``, which
+launches the tensor-core kernel or raises. ``knn2_split_plain`` is the
 plain version of the tensor-core kernel's arithmetic. Every function takes
 one pair ([N,D] x [M,D]) or a batch of pairs ([P,N,D] x [P,M,D]).
 """
@@ -46,9 +45,13 @@ class MatchResult(NamedTuple):
 WGMMA_LAUNCHES = 0
 FMA_LAUNCHES = 0
 
-WGMMA_DIMS = (64, 128)   # descriptor widths csrc/knn2_wgmma.cu is built for
-_TILE_ROWS = 64          # rows of a tile of csrc/knn2_wgmma.cu
-_MIN_TILES_PER_SPLIT = 4
+_QUERY_ROWS = 128        # rows of a query tile of csrc/knn2_wgmma.cu
+_TRAIN_ROWS = 96         # rows of a train tile (the tensor-core product's N)
+_SLAB_DIMS = 32          # dimensions of a slab: the width the kernel's loads fill to
+_SPLIT_COST_TILES = 1    # a block's fixed cost, in train tiles' time (split_factor)
+# what the tensor-core kernel's clock counters count, a consumer warpgroup each
+CLOCK_PARTS = ("waiting for slabs", "waiting for chains", "chain sums", "top-2 fold",
+               "start", "issuing chains", "releasing slabs", "whole kernel")
 
 
 def _top2(d2: torch.Tensor) -> MatchResult:
@@ -101,53 +104,54 @@ def knn2_split_plain(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
 
 def kernel_for(dim: int) -> str:
     """The CUDA kernel ``knn2_cuda`` launches for descriptors of width
-    ``dim``: the tensor-core kernel up to 128 (widths other than 64 and 128
-    zero-padded to the next of them, ``wgmma_width``), the FMA kernel above."""
-    return "knn2_wgmma" if dim <= WGMMA_DIMS[-1] else "knn2_fma"
+    ``dim``: the tensor-core kernel, whatever the width."""
+    return "knn2_wgmma"
 
 
 def wgmma_width(dim: int) -> int:
-    """The width the tensor-core kernel runs descriptors of width ``dim`` at."""
-    return next(w for w in WGMMA_DIMS if dim <= w)
+    """The width the tensor-core kernel's loads fill descriptors of width
+    ``dim`` to with zeros: the next multiple of its 32-dimension slab."""
+    return -(-dim // _SLAB_DIMS) * _SLAB_DIMS
 
 
+@functools.lru_cache(maxsize=4096)
 def split_factor(blocks: int, tiles: int, sms: int) -> int:
     """How many blocks share the train sweep of one query tile in the
-    tensor-core kernel, which runs one block per SM: the smallest count that
-    fills at least 90% of the waves ``blocks * count`` blocks take on ``sms``
-    SMs, each block keeping at least ``_MIN_TILES_PER_SPLIT`` of the ``tiles``
-    train tiles; where no count reaches 90%, the one that fills most."""
-    best, best_fill = 1, 0.0
-    for s in range(1, max(1, tiles // _MIN_TILES_PER_SPLIT) + 1):
-        fill = blocks * s / (sms * -(-blocks * s // sms))
-        if fill > best_fill:
-            best, best_fill = s, fill
-        if fill >= 0.9:
-            break
+    tensor-core kernel, which runs one block per SM (the last of them to
+    finish folds their partial top-2s): the count that ends soonest, taking a
+    block's time as its share of the ``tiles`` train tiles plus
+    ``_SPLIT_COST_TILES`` (its query tile's set-up and fold) and the sweep's
+    time as the waves ``blocks * count`` blocks take on ``sms`` SMs times a
+    block's; the smallest of equals."""
+    best, best_cost = 1, None
+    for s in range(1, min(tiles, 4 * sms) + 1):
+        cost = -(-blocks * s // sms) * (_SPLIT_COST_TILES + -(-tiles // s))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
     return best
 
 
 def _check_pairs(name: str, query: torch.Tensor, train: torch.Tensor):
-    """Raises on what the kernels do not take; returns the batched views
-    and (P, N, M, D)."""
+    """Raises on what the kernels do not take; returns (P, N, M, D) (P = 1
+    for [N,D] x [M,D]). Reads attributes only: a call's host time is part of
+    what it costs."""
     if query.dtype != torch.float32 or train.dtype != torch.float32:
         raise TypeError(f"{name} takes float32, got {query.dtype} and {train.dtype}")
     if not (query.is_contiguous() and train.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    q = query if query.dim() == 3 else query.unsqueeze(0)
-    t = train if train.dim() == 3 else train.unsqueeze(0)
-    if (query.dim() != train.dim() or q.dim() != 3 or q.shape[0] != t.shape[0]
-            or q.shape[2] != t.shape[2]):
+    qs, ts = query.shape, train.shape
+    if len(qs) != len(ts) or len(qs) not in (2, 3) or qs[-1] != ts[-1] or qs[:-2] != ts[:-2]:
         raise ValueError(f"{name} takes [N,D] x [M,D] or [P,N,D] x [P,M,D], got "
-                         f"{tuple(query.shape)} x {tuple(train.shape)}")
-    if query.device.type != "cuda" or train.device != query.device:
+                         f"{tuple(qs)} x {tuple(ts)}")
+    if not query.is_cuda or train.device != query.device:
         raise ValueError(f"{name} needs query and train on the same CUDA device, "
                          f"got {query.device} and {train.device}")
-    P, N, D = q.shape
-    M = t.shape[1]
+    P = qs[0] if len(qs) == 3 else 1
+    N, D = qs[-2], qs[-1]
+    M = ts[-2]
     if P < 1 or N < 1 or M < 2 or D < 1 or P > 65535:
         raise ValueError(f"{name}: unsupported sizes P={P} N={N} M={M} D={D}")
-    return q, t, (P, N, M, D)
+    return P, N, M, D
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,12 +184,12 @@ def _wgmma_lib():
     lib = cuda_build.load_library("knn2_wgmma.cu")
     fn = lib.mv_knn2_wgmma_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 8)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
-        lib.mv_knn2_wgmma_image_bytes.argtypes = [ctypes.c_int]
-        lib.mv_knn2_wgmma_image_bytes.restype = ctypes.c_int
-    return fn, lib.mv_knn2_wgmma_image_bytes
+        lib.mv_knn2_wgmma_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.mv_knn2_wgmma_scratch_bytes.restype = ctypes.c_longlong
+    return fn, lib.mv_knn2_wgmma_scratch_bytes
 
 
 def knn2_cuda_fma(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
@@ -194,15 +198,15 @@ def knn2_cuda_fma(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
     query [N,D] or [P,N,D], train [M,D] or [P,M,D]: float32, contiguous, on
     one CUDA device. Launches on the current stream and does not wait."""
     global FMA_LAUNCHES
-    q, t, (P, N, M, D) = _check_pairs("knn2_cuda_fma", query, train)
+    P, N, M, D = _check_pairs("knn2_cuda_fma", query, train)
     fn = _fma_lib()
-    dev = q.device
+    dev = query.device
     best_idx, best, second = _outputs(P, N, dev)
     qn = torch.empty((P, N), dtype=torch.float32, device=dev)
     tn = torch.empty((P, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = cuda_build.stream(dev)
-        err = fn(q.data_ptr(), t.data_ptr(), qn.data_ptr(), tn.data_ptr(),
+        err = fn(query.data_ptr(), train.data_ptr(), qn.data_ptr(), tn.data_ptr(),
                  P, N, M, D, best_idx.data_ptr(), best.data_ptr(),
                  second.data_ptr(), stream)
     if err != 0:
@@ -211,63 +215,88 @@ def knn2_cuda_fma(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
     return _result(query.dim() == 3, best_idx, best, second)
 
 
+@functools.lru_cache(maxsize=4096)
+def _wgmma_plan(P: int, N: int, M: int, D: int, device_index: int):
+    """(splits, scratch bytes, query tiles) of a call at these sizes; raises
+    on sizes the tensor-core kernel does not take."""
+    q_tiles = -(-N // _QUERY_ROWS)
+    splits = split_factor(P * q_tiles, -(-M // _TRAIN_ROWS), _sm_count(device_index))
+    nbytes = _wgmma_lib()[1](P, N, M, D, splits)
+    if nbytes < 0:
+        raise ValueError(f"knn2_cuda_wgmma: unsupported sizes P={P} N={N} M={M} D={D}")
+    return splits, nbytes, q_tiles
+
+
+# per (device, stream): the scratch of the tensor-core kernel, kept between
+# calls (a call on the same stream runs after the one before it)
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream: int, nbytes: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+_RAW_STREAM = []  # torch's getter of a device's current stream as an int, once found
+
+
+def _current_stream(index: int) -> int:
+    if not _RAW_STREAM:
+        _RAW_STREAM.append(getattr(torch._C, "_cuda_getCurrentRawStream", None)
+                           or (lambda i: torch.cuda.current_stream(i).cuda_stream))
+    return _RAW_STREAM[0](index)
+
+
 def knn2_cuda_wgmma(query: torch.Tensor, train: torch.Tensor,
                     clocks: Optional[list] = None) -> MatchResult:
-    """The split-TF32 tensor-core kernel (csrc/knn2_wgmma.cu), descriptor
-    width 64 or 128; same inputs and outputs as ``knn2_cuda_fma``. The
-    scratch (tile images of the split inputs with their norms, partial
-    top-2s of the sweep's splits) is allocated here. A list passed as
-    ``clocks`` receives one int64 tensor [blocks, 2 warpgroups, 4] of clock
-    counts (waiting for a tile, wgmma chains, top-2 fold, whole sweep)."""
+    """The split-TF32 tensor-core kernel (csrc/knn2_wgmma.cu), any
+    descriptor width; same inputs and outputs as ``knn2_cuda_fma``. Two
+    launches: the pre-pass that splits both sets into slabs with their
+    norms, and the sweep, whose last block of each query tile folds the
+    splits' partial top-2s. The outputs are one allocation; the scratch is
+    kept per device and stream. A list passed as ``clocks`` receives one
+    int64 tensor [blocks, 2 warpgroups, len(CLOCK_PARTS)] of clock counts."""
     global WGMMA_LAUNCHES
-    q, t, (P, N, M, D) = _check_pairs("knn2_cuda_wgmma", query, train)
-    if D not in WGMMA_DIMS:
-        raise ValueError(f"knn2_cuda_wgmma takes D in {WGMMA_DIMS}, got {D}")
-    q_tiles = -(-N // _TILE_ROWS)
-    t_tiles = -(-M // _TILE_ROWS)
-    if q_tiles > 65535:
-        raise ValueError(f"knn2_cuda_wgmma: unsupported size N={N}")
-    fn, image_bytes = _wgmma_lib()
-    dev = q.device
-    splits = split_factor(P * q_tiles, t_tiles, _sm_count(dev.index))
-    best_idx, best, second = _outputs(P, N, dev)
-    # one scratch allocation: query images, train images, three partial arrays
-    q_bytes = P * q_tiles * image_bytes(D)
-    t_bytes = P * t_tiles * image_bytes(D)
-    part_bytes = P * splits * N * 4
-    scratch = torch.empty(q_bytes + t_bytes + 3 * part_bytes, dtype=torch.uint8, device=dev)
-    q_img = scratch.data_ptr()
-    t_img = q_img + q_bytes
-    part = t_img + t_bytes
+    P, N, M, D = _check_pairs("knn2_cuda_wgmma", query, train)
+    dev = query.device
+    index = dev.index
+    splits, nbytes, q_tiles = _wgmma_plan(P, N, M, D, index)
+    fn = _wgmma_lib()[0]
+    stream = _current_stream(index)
+    scratch = _scratch(dev, stream, nbytes)
+    # best index (as int32 bits), best and second distance, in one allocation;
+    # the views are made after the launch, while the card works
+    out = query.new_empty((3,) + tuple(query.shape[:-1]))
+    base, plane = out.data_ptr(), 4 * P * N
     clock_ptr = None
     if clocks is not None:
-        clocks.append(torch.zeros((P * q_tiles * splits, 2, 4), dtype=torch.int64, device=dev))
+        clocks.append(torch.zeros((P * q_tiles * splits, 2, len(CLOCK_PARTS)),
+                                  dtype=torch.int64, device=dev))
         clock_ptr = clocks[-1].data_ptr()
-    with torch.cuda.device(dev):
-        stream = cuda_build.stream(dev)
-        err = fn(q.data_ptr(), t.data_ptr(), q_img, t_img, P, N, M, D, splits,
-                 part, part + part_bytes, part + 2 * part_bytes,
-                 best_idx.data_ptr(), best.data_ptr(), second.data_ptr(), clock_ptr, stream)
+    args = (query.data_ptr(), train.data_ptr(), scratch.data_ptr(), P, N, M, D, splits,
+            base, base + plane, base + 2 * plane, clock_ptr, stream)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"knn2 tensor-core kernel launch failed with cudaError {err}")
     WGMMA_LAUNCHES += 1
-    return _result(query.dim() == 3, best_idx, best, second)
+    idx_bits, best, second = out.unbind(0)
+    return MatchResult(idx_bits.view(torch.int32), best, second)
 
 
 def knn2_cuda(query: torch.Tensor, train: torch.Tensor) -> MatchResult:
-    """Exact 2-NN on the card. The kernel follows from the shape alone:
-    float32 contiguous CUDA tensors with D <= 128 go to the tensor-core
-    kernel, zero-padded to D = 64 or 128 where they are narrower, any wider
-    D to the FMA kernel (``kernel_for``). Anything else raises, as does a
-    build or a launch that fails: nothing here gives way to another path."""
-    _check_pairs("knn2_cuda", query, train)
-    d = query.shape[-1]
-    if kernel_for(d) == "knn2_fma":
-        return knn2_cuda_fma(query, train)
-    width = wgmma_width(d)
-    if width != d:
-        query = torch.nn.functional.pad(query, (0, width - d))
-        train = torch.nn.functional.pad(train, (0, width - d))
+    """Exact 2-NN on the card: float32 contiguous CUDA tensors of any
+    descriptor width go to the tensor-core kernel (``kernel_for``). Anything
+    else raises, as does a build or a launch that fails: nothing here gives
+    way to another path."""
     return knn2_cuda_wgmma(query, train)
 
 

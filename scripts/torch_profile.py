@@ -62,7 +62,7 @@ def traced(name, fn, out_dir: Path):
     print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     # the port's own kernels, whatever their rank in the table
     own = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and any(k in e.key for k in ("knn2", "split_rows", "merge_splits", "row_sq_norms"))]
+           and any(k in e.key for k in ("knn2", "split_sets", "row_sq_norms"))]
     for e in own:
         print(f"[profile] {name}: own kernel {e.key[:60]}: {e.count} launches, "
               f"{e.self_device_time_total / 1e3:.3f} ms", flush=True)

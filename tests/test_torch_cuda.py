@@ -56,7 +56,10 @@ def _assert_close(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,n,m,d", [(1, 64, 64, 128), (1, 300, 517, 128), (3, 1000, 1037, 128),
-                                     (2, 200, 1037, 64), (1, 5000, 5000, 64)])
+                                     (2, 200, 1037, 64), (1, 5000, 5000, 64),
+                                     (8, 1000, 1000, 128), (2, 333, 517, 160),
+                                     (2, 700, 1037, 256), (1, 300, 517, 72),
+                                     (2, 200, 300, 16)])
 def test_tensor_core_kernel_matches_plain_split_plain_and_fma_kernel(cuda_device, p, n, m, d):
     g = torch.Generator(device=cuda_device).manual_seed(p + n + m + d)
     q, t = _unit(g, (p, n, d), cuda_device), _unit(g, (p, m, d), cuda_device)
@@ -73,34 +76,98 @@ def test_tensor_core_kernel_matches_plain_split_plain_and_fma_kernel(cuda_device
 
 
 @pytest.mark.cuda
+def test_tensor_core_kernel_streams_the_query_past_256(cuda_device):
+    """D = 300: the query tile's slabs streamed beside the train slabs and the
+    chain count read at run time. Held to both plain versions as above; to
+    the FMA kernel, which sums 300 products in another order (distances
+    ~1e-6 apart), on the rows whose best is decided by more than that."""
+    g = torch.Generator(device=cuda_device).manual_seed(1 + 300 + 517 + 300)
+    q, t = _unit(g, (1, 300, 300), cuda_device), _unit(g, (1, 517, 300), cuda_device)
+    got = tm.knn2_cuda(q, t)
+    _assert_close(got, tm.knn2_plain(q, t))
+    _assert_close(got, tm.knn2_split_plain(q, t))
+    fma = tm.knn2_cuda_fma(q, t)
+    decided = fma.second_dist - fma.best_dist > 1e-4 * fma.best_dist + 2e-6
+    assert bool(decided.float().mean() > 0.9)
+    assert torch.equal(got.best_idx[decided], fma.best_idx[decided])
+    torch.testing.assert_close(got.best_dist, fma.best_dist, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.second_dist, fma.second_dist, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_other_widths_go_to_the_fma_kernel(cuda_device):
-    """Widths above 128 go to the FMA kernel (narrower ones are zero-padded
-    for the tensor-core kernel, ``sfm/matching.py::kernel_for``)."""
+    """``knn2`` sends every width to the tensor-core kernel, 160 too; the FMA
+    kernel takes any width only when called as the oracle
+    (``knn2_cuda_fma``), and the two agree."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     q, t = _unit(g, (2, 333, 160), cuda_device), _unit(g, (2, 517, 160), cuda_device)
     before = (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES)
     got = tm.knn2(q, t)
     torch.cuda.synchronize()
-    assert (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES) == (before[0], before[1] + 1)
+    assert (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES) == (before[0] + 1, before[1])
     _assert_close(got, tm.knn2_plain(q, t))
-    with pytest.raises(ValueError):
-        tm.knn2_cuda_wgmma(q, t)
+    oracle = tm.knn2_cuda_fma(q, t)
+    torch.cuda.synchronize()
+    assert (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _assert_close(got, oracle)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 96, 160, 256])
 def test_tensor_core_kernel_ties_keep_the_lowest_index(cuda_device, d):
     g = torch.Generator(device=cuda_device).manual_seed(6)
     q, t = _unit(g, (200, d), cuda_device), _unit(g, (1037, d), cuda_device)
     t[900] = q[3]
     t[10] = q[3]                                # duplicates in different tiles and splits
     t[1036] = q[199]
+    for row in (21, 700):                       # a near-tie pair, 1e-4 from query row 20
+        near = q[20] + 1e-4 * torch.randn(d, generator=g, device=cuda_device)
+        t[row] = near / near.norm()
     got = tm.knn2_cuda_wgmma(q, t)
     torch.cuda.synchronize()
     assert int(got.best_idx[3]) == 10
     assert float(got.second_dist[3]) == float(got.best_dist[3]) <= 1e-6
     assert int(got.best_idx[199]) == 1036
-    assert not bool(tm.ratio_test_mask(got)[3])
+    assert int(got.best_idx[20]) in (21, 700)
+    keep = tm.ratio_test_mask(got)
+    assert not bool(keep[3]) and not bool(keep[20])
+    plain = tm.knn2_plain(q, t)
+    torch.testing.assert_close(got.best_dist, plain.best_dist, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.second_dist, plain.second_dist, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,m,d", [(8, 1000, 1000, 128), (7, 1000, 1000, 96),
+                                     (2, 2048, 2000, 256), (1, 64, 64, 128)])
+def test_tensor_core_kernel_runs_at_most_two_kernels_a_call(cuda_device, p, n, m, d):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, t = _unit(g, (p, n, d), cuda_device), _unit(g, (p, m, d), cuda_device)
+    tm.knn2_cuda(q, t)                          # built and warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tm.knn2_cuda(q, t)
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    assert 1 <= len(kernels) <= 2, kernels
+    assert any("knn2_wgmma" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_refuses_sizes_it_cannot_take(cuda_device):
+    """More pairs than a grid dimension holds, or fewer than two train rows,
+    raise before any launch; nothing gives way to another kernel."""
+    before = (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES)
+    q = torch.zeros((65536, 1, 8), device=cuda_device)
+    t = torch.zeros((65536, 2, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        tm.knn2_cuda(q, t)
+    with pytest.raises(ValueError):
+        tm.knn2(torch.zeros((4, 8), device=cuda_device), torch.zeros((1, 8), device=cuda_device))
+    with pytest.raises(ValueError):
+        tm.knn2_cuda(torch.zeros((4, 0), device=cuda_device),
+                     torch.zeros((3, 0), device=cuda_device))
+    assert (tm.WGMMA_LAUNCHES, tm.FMA_LAUNCHES) == before
 
 
 # ----------------------------------------------------------------------------

@@ -97,19 +97,22 @@ def test_cpu_tensors_use_plain_version_and_kernel_wrapper_checks_inputs():
 
 @pytest.mark.parametrize("dim,kernel", [(128, "knn2_wgmma"), (64, "knn2_wgmma"),
                                         (96, "knn2_wgmma"), (32, "knn2_wgmma"),
-                                        (256, "knn2_fma")])
+                                        (256, "knn2_wgmma")])
 def test_dispatch_rule_follows_the_descriptor_width(dim, kernel):
-    """Up to 128 the tensor-core kernel, at the next of its widths (96 runs
-    at 128 and 32 at 64, zero-padded); wider descriptors the FMA kernel."""
+    """Every width goes to the tensor-core kernel, whose loads zero-fill a
+    row to the next multiple of its 32-dimension slab."""
     assert tm.kernel_for(dim) == kernel
-    if kernel == "knn2_wgmma":
-        assert tm.wgmma_width(dim) == (64 if dim <= 64 else 128)
+    assert tm.wgmma_width(dim) == -(-dim // 32) * 32
+    for d in (1, 31, 33, 72, 160, 200, 513):
+        assert tm.kernel_for(d) == "knn2_wgmma"
+        assert tm.wgmma_width(d) % 32 == 0 and 0 <= tm.wgmma_width(d) - d < 32
 
 
-@pytest.mark.parametrize("dim", [32, 96])
+@pytest.mark.parametrize("dim", [32, 96, 72, 200])
 def test_zero_padding_to_the_tensor_core_width_keeps_the_matches(dim):
-    """What ``knn2_cuda`` hands the tensor-core kernel for a narrow width,
-    the descriptors zero-padded to 64 or 128, gives the unpadded matches:
+    """What the tensor-core kernel's loads make of a width that is not a
+    multiple of its slab, the descriptors zero-filled to the next multiple
+    of 32 (``wgmma_width``), gives the unpadded matches:
     the same best indices, distances within float32 summation order, in the
     kernel's split-TF32 arithmetic as in the plain formula."""
     rng = np.random.default_rng(dim)
@@ -142,10 +145,11 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(dim):
 
 
 @pytest.mark.parametrize("blocks,tiles,sms,want", [
-    (512, 64, 132, 1),     # the main path's chunk: 8 pairs x 64 query tiles, 3.9 waves
-    (157, 157, 132, 4),    # one 10000 x 10000 pair: 628 blocks, 4.8 waves
-    (16, 17, 132, 4),      # 1000 x 1037: at least 4 train tiles a block
-    (1, 2, 132, 1),
+    (512, 64, 132, 1),     # 512 blocks of a full sweep: 3.9 waves, no split pays
+    (256, 32, 132, 1),     # the main path's chunk: 8 pairs x 32 query tiles of 128 rows
+    (79, 79, 132, 5),      # one 10000 x 10000 pair: 395 blocks of 16 tiles, 3 waves
+    (8, 9, 132, 9),        # 1000 x 1037: one train tile a block
+    (1, 2, 132, 2),
 ])
 def test_split_factor_fills_the_card(blocks, tiles, sms, want):
     assert tm.split_factor(blocks, tiles, sms) == want
@@ -180,7 +184,7 @@ def _assert_split_same(ours, ref, mask_ref):
 
 
 @pytest.mark.parametrize("n,m,d", [(512, 512, 128), (300, 517, 128), (512, 512, 64),
-                                   (300, 517, 64)])
+                                   (300, 517, 64), (300, 517, 160), (256, 300, 256)])
 def test_split_plain_matches_plain_jax_knn2_and_pallas(n, m, d):
     rng = np.random.default_rng(n + m + d)
     q, t = _descs(rng, n, d), _descs(rng, m, d)
@@ -206,7 +210,7 @@ def test_split_plain_batched_pairs_match_per_pair():
         tm.knn2_split_plain(torch.as_tensor(q).double(), torch.as_tensor(t).double())
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 def test_split_plain_exact_duplicates_and_near_ties(d):
     """An exact duplicate pair of train rows gives second == best and fails
     the ratio test; a planted near-tie (two train rows 1e-4 from the query)
